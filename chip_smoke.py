@@ -8,23 +8,35 @@ on the first failed phase:
 1. the card's name and power limit (nvidia-smi);
 2. the build of every CUDA kernel of the main path from ``csrc/``, and the
    fold's per-step instruction counts by pipe, read from its SASS
-   (``cuobjdump``), which set its operations bound;
-3. each kernel against its plain PyTorch version on random inputs (fold:
-   a table that fits shared memory and one that does not), bit-exact,
-   with both times from CUDA events;
+   (``cuobjdump``) and printed beside the fixed per-step costs the bound
+   takes (``foldbench.STEP_INSTRUCTIONS``);
+3. each kernel against its plain PyTorch version, bit-exact: the fold on
+   2^20 random lanes (a table that fits shared memory and one that does
+   not) with its times, on the edge cases of ``foldbench.edge_cases``
+   (sparse lanes at the front, none active, one lane, 33 lanes, clamped
+   lengths, a large table), and one lane of length 100 timed;
 4. the main path through the CLI in process — ``check -backend=device
    -stats`` of the adversarial history k=10, batch=100, seed 0 — which must
    exit 0 (OK) with a witness that replays through the port's step_set;
-   launch counts are reset just before and read just after it; then three
-   warm ``check_device_auto`` calls on the same history; then each
-   kernel again against its plain version on the largest inputs the main
-   path gave it, timed, with its lower bound on this card; and the same
-   history through the exhaustive phase alone (beam off, 2^20-row bucket);
+   launch counts are reset just before and read just after it, and every
+   fold call it makes is recorded; then three warm ``check_device_auto``
+   calls on the same history; then each recorded fold call again, bit-exact
+   against the plain fold and timed beside its bound (with its lanes,
+   active lanes, steps and one-thread-per-lane warp efficiency), their
+   sums, and the largest call by steps and the first call with the most
+   lanes against the plain fold's time; and the same history through the
+   exhaustive phase alone (beam off, 2^20-row bucket);
 5. the unsatisfiable k=8 history must exit 1 (ILLEGAL);
 6. the device verdicts of k=6 (OK and unsatisfiable) must equal the port's
    CPU oracle;
 7. the kernel list, one JSON line of kernel measurements, and as the last
    line ``{"ok": true, "device": {...}}``.
+
+Fold times are per call, from CUDA events: ``device`` with the calls
+queued behind a spin kernel (the device's own time for both kernels of a
+call), ``call`` with back-to-back calls from Python (host cost included;
+the plain fold, thousands of small kernels a call, is timed so).  The
+bound is ``foldbench.fold_bound_ms``.
 
 Without a CUDA device it exits 2 and prints no result.
 """
@@ -35,82 +47,15 @@ import contextlib
 import io
 import json
 import os
-import subprocess
 import sys
 import tempfile
 import time
 
 import torch
 
-#: H100 SXM HBM3 rate (NVIDIA data sheet)
-HBM_BYTES_PER_S = 3.35e12
-#: Per SM and clock on Hopper (sm_90), in thread-instructions: the integer
-#: ALU pipe (LOP3, SHF, IADD3, ...) and the FMA pipe that runs IMAD each
-#: take 64 (16 lanes per sub-partition), and the four sub-partitions issue
-#: one warp instruction each, 128 in all.  The two pipes run side by side.
-PIPE_RATE = {"alu": 64, "fma": 64, "issue": 128}
-_ALU_OPS = {"LOP3", "SHF", "IADD3", "ISETP", "LEA", "PRMT", "SEL", "MOV", "IMNMX", "PLOP3", "IABS"}
-
-
-def fold_sass_per_step(so_path: str, cuobjdump: str) -> dict[str, dict[str, float]]:
-    """Instructions per fold step of each kernel variant, read from the
-    built library's SASS: the innermost loop that holds byte permutes (one
-    ``__byte_perm`` per XXH3 step) is the unrolled step loop; its body,
-    branch included, is split by pipe and divided by its step count."""
-    import re
-
-    sass = subprocess.run([cuobjdump, "-sass", so_path], capture_output=True, text=True, check=True).stdout
-    line_re = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)[.A-Z0-9_]*\s*([^;]*);")
-    out = {}
-    for chunk in sass.split("Function : ")[1:]:
-        variant = "shared" if "ILb1E" in chunk.split()[0] else "global"
-        ins = [(int(m[1], 16), m[2], m[3]) for m in line_re.finditer(chunk)]
-        best = None
-        for addr, op, args in ins:
-            target = args.split()[0] if args else ""
-            if op == "BRA" and target.startswith("0x") and int(target, 16) < addr:
-                body = [o for a, o, _ in ins if int(target, 16) <= a <= addr and o != "NOP"]
-                if "PRMT" in body and (best is None or len(body) < len(best)):
-                    best = body
-        steps = best.count("PRMT") if best else 0
-        if steps == 0:
-            raise RuntimeError(f"no XXH3 step loop found in the {variant} kernel's SASS")
-        out[variant] = {
-            "unroll": steps,
-            "alu": sum(o in _ALU_OPS for o in best) / steps,
-            "fma": sum(o == "IMAD" for o in best) / steps,
-            "issue": len(best) / steps,
-        }
-    return out
-
-
 def fail(msg: str) -> None:
     print(f"FAIL: {msg}", flush=True)
     sys.exit(1)
-
-
-def event_ms(fn, reps: int) -> float:
-    fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def fold_bound_ms(length: torch.Tensor, n_rows: int, width: int, per_step: dict, sm_clocks_per_s: float):
-    """Least time for one fold call on these inputs: operations (the steps
-    these lengths ask for, each costing the SASS loop's instructions on its
-    busiest pipe) or bytes (each lane's seed/row/length read and result
-    written once, the table read once)."""
-    steps = int(length.clamp(min=0, max=width).sum())
-    per_step_clocks = max(per_step[p] / PIPE_RATE[p] for p in PIPE_RATE)
-    ops_s = steps * per_step_clocks / sm_clocks_per_s
-    bytes_s = (int(length.numel()) * 32 + n_rows * width * 8) / HBM_BYTES_PER_S
-    return max(ops_s, bytes_s) * 1e3, ("operations" if ops_s >= bytes_s else "bytes")
 
 
 def replay_ok(hist, order) -> bool:
@@ -139,6 +84,7 @@ def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
     from s2_verification_tpu_torch import cli
+    from s2_verification_tpu_torch import foldbench as fb
     from s2_verification_tpu_torch.checker import device as dev_mod
     from s2_verification_tpu_torch.checker.entries import prepare
     from s2_verification_tpu_torch.checker.oracle import check
@@ -147,11 +93,7 @@ def main() -> int:
     from s2_verification_tpu_torch.utils import events as ev
 
     t_start = time.monotonic()
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip()
-    print(card, flush=True)
+    print(fb.card(), flush=True)
     print(
         f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]} device {torch.cuda.get_device_name(0)}",
@@ -169,69 +111,69 @@ def main() -> int:
         if "registers" in line or "spill" in line:
             print(f"  ptxas: {line.strip()}", flush=True)
     cuobjdump = os.path.join(os.path.dirname(fold_cuda.nvcc_path()), "cuobjdump")
-    sass = fold_sass_per_step(fold_cuda.BUILD["path"], cuobjdump)
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    max_mhz = float(
-        subprocess.run(
-            ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
-            capture_output=True, text=True, check=True,
-        ).stdout.split()[0]
-    )
-    sm_clocks_per_s = sms * max_mhz * 1e6
+    sass = fb.sass_step_counts(fold_cuda.BUILD["path"], cuobjdump)
+    clocks, sms, max_mhz = fb.sm_clocks_per_s()
+    sm_hz = max_mhz * 1e6
     for variant, c in sorted(sass.items()):
+        k = fb.STEP_INSTRUCTIONS[variant]
         print(
             f"  sass {variant}-table step loop (unrolled x{c['unroll']}), per step: "
-            f"alu {c['alu']:.2f}, fma {c['fma']:.2f}, issued {c['issue']:.2f} instructions; "
+            f"alu {c['alu']:.2f}, fma {c['fma']:.2f}, issued {c['issue']:.2f} instructions "
+            f"(the bound's fixed costs: {k['alu']:.2f} / {k['fma']:.2f} / {k['issue']:.2f}); "
             f"{sms} SMs at {max_mhz:.0f} MHz max",
             flush=True,
         )
 
-    def bound(length, r, w):
-        variant = "shared" if fold_cuda.LAST_USED_SHARED[0] else "global"
-        return fold_bound_ms(length, r, w, sass[variant], sm_clocks_per_s)
+    def on_card(arrays):
+        return [torch.from_numpy(x).cuda() for x in arrays]
 
-    # -- 3. kernel vs plain on random inputs ---------------------------------
-    gen = torch.Generator(device="cuda").manual_seed(0)
-
-    def rand64(*shape):
-        def word():
-            return torch.randint(0, 1 << 32, shape, generator=gen, device="cuda", dtype=torch.int64)
-
-        return (word() << 32) | word()
-
-    n = 1 << 20
-    for label, (r, w) in (("shared-memory table", (13, 100)), ("global-memory table", (4096, 128))):
-        rh = rand64(r, w)
-        seed = rand64(n)
-        row = torch.randint(0, r, (n,), generator=gen, device="cuda")
-        length = torch.randint(0, w + 1, (n,), generator=gen, device="cuda")
-        length[:2] = torch.tensor([0, w], device="cuda")
-        got = fold_cuda.fold_lanes(seed, row, length, rh)
-        shared = fold_cuda.LAST_USED_SHARED[0]
-        want = xxh3.fold_record_hashes_indexed(seed, row, length, rh)
+    def check_exact(a, what):
+        got = fold_cuda.fold_lanes(*a)
+        want = xxh3.fold_record_hashes_indexed(*a)
         torch.cuda.synchronize()
         if not torch.equal(got, want):
-            fail(f"fold_lanes differs from the plain fold ({label}): "
-                 f"{int((got != want).sum())} of {n} lanes")
-        k_ms = event_ms(lambda: fold_cuda.fold_lanes(seed, row, length, rh), 20)
-        p_ms = event_ms(lambda: xxh3.fold_record_hashes_indexed(seed, row, length, rh), 2)
-        b_ms, b_by = bound(length, r, w)
+            fail(f"fold_lanes differs from the plain fold ({what}): "
+                 f"{int((got != want).sum())} of {got.numel()} lanes")
+        return got, want
+
+    def measure(a, what, reps=20):
+        """Bit-exact check, kernel and plain times, bound; one line."""
+        got, want = check_exact(a, what)
+        launch = dict(fold_cuda.LAST_LAUNCH)
+        dev_ms, call_ms = fb.times(lambda: fold_cuda.fold_lanes(*a), reps, sm_hz)
+        plain_ms = fb.call_ms(lambda: xxh3.fold_record_hashes_indexed(*a), 2)
+        r, w = int(a[3].shape[0]), int(a[3].shape[1])
+        b_ms, b_by = fb.fold_bound_ms(a[2], r, w, clocks)
+        st = fb.call_stats(a[2], w)
         print(
-            f"fold_lanes vs plain, {label} R={r} L={w} lanes={n} shared={shared}: "
-            f"bit-exact; kernel {k_ms:.4f} ms, plain {p_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by})",
+            f"fold_lanes vs plain, {what}: R={r} L={w} lanes={st['lanes']} active={st['active']} "
+            f"steps={st['steps']} shared={launch['shared']} blocks={launch['blocks']}: bit-exact; "
+            f"kernel {dev_ms:.4f} ms device, {call_ms:.4f} ms per call; plain {plain_ms:.3f} ms; "
+            f"bound {b_ms:.4f} ms ({b_by}), kernel at {100 * b_ms / dev_ms:.0f}% of it",
             flush=True,
         )
-        del rh, seed, row, length, got, want
+        err = float((got.double() - want.double()).abs().max()) if got.numel() else 0.0
+        return {"ms": dev_ms, "call_ms": call_ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                "bound_by": b_by, "max_abs_err": err}
+
+    # -- 3. kernel vs plain on random inputs and edge cases ------------------
+    for label, (r, w), seed in (
+        ("2^20 random lanes, shared-memory table", (13, 100), 0),
+        ("2^20 random lanes, global-memory table", (4096, 128), 1),
+    ):
+        measure(fb.random_inputs(r, w, 1 << 20, seed), label)
+    for name, arrays in fb.edge_cases().items():
+        a = on_card(arrays)
+        check_exact(a, f"edge case {name}")
+        print(f"fold_lanes vs plain, edge case {name}: {a[0].numel()} lanes "
+              f"R={a[3].shape[0]} L={a[3].shape[1]} blocks={fold_cuda.LAST_LAUNCH['blocks']}: "
+              "bit-exact", flush=True)
+    one = on_card(fb.edge_cases()["one_lane"])
+    dev_ms, call_ms = fb.times(lambda: fold_cuda.fold_lanes(*one), 50, sm_hz)
+    print(f"fold_lanes, one lane of length 100 (the calls of _fast_multi): "
+          f"{dev_ms:.4f} ms device, {call_ms:.4f} ms per call", flush=True)
 
     # -- 4. main path through the CLI ----------------------------------------
-    biggest = {}
-    real_fold = dev_mod.fold_lanes
-
-    def recording_fold(seed, row, length, rh):
-        if seed.numel() > biggest.get("n", -1):
-            biggest.update(n=seed.numel(), args=[t.clone() for t in (seed, row, length, rh)])
-        return real_fold(seed, row, length, rh)
-
     def run_cli(events, tag):
         captured = {}
         with tempfile.TemporaryDirectory() as tmp:
@@ -248,8 +190,7 @@ def main() -> int:
         return rc, captured, stats
 
     main_events = adversarial_events(10, batch=100, seed=0)
-    dev_mod.fold_lanes = recording_fold
-    try:
+    with fb.recording_folds(dev_mod) as calls:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         fold_cuda.reset_launches()
@@ -261,8 +202,6 @@ def main() -> int:
         launches = dict(fold_cuda.LAUNCHES)
         syncs = dev_mod.SYNCS[0] - syncs0
         peak = torch.cuda.max_memory_allocated()
-    finally:
-        dev_mod.fold_lanes = real_fold
     res = captured.get("res")
     if rc != 0 or res is None or res.outcome.value != "ok":
         fail(f"main path: adversarial k=10 exit {rc}, outcome {res and res.outcome}")
@@ -296,25 +235,34 @@ def main() -> int:
         flush=True,
     )
 
-    # Each kernel against its plain version at the main path's largest call.
-    seed, row, length, rh = biggest["args"]
-    got = fold_cuda.fold_lanes(seed, row, length, rh)
-    want = xxh3.fold_record_hashes_indexed(seed, row, length, rh)
-    torch.cuda.synchronize()
-    if not torch.equal(got, want):
-        fail(f"fold_lanes differs from the plain fold on main-path inputs: "
-             f"{int((got != want).sum())} of {got.numel()} lanes")
-    max_abs_err = float((got.double() - want.double()).abs().max()) if got.numel() else 0.0
-    k_ms = event_ms(lambda: fold_cuda.fold_lanes(seed, row, length, rh), 10)
-    p_ms = event_ms(lambda: xxh3.fold_record_hashes_indexed(seed, row, length, rh), 2)
-    b_ms, b_by = bound(length, int(rh.shape[0]), int(rh.shape[1]))
-    steps = int(length.clamp(min=0).sum())
-    print(
-        f"fold_lanes vs plain at the main path's largest call: lanes={seed.numel()} "
-        f"R={rh.shape[0]} L={rh.shape[1]} steps={steps} shared={fold_cuda.LAST_USED_SHARED[0]}: "
-        f"bit-exact; kernel {k_ms:.4f} ms, plain {p_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by})",
-        flush=True,
-    )
+    # Every fold call of the main path again: bit-exact, timed, bounded.
+    if len(calls) != launches["fold_lanes"]:
+        fail(f"recorded {len(calls)} fold calls, counted {launches['fold_lanes']} launches")
+    dev_sum = bound_sum = 0.0
+    for j, a in enumerate(calls):
+        check_exact(a, f"main-path call {j + 1}")
+        w = int(a[3].shape[1])
+        st = fb.call_stats(a[2], w)
+        dev_ms, _ = fb.times(lambda: fold_cuda.fold_lanes(*a), 10, sm_hz)
+        b_ms, _ = fb.fold_bound_ms(a[2], int(a[3].shape[0]), w, clocks)
+        dev_sum += dev_ms
+        bound_sum += b_ms
+        eff = "-" if st["warp_efficiency"] is None else f"{st['warp_efficiency']:.3f}"
+        print(
+            f"main-path fold call {j + 1}: lanes {st['lanes']}, active {st['active']}, steps "
+            f"{st['steps']}, one-thread-per-lane warp efficiency {eff}; bit-exact; kernel "
+            f"{dev_ms:.4f} ms device, bound {b_ms:.4f} ms",
+            flush=True,
+        )
+    print(f"main-path fold calls, all {len(calls)}: kernel {dev_sum:.4f} ms device in all, "
+          f"bound {bound_sum:.4f} ms in all ({100 * bound_sum / dev_sum:.0f}%)", flush=True)
+    steps = [int(a[2].clamp(min=0, max=a[3].shape[1]).sum()) for a in calls]
+    largest = max(range(len(calls)), key=lambda j: steps[j])
+    widest = max(range(len(calls)), key=lambda j: (calls[j][0].numel(), -j))
+    picks = {widest: "the first call with the most lanes"}
+    picks[largest] = picks.get(largest, "") + ("; " if largest in picks else "") + "the largest call by steps"
+    measured = {j: measure(calls[j], f"main-path call {j + 1}, {what}", reps=10) for j, what in picks.items()}
+    at_largest = measured[largest]
     kernels = [
         {
             "name": "fold_lanes",
@@ -322,15 +270,15 @@ def main() -> int:
             "source": "s2_verification_tpu_torch/csrc/fold_lanes.cu",
             "replaces": "s2_verification_tpu/ops/fold_pallas.py:145",
             "launches": launches["fold_lanes"],
-            "max_abs_err": max_abs_err,
-            "ms": k_ms,
-            "plain_ms": p_ms,
-            "bound_ms": b_ms,
-            "bound_by": b_by,
+            "max_abs_err": at_largest["max_abs_err"],
+            "ms": at_largest["ms"],
+            "plain_ms": at_largest["plain_ms"],
+            "bound_ms": at_largest["bound_ms"],
+            "bound_by": at_largest["bound_by"],
             "library_ms": None,
         }
     ]
-    del biggest["args"], seed, row, length, rh, got, want
+    del calls
 
     # The same history through the exhaustive phase alone, at full width
     # (the 2^20-row bucket the main path falls back to when its beam fails).

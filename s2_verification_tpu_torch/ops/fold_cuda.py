@@ -10,15 +10,33 @@ into each lane's seed:
   in :data:`LAUNCHES`.  A failed build or launch raises; nothing falls back
   to the plain fold on the card.
 
+A call runs two kernels: ``scan_kernel`` lists the lanes that fold, and
+``fold_kernel``, launched behind it as a programmatic dependent, folds
+them on a persistent grid whose warps take only listed lanes, so lanes of
+length 0 occupy no warp slot (design notes in csrc/fold_lanes.cu).  The
+wrapper launches ``min(grid_cap, ceil(N / 1024))`` fold blocks of 1024
+threads, where ``grid_cap`` is the SM count (one block per SM, which the
+occupancy API, asked once per device and table shape, confirms).  It
+passes the lane list (``torch.empty(N, int32)``) and the stream's
+counters (``torch.zeros`` once per device and stream; the fold kernel
+leaves them at zero, and a failed launch drops them).  A call of at most
+1024 lanes (the one-lane calls of ``_fast_multi``) runs the fold kernel
+alone on one block, one thread per lane, and needs neither.
+:data:`LAUNCHES` counts one per call, whether it launched two kernels or
+one.
+
 Build: at first use, ``nvcc -gencode arch=compute_90a,code=sm_90a`` compiles
 the source into a shared library with a plain C interface under
-``s2_verification_tpu_torch/_build/`` (named by the source's content hash,
-so an edited source never loads a stale library), bound with ``ctypes``.
-No PyTorch headers are compiled, so the build takes seconds.
+``s2_verification_tpu_torch/_build/`` (named by the source's content hash
+and the ``-D`` defines, so an edited source never loads a stale library),
+bound with ``ctypes``.  No PyTorch headers are compiled, so the build takes
+seconds.  ``build(defines)`` builds a variant with other tuning constants
+(``FOLD_ROUND_SHARED``, ``FOLD_ROUND_GLOBAL``) or the trace build
+(``FOLD_TRACE``); only ``foldbench`` uses that.
 
-What bounds it on the card: integer operations (a few bytes per lane; per
-fold step about 31 instructions, 20 of them on the integer ALU pipe, as
-``chip_smoke.py`` reads them from the SASS), see csrc/fold_lanes.cu.
+What bounds it on the card: integer operations (32 bytes per lane; per
+fold step about 31 instructions, 20 of them on the integer ALU pipe), see
+csrc/fold_lanes.cu.
 """
 
 from __future__ import annotations
@@ -40,7 +58,10 @@ from .xxh3 import fold_record_hashes_indexed
 __all__ = [
     "LAUNCHES",
     "BUILD",
+    "BUILDS",
+    "LAST_LAUNCH",
     "build",
+    "compile_library",
     "fold_lanes",
     "fold_lanes_cuda",
     "reset_launches",
@@ -52,13 +73,19 @@ BUILD_DIR = _PKG / "_build"
 
 #: kernel launches since the last :func:`reset_launches`
 LAUNCHES = {"fold_lanes": 0}
-#: what the last build did: library path, seconds spent compiling (0.0 when
-#: an existing library was loaded), and the compiler's output
+#: what the default build did: library path, seconds spent compiling (0.0
+#: when an existing library was loaded), and the compiler's output
 BUILD: dict = {}
-#: 1 when the last launch staged the table in shared memory, else 0
-LAST_USED_SHARED = [0]
+#: the same for every build, by its ``-D`` defines (``()`` is the default)
+BUILDS: dict[tuple[str, ...], dict] = {}
+#: the last launch: ``shared`` (1 when the table was staged in shared
+#: memory), fold ``blocks`` launched, ``grid_cap`` (the persistent grid),
+#: ``block_lanes`` (threads per fold block)
+LAST_LAUNCH: dict = {}
 
-_lib = None
+_libs: dict[tuple[str, ...], ctypes.CDLL] = {}
+_plans: dict[tuple, tuple[int, int, int, int]] = {}
+_counters: dict[tuple, torch.Tensor] = {}
 _lock = threading.Lock()
 
 
@@ -81,69 +108,104 @@ def nvcc_path() -> str:
     return found
 
 
-def build() -> ctypes.CDLL:
-    """Compile (if needed) and load the kernel library; idempotent."""
-    global _lib
+def compile_library(source: Path, defines: tuple[str, ...] = ()) -> tuple[Path, float, str]:
+    """``nvcc`` ``source`` (with ``-D`` ``defines``) into a shared library
+    under :data:`BUILD_DIR`, unless one built from the same bytes exists.
+    Returns ``(path, seconds compiling, compiler output)``; raises if nvcc
+    fails.  Safe to call from several threads at once."""
+    tag = hashlib.sha1(source.read_bytes() + repr(tuple(defines)).encode()).hexdigest()[:12]
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    so = BUILD_DIR / f"lib{source.stem}-{tag}.so"
+    if so.exists():
+        return so, 0.0, ""
+    t0 = time.monotonic()
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [
+        nvcc_path(),
+        "-gencode",
+        "arch=compute_90a,code=sm_90a",
+        "-std=c++17",
+        "-O3",
+        "-Xptxas",
+        "-v",
+        "-shared",
+        "-Xcompiler",
+        "-fPIC",
+        *(f"-D{d}" for d in defines),
+        "-o",
+        tmp,
+        str(source),
+    ]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"{source.name}: nvcc failed:\n{log}")
+    os.replace(tmp, so)
+    return so, time.monotonic() - t0, log
+
+
+def build(defines: tuple[str, ...] = ()) -> ctypes.CDLL:
+    """Compile (if needed) and load the kernel library; idempotent.
+
+    ``defines`` (``("FOLD_ROUND_SHARED=1", ...)``) build a variant with other
+    tuning constants into a library of its own.  :data:`BUILDS` holds what
+    each build did, :data:`BUILD` the default's."""
+    defines = tuple(defines)
     with _lock:
-        if _lib is not None:
-            return _lib
-        src = SOURCE.read_bytes()
-        tag = hashlib.sha1(src).hexdigest()[:12]
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        so = BUILD_DIR / f"libfold_lanes-{tag}.so"
-        seconds, log = 0.0, ""
-        if not so.exists():
-            t0 = time.monotonic()
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-            os.close(fd)
-            cmd = [
-                nvcc_path(),
-                "-gencode",
-                "arch=compute_90a,code=sm_90a",
-                "-std=c++17",
-                "-O3",
-                "-Xptxas",
-                "-v",
-                "-shared",
-                "-Xcompiler",
-                "-fPIC",
-                "-o",
-                tmp,
-                str(SOURCE),
-            ]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                os.unlink(tmp)
-                raise RuntimeError(f"fold_lanes: nvcc failed:\n{log}")
-            os.replace(tmp, so)
-            seconds = time.monotonic() - t0
-        lib = ctypes.CDLL(str(so))
-        lib.fold_lanes_launch.argtypes = [
-            ctypes.c_void_p,
-            ctypes.c_void_p,
-            ctypes.c_void_p,
-            ctypes.c_void_p,
-            ctypes.c_int64,
-            ctypes.c_int,
-            ctypes.c_int,
-            ctypes.c_void_p,
-            ctypes.c_void_p,
-            ctypes.POINTER(ctypes.c_int),
-        ]
-        lib.fold_lanes_launch.restype = ctypes.c_int
-        lib.fold_lanes_error_string.argtypes = [ctypes.c_int]
-        lib.fold_lanes_error_string.restype = ctypes.c_char_p
-        BUILD.update(path=str(so), seconds=seconds, log=log)
-        _lib = lib
-        return lib
+        if defines in _libs:
+            return _libs[defines]
+    so, seconds, log = compile_library(SOURCE, defines)
+    lib = ctypes.CDLL(str(so))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    ip = ctypes.POINTER(ctypes.c_int)
+    lib.fold_lanes_plan.argtypes = [i, i, ip, ip, ip, ip]
+    lib.fold_lanes_plan.restype = i
+    lib.fold_lanes_launch.argtypes = [p, p, p, p, i, i, i, i, i, p, p, p, i, p]
+    lib.fold_lanes_launch.restype = i
+    lib.fold_lanes_counters.argtypes = []
+    lib.fold_lanes_counters.restype = i
+    lib.fold_lanes_error_string.argtypes = [i]
+    lib.fold_lanes_error_string.restype = ctypes.c_char_p
+    with _lock:
+        if defines not in _libs:
+            BUILDS[defines] = dict(path=str(so), seconds=seconds, log=log)
+            if not defines:
+                BUILD.update(BUILDS[defines])
+            _libs[defines] = lib
+        return _libs[defines]
+
+
+def _check(lib: ctypes.CDLL, rc: int, what: str) -> None:
+    if rc != 0:
+        msg = lib.fold_lanes_error_string(rc).decode()
+        raise RuntimeError(f"fold_lanes {what} failed: {msg} (cudaError {rc})")
+
+
+def plan(lib: ctypes.CDLL, device: torch.device, r: int, l: int) -> tuple[int, int, int, int]:
+    """``(shared, stride, grid_cap, block_lanes)`` for an ``[r, l]`` table
+    on ``device``, asked of the library once per device and shape."""
+    key = (id(lib), device.index, r, l)
+    got = _plans.get(key)
+    if got is None:
+        out = [ctypes.c_int(0) for _ in range(4)]
+        with torch.cuda.device(device):
+            _check(lib, lib.fold_lanes_plan(r, l, *(ctypes.byref(o) for o in out)), "plan")
+        got = _plans[key] = tuple(o.value for o in out)
+    return got
 
 
 def fold_lanes_cuda(
-    seed: torch.Tensor, row: torch.Tensor, length: torch.Tensor, rh: torch.Tensor
+    seed: torch.Tensor,
+    row: torch.Tensor,
+    length: torch.Tensor,
+    rh: torch.Tensor,
+    lib: ctypes.CDLL | None = None,
 ) -> torch.Tensor:
     """Launch the kernel on CUDA tensors: ``seed``/``row``/``length`` are
-    ``[N]`` int64, ``rh`` the ``[R, L]`` int64 table.  Returns ``[N]``."""
+    ``[N]`` int64, ``rh`` the ``[R, L]`` int64 table.  Returns ``[N]``.
+    ``lib`` is a variant from :func:`build` (default: the default build)."""
     dev = seed.device
     if dev.type != "cuda":
         raise ValueError(f"fold_lanes_cuda needs CUDA tensors, got {dev}")
@@ -155,14 +217,31 @@ def fold_lanes_cuda(
         if t.dim() != nd:
             raise ValueError(f"fold_lanes: {name} must be {nd}-D, got {tuple(t.shape)}")
     n = seed.shape[0]
+    r, l = int(rh.shape[0]), int(rh.shape[1])
     if row.shape[0] != n or length.shape[0] != n:
         raise ValueError("fold_lanes: seed, row and length must have one length")
+    if n >= 1 << 30 or r * (l | 1) >= 1 << 31:
+        raise ValueError(f"fold_lanes: {n} lanes or an [{r}, {l}] table exceed int32 indexing")
     seed, row, length, rh = (t.contiguous() for t in (seed, row, length, rh))
     out = torch.empty_like(seed)
     if n == 0:
         return out
-    lib = build()
-    used = ctypes.c_int(0)
+    if lib is None:
+        lib = build()
+    shared, stride, grid_cap, block_lanes = plan(lib, dev, r, l)
+    blocks = min(grid_cap, -(-n // block_lanes))
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    # More than one block: the kernel lists the lanes that fold in `lanes`
+    # and counts in this stream's counters, which it leaves at zero.
+    lanes = counters = None
+    if blocks > 1:
+        lanes = torch.empty(n, dtype=torch.int32, device=dev)
+        key = (id(lib), dev.index, stream)
+        counters = _counters.get(key)
+        if counters is None:
+            counters = _counters[key] = torch.zeros(
+                lib.fold_lanes_counters(), dtype=torch.int32, device=dev
+            )
     with torch.cuda.device(dev):
         rc = lib.fold_lanes_launch(
             seed.data_ptr(),
@@ -170,17 +249,21 @@ def fold_lanes_cuda(
             length.data_ptr(),
             rh.data_ptr(),
             n,
-            int(rh.shape[0]),
-            int(rh.shape[1]),
+            r,
+            l,
+            stride,
+            shared,
             out.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream,
-            ctypes.byref(used),
+            None if lanes is None else lanes.data_ptr(),
+            None if counters is None else counters.data_ptr(),
+            blocks,
+            stream,
         )
-    if rc != 0:
-        msg = lib.fold_lanes_error_string(rc).decode()
-        raise RuntimeError(f"fold_lanes launch failed: {msg} (cudaError {rc})")
+    if rc != 0 and counters is not None:
+        _counters.pop(key, None)  # a launch that failed may leave them nonzero
+    _check(lib, rc, "launch")
     LAUNCHES["fold_lanes"] += 1
-    LAST_USED_SHARED[0] = int(used.value)
+    LAST_LAUNCH.update(shared=shared, blocks=blocks, grid_cap=grid_cap, block_lanes=block_lanes)
     return out
 
 
