@@ -6,7 +6,8 @@ Drives s2_verification_tpu_torch (never the JAX package) and exits nonzero
 on the first failed phase:
 
 1. the card's name and power limit (nvidia-smi);
-2. the build of every CUDA kernel of the main path from ``csrc/``, and the
+2. the build of every CUDA kernel of the main path from ``csrc/``, with
+   each kernel's registers and the fold blocks resident per SM, and the
    fold's per-step instruction counts by pipe, read from its SASS
    (``cuobjdump``) and printed beside the fixed per-step costs the bound
    takes (``foldbench.STEP_INSTRUCTIONS``);
@@ -32,11 +33,14 @@ on the first failed phase:
 7. the kernel list, one JSON line of kernel measurements, and as the last
    line ``{"ok": true, "device": {...}}``.
 
-Fold times are per call, from CUDA events: ``device`` with the calls
-queued behind a spin kernel (the device's own time for both kernels of a
-call), ``call`` with back-to-back calls from Python (host cost included;
-the plain fold, thousands of small kernels a call, is timed so).  The
-bound is ``foldbench.fold_bound_ms``.
+Fold times are per call, from CUDA events: ``call`` with back-to-back
+calls from Python (host cost included; the median of five timings), and
+``device`` with the calls queued behind a spin kernel (the device's own
+time for both kernels of a call), and ``host``, the host's time to
+enqueue a call meanwhile.  The kernels line gives ``call`` as
+``ms`` and ``device`` as ``device_ms``; the plain fold, thousands of small
+kernels a call, is timed per call.  The bound is
+``foldbench.fold_bound_ms``.
 
 Without a CUDA device it exits 2 and prints no result.
 """
@@ -107,15 +111,16 @@ def main() -> int:
         f"{os.path.relpath(fold_cuda.BUILD['path'], here)}",
         flush=True,
     )
-    for line in fold_cuda.BUILD.get("log", "").splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  ptxas: {line.strip()}", flush=True)
+    for line in fb.ptxas_lines(fold_cuda.BUILD["log"]):
+        print(f"  ptxas: {line}", flush=True)
     cuobjdump = os.path.join(os.path.dirname(fold_cuda.nvcc_path()), "cuobjdump")
     sass = fb.sass_step_counts(fold_cuda.BUILD["path"], cuobjdump)
     clocks, sms, max_mhz = fb.sm_clocks_per_s()
     sm_hz = max_mhz * 1e6
+    print(f"  fold blocks of 1024 threads resident per SM: "
+          f"{fb.blocks_per_sm(fold_cuda.build(), sms)}", flush=True)
+    k = fb.STEP_INSTRUCTIONS
     for variant, c in sorted(sass.items()):
-        k = fb.STEP_INSTRUCTIONS[variant]
         print(
             f"  sass {variant}-table step loop (unrolled x{c['unroll']}), per step: "
             f"alu {c['alu']:.2f}, fma {c['fma']:.2f}, issued {c['issue']:.2f} instructions "
@@ -140,7 +145,7 @@ def main() -> int:
         """Bit-exact check, kernel and plain times, bound; one line."""
         got, want = check_exact(a, what)
         launch = dict(fold_cuda.LAST_LAUNCH)
-        dev_ms, call_ms = fb.times(lambda: fold_cuda.fold_lanes(*a), reps, sm_hz)
+        dev_ms, call_ms, host_ms = fb.times(lambda: fold_cuda.fold_lanes(*a), reps, sm_hz)
         plain_ms = fb.call_ms(lambda: xxh3.fold_record_hashes_indexed(*a), 2)
         r, w = int(a[3].shape[0]), int(a[3].shape[1])
         b_ms, b_by = fb.fold_bound_ms(a[2], r, w, clocks)
@@ -148,12 +153,13 @@ def main() -> int:
         print(
             f"fold_lanes vs plain, {what}: R={r} L={w} lanes={st['lanes']} active={st['active']} "
             f"steps={st['steps']} shared={launch['shared']} blocks={launch['blocks']}: bit-exact; "
-            f"kernel {dev_ms:.4f} ms device, {call_ms:.4f} ms per call; plain {plain_ms:.3f} ms; "
-            f"bound {b_ms:.4f} ms ({b_by}), kernel at {100 * b_ms / dev_ms:.0f}% of it",
+            f"kernel {call_ms:.4f} ms per call, {dev_ms:.4f} ms device, {host_ms:.4f} ms host; "
+            f"plain {plain_ms:.3f} ms; "
+            f"bound {b_ms:.4f} ms ({b_by}), device time at {100 * b_ms / dev_ms:.0f}% of it",
             flush=True,
         )
         err = float((got.double() - want.double()).abs().max()) if got.numel() else 0.0
-        return {"ms": dev_ms, "call_ms": call_ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+        return {"ms": call_ms, "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": b_ms,
                 "bound_by": b_by, "max_abs_err": err}
 
     # -- 3. kernel vs plain on random inputs and edge cases ------------------
@@ -169,9 +175,9 @@ def main() -> int:
               f"R={a[3].shape[0]} L={a[3].shape[1]} blocks={fold_cuda.LAST_LAUNCH['blocks']}: "
               "bit-exact", flush=True)
     one = on_card(fb.edge_cases()["one_lane"])
-    dev_ms, call_ms = fb.times(lambda: fold_cuda.fold_lanes(*one), 50, sm_hz)
+    dev_ms, call_ms, host_ms = fb.times(lambda: fold_cuda.fold_lanes(*one), 50, sm_hz)
     print(f"fold_lanes, one lane of length 100 (the calls of _fast_multi): "
-          f"{dev_ms:.4f} ms device, {call_ms:.4f} ms per call", flush=True)
+          f"{dev_ms:.4f} ms device, {call_ms:.4f} ms per call, {host_ms:.4f} ms host", flush=True)
 
     # -- 4. main path through the CLI ----------------------------------------
     def run_cli(events, tag):
@@ -238,24 +244,27 @@ def main() -> int:
     # Every fold call of the main path again: bit-exact, timed, bounded.
     if len(calls) != launches["fold_lanes"]:
         fail(f"recorded {len(calls)} fold calls, counted {launches['fold_lanes']} launches")
-    dev_sum = bound_sum = 0.0
+    dev_sum = call_sum = bound_sum = 0.0
     for j, a in enumerate(calls):
         check_exact(a, f"main-path call {j + 1}")
         w = int(a[3].shape[1])
         st = fb.call_stats(a[2], w)
-        dev_ms, _ = fb.times(lambda: fold_cuda.fold_lanes(*a), 10, sm_hz)
+        dev_ms, call_ms, host_ms = fb.times(lambda: fold_cuda.fold_lanes(*a), 10, sm_hz)
         b_ms, _ = fb.fold_bound_ms(a[2], int(a[3].shape[0]), w, clocks)
         dev_sum += dev_ms
+        call_sum += call_ms
         bound_sum += b_ms
         eff = "-" if st["warp_efficiency"] is None else f"{st['warp_efficiency']:.3f}"
         print(
             f"main-path fold call {j + 1}: lanes {st['lanes']}, active {st['active']}, steps "
             f"{st['steps']}, one-thread-per-lane warp efficiency {eff}; bit-exact; kernel "
-            f"{dev_ms:.4f} ms device, bound {b_ms:.4f} ms",
+            f"{call_ms:.4f} ms per call, {dev_ms:.4f} ms device, {host_ms:.4f} ms host, "
+            f"bound {b_ms:.4f} ms",
             flush=True,
         )
-    print(f"main-path fold calls, all {len(calls)}: kernel {dev_sum:.4f} ms device in all, "
-          f"bound {bound_sum:.4f} ms in all ({100 * bound_sum / dev_sum:.0f}%)", flush=True)
+    print(f"main-path fold calls, all {len(calls)}: kernel {call_sum:.4f} ms per call and "
+          f"{dev_sum:.4f} ms device in all, bound {bound_sum:.4f} ms in all "
+          f"(device time at {100 * bound_sum / dev_sum:.0f}% of it)", flush=True)
     steps = [int(a[2].clamp(min=0, max=a[3].shape[1]).sum()) for a in calls]
     largest = max(range(len(calls)), key=lambda j: steps[j])
     widest = max(range(len(calls)), key=lambda j: (calls[j][0].numel(), -j))
@@ -272,6 +281,7 @@ def main() -> int:
             "launches": launches["fold_lanes"],
             "max_abs_err": at_largest["max_abs_err"],
             "ms": at_largest["ms"],
+            "device_ms": at_largest["device_ms"],
             "plain_ms": at_largest["plain_ms"],
             "bound_ms": at_largest["bound_ms"],
             "bound_by": at_largest["bound_by"],

@@ -26,14 +26,17 @@
 //   a device-wide list, one atomicAdd per block and pass of 2048 lanes,
 //   keeping the lanes' order.
 // - fold_kernel is launched behind it as a programmatic dependent, so that
-//   its blocks start while the scan runs: a persistent grid of one block
-//   of 1024 threads per SM, so that the table is staged once per SM.  Each
-//   block stages the [R, L] table in shared memory, with an odd row stride
-//   so that lanes of different rows at the same step read different banks
-//   (a table over the opt-in budget stays in device memory and is read
-//   through the read-only cache, __ldg; any table size is accepted), then
-//   waits for the scan (griddepcontrol.wait).  Warps take the listed lanes
-//   32 at a time into a queue in shared memory.  Only as many warps fold
+//   its blocks start while the scan runs: a persistent grid of blocks of
+//   1024 threads, SMs x the blocks the occupancy API finds resident on one
+//   SM (one on an H100: at 40 or 48 registers a thread, one block takes
+//   more than half the register file), so that the table is staged once
+//   per SM.  Each block stages the [R, L] table in shared memory, with an
+//   odd row stride so that lanes of different rows at the same step read
+//   different banks (a table over the opt-in budget stays in device
+//   memory and is read through the read-only cache, __ldg; any table size
+//   is accepted), then waits for the scan (griddepcontrol.wait).  Warps
+//   take the listed lanes 32 at a time into a queue in shared memory.
+//   Only as many warps fold
 //   as give each the same number of takes, so that no sparse last wave
 //   runs alone; their first takes are fixed and spread over the SMs and
 //   each SM's four schedulers (by the warp's slot, %warpid), later ones
@@ -41,7 +44,7 @@
 //   idle thread takes a queued lane and the warp runs
 //   m = __reduce_min_sync(remaining) steps with no test in the loop but its
 //   counter; when m is shorter than kRound (16 steps with the shared
-//   table, 8 with the global one: the best of those tried on an H100),
+//   table, 8 with the global one: the best of 1, 8 and 16 on an H100),
 //   threads whose lanes have more steps go on up to kRound, so that lanes
 //   of mixed lengths do not cut every round to a step or two.  A thread
 //   whose lane is done writes the result and takes the next lane in the
@@ -62,21 +65,13 @@
 // uint64_t bit patterns.  The launcher runs on the caller's stream, does
 // not synchronise, allocates nothing (the wrapper passes the lane list and
 // the counters), and returns the cudaError_t of the launches.
-// FOLD_ROUND_SHARED and FOLD_ROUND_GLOBAL override the round lengths at
-// build time, and FOLD_TRACE builds a per-warp timeline (python -m
-// s2_verification_tpu_torch.foldbench times variants and reads the
-// trace).
+// Built with -DFOLD_TRACE (a diagnostic build, ops/fold_cuda.py's
+// build(trace=True)), fold_kernel also records a per-warp timeline that
+// python -m s2_verification_tpu_torch.foldbench reads.
 
 #include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
-
-#ifndef FOLD_ROUND_SHARED
-#define FOLD_ROUND_SHARED 16
-#endif
-#ifndef FOLD_ROUND_GLOBAL
-#define FOLD_ROUND_GLOBAL 8
-#endif
 
 namespace {
 
@@ -86,7 +81,7 @@ using i64 = long long;
 
 constexpr uint64_t kBitflip = 0x1CAD21F72C81017CULL ^ 0xDB979083E96DD4DEULL;
 constexpr uint64_t kPrime = 0x9FB21C651E98DF25ULL;
-constexpr int kThreads = 1024;     // fold_kernel: one block per SM
+constexpr int kThreads = 1024;     // threads per fold_kernel block
 constexpr int kWarps = kThreads / 32;
 constexpr int kStageCells = 8;     // table cells per thread and staging pass
 constexpr int kCopyLanes = 256;    // lanes per copy chunk
@@ -97,9 +92,8 @@ constexpr int kScanLanes = 8;      // lanes per thread and scan pass
 constexpr int kScanBlocks = 1024;  // at most; a block then scans more than one pass
 // The least steps a round runs while its lanes last, by table variant.
 template <bool kShared>
-constexpr unsigned kRound = kShared ? FOLD_ROUND_SHARED : FOLD_ROUND_GLOBAL;
+constexpr unsigned kRound = kShared ? 16 : 8;
 constexpr unsigned kFull = 0xffffffffu;
-static_assert(kRound<true> >= 1 && kRound<false> >= 1, "a round runs at least one step");
 
 // counters[]: lanes listed, the take cursor, fold blocks gone, each on a
 // 128-byte line of its own (kLine int32 apart).  Zero before a call; the
@@ -122,7 +116,7 @@ __device__ __forceinline__ unsigned long long now_ns() {
 }
 
 // Per-warp timeline of the last multi-block launch (a diagnostic build:
-// foldbench --trace reads it with fold_lanes_trace).
+// foldbench reads it with fold_lanes_trace).
 struct WarpTrace {
   unsigned smid, warpid;
   unsigned long long entry, staged, waited, listed, folded, done, clocks;
@@ -224,13 +218,13 @@ __global__ void __launch_bounds__(kScanThreads)
 }
 
 // This warp's place in its block's order of the first sweep.  An SM's
-// four schedulers each run the warps of one slot class (%warpid % 4), and
-// a block holds an aligned group of eight slots (two per class) in some
-// order.  Sweep s of the block in group g goes to class (s + g) % 4, and
-// to the group's second slot of that class from s = 4 on, so that a sweep
-// that reaches only some blocks falls on other schedulers in each group
-// of an SM.  Computed as a rank over the block's warps, so it is a
-// permutation of 0..kWarps-1 whatever the slots.
+// four schedulers each run the warps of one slot class (%warpid % 4).  The
+// key of slot s, in aligned group g = s / 8 of eight slots (two per
+// class), is ((s % 4 - g) & 3) + 4 * ((s / 4) & 1): the warps of equal key
+// lie on different classes, one per group, so each run of four ranks
+// falls on all four schedulers when the block's slots are contiguous.
+// Computed as a rank over the block's warps, so it is a permutation of
+// 0..kWarps-1 whatever the slots.
 __device__ int sweep_rank() {
   __shared__ int key[kWarps];
   const int warp = threadIdx.x >> 5;
@@ -439,9 +433,10 @@ int fold_lanes_counters() { return kCounters; }
 
 // The launch plan for an [r, l] table on the current device: *shared is 1
 // when the table is staged in shared memory (row stride *stride, odd), else
-// 0 (stride l); *grid_cap is the persistent grid, SMs x the blocks resident
-// on one SM (one: a block holds the SM's warps); *block_lanes is kThreads:
-// a call of at most that many lanes runs on one block.
+// 0 (stride l); *grid_cap is the persistent grid, SMs x the blocks that
+// cudaOccupancyMaxActiveBlocksPerMultiprocessor finds resident on one SM;
+// *block_lanes is kThreads: a call of at most that many lanes runs on one
+// block.
 int fold_lanes_plan(int r, int l, int* shared, int* stride, int* grid_cap, int* block_lanes) {
   int dev = 0, sms = 0, smem_optin = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -487,7 +482,7 @@ int fold_lanes_plan(int r, int l, int* shared, int* stride, int* grid_cap, int* 
   }
   if (err != cudaSuccess) return err;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  *grid_cap = sms;  // one block per SM (the occupancy API says one fits)
+  *grid_cap = sms * per_sm;
   *block_lanes = kThreads;
   return cudaSuccess;
 }
@@ -538,7 +533,7 @@ int fold_lanes_launch(const void* seed, const void* row, const void* length,
 
 #ifdef FOLD_TRACE
 // Copies the timelines of the first `warps` warps of the last multi-block
-// launch (blockIdx.x * 8 + warp) to host memory: per warp the SM, the warp
+// launch (blockIdx.x * kWarps + warp) to host memory: per warp the SM, the warp
 // slot, globaltimer ns at entry, table staged, the scan's list awaited,
 // first take, end of folding and exit, the SM clocks from entry to exit,
 // the takes and the lanes taken.

@@ -6,15 +6,11 @@
 ``chip_smoke.py`` takes its fold measurements from the helpers here.  Run
 on its own, this records every fold call of the main path
 (``check_device_auto`` of adversarial k=10, batch=100, seed 0), then times
-on the same inputs, in one process:
-
-- the default build of csrc/fold_lanes.cu and build variants of its two
-  round lengths (``FOLD_ROUND_SHARED``, ``FOLD_ROUND_GLOBAL``);
-- with ``--baseline-source``, another version of the source that exports
-  the one-thread-per-lane launcher ``fold_lanes_launch(seed, row, length,
-  rh, int64 n, int r, int l, out, stream, int* used_shared)`` (unpack an
-  earlier commit with ``git archive`` and point at its csrc/fold_lanes.cu);
-
+on the same inputs, in one process, the build of csrc/fold_lanes.cu and,
+with ``--baseline-source``, another version of the source that exports
+the one-thread-per-lane launcher ``fold_lanes_launch(seed, row, length,
+rh, int64 n, int r, int l, out, stream, int* used_shared)`` (unpack an
+earlier commit with ``git archive`` and point at its csrc/fold_lanes.cu),
 at the main path's calls (each call, their sum, the largest by steps), on
 2^20 random lanes with a table in shared memory (also with the lanes
 ordered by length) and one in global memory, and on one lane of length
@@ -22,7 +18,10 @@ ordered by length) and one in global memory, and on one lane of length
 plain fold.  Two times per input: ``device`` (the calls queued behind a
 spin kernel, so the device runs them back to back and the host's launch
 cost is hidden) and ``call`` (CUDA events around back-to-back calls from
-Python, host cost included).  Needs a CUDA device.
+Python, host cost included), and the host's own time per call.  Rows
+print ``device/call/host ms (share of the bound)``.  Then it summarises one launch of the
+diagnostic ``FOLD_TRACE`` build (a per-warp timeline) at the main path's
+two widest calls and on the random inputs.  Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -50,21 +49,19 @@ HBM_BYTES_PER_S = 3.35e12
 #: take 64 (16 lanes per sub-partition), and the four sub-partitions issue
 #: one warp instruction each, 128 in all.  The two pipes run side by side.
 PIPE_RATE = {"alu": 64, "fma": 64, "issue": 128}
-#: Instructions per fold step by pipe, read with ``cuobjdump -sass`` from
-#: the step loop (unrolled 4x) of the one-thread-per-lane build of
-#: csrc/fold_lanes.cu that the persistent design replaced (nvcc 12.8,
-#: sm_90a, on an H100 80GB HBM3).  Fixed here so that the bound counts the
-#: work of the inputs and not the instructions of the kernel under test.
-STEP_INSTRUCTIONS = {
-    "shared": {"alu": 19.50, "fma": 9.25, "issue": 30.25},
-    "global": {"alu": 20.25, "fma": 9.50, "issue": 31.00},
-}
+#: Instructions per fold step by pipe: on each pipe the fewest of the step
+#: loops (unrolled 4x) read with ``cuobjdump -sass`` from csrc/fold_lanes.cu
+#: built by nvcc 12.8 for sm_90a: the one-thread-per-lane kernel that the
+#: persistent design replaced (ALU / FMA / issued: 19.50 / 9.25 / 30.25 with
+#: the table in shared memory, 20.25 / 9.50 / 31.00 in global memory) and
+#: the persistent kernel (18.50 / 9.50 / 29.75 and 21.50 / 10.00 / 34.00).
+#: Fixed here, and the same wherever the table lies, so that the bound
+#: counts the work of the inputs and not the instructions of the kernel
+#: under test.
+STEP_INSTRUCTIONS = {"alu": 18.50, "fma": 9.25, "issue": 29.75}
+#: back-to-back calls per timing
+REPS = 20
 _ALU_OPS = {"LOP3", "SHF", "IADD3", "ISETP", "LEA", "PRMT", "SEL", "MOV", "IMNMX", "PLOP3", "IABS"}
-#: The tuning variants the sweep builds besides the default.
-VARIANTS = (
-    ("FOLD_ROUND_SHARED=1", "FOLD_ROUND_GLOBAL=1"),  # rounds of the shortest lane alone
-    ("FOLD_ROUND_SHARED=8", "FOLD_ROUND_GLOBAL=16"),
-)
 
 
 def card() -> str:
@@ -88,22 +85,41 @@ def sm_clocks_per_s() -> tuple[float, int, float]:
     return sms * mhz * 1e6, sms, mhz
 
 
-def table_fits_shared(r: int, l: int) -> bool:
-    """Whether an ``[r, l]`` table fits one block's opt-in shared memory:
-    which per-step costs of :data:`STEP_INSTRUCTIONS` the bound takes."""
-    return r * l * 8 <= torch.cuda.get_device_properties(0).shared_memory_per_block_optin
-
-
 def fold_bound_ms(length: torch.Tensor, r: int, l: int, clocks_per_s: float) -> tuple[float, str]:
     """Least time for one fold call on these inputs, and what sets it:
     operations (the steps these lengths ask for, each costing the fixed
     per-step instructions on the busiest pipe) or bytes (each lane's
     seed/row/length read and result written once, the table read once)."""
-    per_step = STEP_INSTRUCTIONS["shared" if table_fits_shared(r, l) else "global"]
     steps = int(length.clamp(min=0, max=l).sum())
-    ops_s = steps * max(per_step[p] / PIPE_RATE[p] for p in PIPE_RATE) / clocks_per_s
+    ops_s = steps * max(STEP_INSTRUCTIONS[p] / PIPE_RATE[p] for p in PIPE_RATE) / clocks_per_s
     bytes_s = (int(length.numel()) * 32 + r * l * 8) / HBM_BYTES_PER_S
     return max(ops_s, bytes_s) * 1e3, ("operations" if ops_s >= bytes_s else "bytes")
+
+
+def ptxas_lines(log: str) -> list[str]:
+    """The lines of an ``nvcc -Xptxas -v`` log that give registers, spills
+    and shared memory, each after the kernel they belong to (``scan``,
+    ``fold/shared``, ``fold/global``)."""
+    out, fn = [], ""
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            fn = ("scan" if "scan_kernel" in ln else
+                  "fold/shared" if "fold_kernelILb1E" in ln else
+                  "fold/global" if "fold_kernelILb0E" in ln else ln.split()[-3])
+        elif "registers" in ln or "spill" in ln:
+            out.append(f"{fn}: {ln.split(':', 1)[-1].strip()}")
+    return out
+
+
+def blocks_per_sm(lib, sms: int) -> dict[str, int]:
+    """Fold blocks resident per SM, as the launch plan reads them from the
+    occupancy API, with the table in shared memory (the main path's
+    [16, 112]) and in global memory ([4096, 128])."""
+    dev = torch.device("cuda", torch.cuda.current_device())
+    return {
+        variant: fold_cuda.plan(lib, dev, r, l)[2] // sms
+        for variant, (r, l) in (("shared", (16, 112)), ("global", (4096, 128)))
+    }
 
 
 def call_stats(length: torch.Tensor, l: int) -> dict:
@@ -166,36 +182,42 @@ def step_counts(sass: str) -> dict[str, dict[str, float]]:
             "fma": sum(o == "IMAD" for o in best) / steps,
             "issue": len(best) / steps,
         }
-    if set(out) != set(STEP_INSTRUCTIONS):
+    if set(out) != {"shared", "global"}:
         raise RuntimeError(f"fold kernels found in the SASS: {sorted(out)}, want both variants")
     return out
 
 
 def call_ms(fn, reps: int) -> float:
     """Time per call of ``fn`` from CUDA events around ``reps``
-    back-to-back calls: a call whose host work outlasts its device work is
-    timed by the host."""
+    back-to-back calls, the median of five such timings (so that one stall
+    of the host does not set it): a call whose host work outlasts its
+    device work is timed by the host."""
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     fn()
     torch.cuda.synchronize()
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    got = []
+    for _ in range(5):
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        got.append(start.elapsed_time(end) / reps)
+    return float(np.median(got))
 
 
-def times(fn, reps: int, sm_hz: float) -> tuple[float, float]:
-    """``(device ms, call ms)`` per call of ``fn``, which launches a few
-    kernels at most.
+def times(fn, reps: int, sm_hz: float) -> tuple[float, float, float]:
+    """``(device ms, call ms, host ms)`` per call of ``fn``, which launches
+    a few kernels at most.
 
     ``call`` is :func:`call_ms`.  ``device``: the same calls queued behind
     ``torch.cuda._sleep``, long enough that the host has enqueued them all
     before the device starts the first; the events then read the device's
-    own time per call.  ``sm_hz`` is the SM clock the spin counts in (the
-    max clock: a slower clock only lengthens the spin).  Raises if the spin
-    did not cover the enqueue after three tries."""
+    own time per call, and the host's clock around the enqueue reads
+    ``host``, the host's time per call with the device never in its way.
+    ``sm_hz`` is the SM clock the spin counts in (the max clock: a slower
+    clock only lengthens the spin).  Raises if the spin did not cover the
+    enqueue after three tries."""
     t0 = time.perf_counter()
     call = call_ms(fn, reps)
     host_s = time.perf_counter() - t0
@@ -203,13 +225,15 @@ def times(fn, reps: int, sm_hz: float) -> tuple[float, float]:
     for attempt in range(3):
         torch.cuda._sleep(int(2 ** (attempt + 1) * host_s * sm_hz) + 10_000)
         start.record()
+        t0 = time.perf_counter()
         for _ in range(reps):
             fn()
+        host = (time.perf_counter() - t0) / reps * 1e3
         covered = not start.query()
         end.record()
         torch.cuda.synchronize()
         if covered:
-            return start.elapsed_time(end) / reps, call
+            return start.elapsed_time(end) / reps, call, host
     raise RuntimeError("the spin kernel ended before the host had enqueued the timed calls")
 
 
@@ -297,10 +321,10 @@ def trace_summary(a: list[torch.Tensor]) -> dict:
     list, took their first lanes, ended folding and exited, the lanes taken
     per SM scheduler (SM, warp slot % 4), and the SM clock the warps ran
     at.  The scan kernel before the fold kernel is not traced."""
-    lib = fold_cuda.build(("FOLD_TRACE",))
+    lib = fold_cuda.build(trace=True)
     lib.fold_lanes_trace.argtypes = [ctypes.c_void_p, ctypes.c_int]
     lib.fold_lanes_trace.restype = ctypes.c_int
-    fold_cuda.fold_lanes_cuda(*a, lib=lib)
+    fold_cuda.fold_lanes_cuda(*a, trace=True)
     warps = fold_cuda.LAST_LAUNCH["blocks"] * fold_cuda.LAST_LAUNCH["block_lanes"] // 32
     buf = np.zeros(warps, _TRACE)
     if lib.fold_lanes_trace(buf.ctypes.data, warps) != 0:
@@ -363,10 +387,6 @@ def _baseline_fold(source: Path):
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(prog="python -m s2_verification_tpu_torch.foldbench")
     ap.add_argument("--baseline-source", type=Path, default=None)
-    ap.add_argument("--reps", type=int, default=20)
-    ap.add_argument("--trace", action="store_true",
-                    help="also summarise one launch of the FOLD_TRACE build at the main path's "
-                         "two widest calls and on the random inputs")
     ap.add_argument("--json", default=None, help="also write the results here")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -379,16 +399,16 @@ def main(argv: list[str] | None = None) -> int:
     print(card(), flush=True)
     clocks, sms, mhz = sm_clocks_per_s()
     with ThreadPoolExecutor() as pool:  # one nvcc per build, all at once
-        libs = dict(zip(((),) + VARIANTS, pool.map(fold_cuda.build, ((),) + VARIANTS)))
+        builds = [pool.submit(fold_cuda.build, trace) for trace in (False, True)]
         baseline = pool.submit(_baseline_fold, args.baseline_source) if args.baseline_source else None
-    folds = {"default": lambda *a: fold_cuda.fold_lanes_cuda(*a, lib=libs[()])}
-    for d in VARIANTS:
-        folds[",".join(d)] = lambda *a, lib=libs[d]: fold_cuda.fold_lanes_cuda(*a, lib=lib)
+    lib = builds[0].result()
+    builds[1].result()  # the trace build, for trace_summary
+    folds = {"default": fold_cuda.fold_lanes_cuda}
     if baseline is not None:
         folds["baseline"] = baseline.result()
-    for d, info in fold_cuda.BUILDS.items():
-        regs = [ln.strip() for ln in info["log"].splitlines() if "registers" in ln]
-        print(f"build {','.join(d) or 'default'}: {info['seconds']:.2f}s; " + " | ".join(regs), flush=True)
+    print(f"build: {fold_cuda.BUILD['seconds']:.2f}s; {'; '.join(ptxas_lines(fold_cuda.BUILD['log']))}",
+          flush=True)
+    print(f"blocks per SM: {blocks_per_sm(lib, sms)}", flush=True)
 
     hist = prepare(adversarial_events(10, batch=100, seed=0))
     with recording_folds(dev_mod) as calls:
@@ -419,37 +439,37 @@ def main(argv: list[str] | None = None) -> int:
             torch.cuda.synchronize()
             if not torch.equal(got, want):
                 raise RuntimeError(f"{label} differs from the plain fold on {name}")
-            dev_ms, call_ms = times(lambda: fold(*a), args.reps, mhz * 1e6)
-            row[label] = {"device_ms": dev_ms, "call_ms": call_ms, "share": b_ms / dev_ms}
+            dev_ms, call_ms, host_ms = times(lambda: fold(*a), REPS, mhz * 1e6)
+            row[label] = {"device_ms": dev_ms, "call_ms": call_ms, "host_ms": host_ms,
+                          "share": b_ms / dev_ms}
         results["inputs"][name] = row
         print(
             f"{name}: lanes {row['lanes']} steps {row['steps']} bound {b_ms:.4f} ms ({b_by}); "
-            + "; ".join(f"{k} {v['device_ms']:.4f}/{v['call_ms']:.4f} ms ({100 * v['share']:.0f}%)"
-                        for k, v in row.items() if isinstance(v, dict)),
+            + "; ".join(f"{k} {v['device_ms']:.4f}/{v['call_ms']:.4f}/{v['host_ms']:.4f} ms "
+                        f"({100 * v['share']:.0f}%)" for k, v in row.items() if isinstance(v, dict)),
             flush=True,
         )
     for label in folds:
-        dev_sum = sum(results["inputs"][f"call{j + 1}"][label]["device_ms"] for j in range(len(calls)))
-        b_sum = sum(results["inputs"][f"call{j + 1}"]["bound_ms"] for j in range(len(calls)))
-        results.setdefault("main_path_sum", {})[label] = {"device_ms": dev_sum, "bound_ms": b_sum}
-        print(f"main path, {len(calls)} calls, {label}: device {dev_sum:.4f} ms, bound {b_sum:.4f} ms",
-              flush=True)
+        sums = {k: sum(results["inputs"][f"call{j + 1}"][label][k] for j in range(len(calls)))
+                for k in ("device_ms", "call_ms", "host_ms")}
+        sums["bound_ms"] = sum(results["inputs"][f"call{j + 1}"]["bound_ms"] for j in range(len(calls)))
+        results.setdefault("main_path_sum", {})[label] = sums
+        print(f"main path, {len(calls)} calls, {label}: device {sums['device_ms']:.4f} ms, "
+              f"per call {sums['call_ms']:.4f} ms, host {sums['host_ms']:.4f} ms, "
+              f"bound {sums['bound_ms']:.4f} ms", flush=True)
     for name in ("call10", "call11", "random_shared", "random_global"):
         a = inputs.get(name)
         for label in ("default", "baseline"):
             if a is None or label not in folds:
                 continue
-            kt = kernel_breakdown(lambda: folds[label](*a), args.reps)
+            kt = kernel_breakdown(lambda: folds[label](*a), REPS)
             results.setdefault("kernels_us", {}).setdefault(name, {})[label] = kt
             print(f"{name}, {label}, device us per call by kernel: "
                   + ", ".join(f"{k[:60]} {v:.2f}" for k, v in sorted(kt.items(), key=lambda kv: -kv[1])),
                   flush=True)
-    if args.trace:
-        for name in ("call10", "call11", "random_shared", "random_global"):
-            if name in inputs:
-                results.setdefault("trace", {})[name] = tr = trace_summary(inputs[name])
-                print(f"trace {name}: {json.dumps({k: v for k, v in tr.items() if k != 'raw'})}",
-                      flush=True)
+    for name in ("call10", "call11", "random_shared", "random_global"):
+        results.setdefault("trace", {})[name] = tr = trace_summary(inputs[name])
+        print(f"trace {name}: {json.dumps({k: v for k, v in tr.items() if k != 'raw'})}", flush=True)
     if args.json:
         with open(args.json, "w", encoding="utf-8") as f:
             json.dump(results, f, indent=1)

@@ -15,11 +15,13 @@ A call runs two kernels: ``scan_kernel`` lists the lanes that fold, and
 them on a persistent grid whose warps take only listed lanes, so lanes of
 length 0 occupy no warp slot (design notes in csrc/fold_lanes.cu).  The
 wrapper launches ``min(grid_cap, ceil(N / 1024))`` fold blocks of 1024
-threads, where ``grid_cap`` is the SM count (one block per SM, which the
-occupancy API, asked once per device and table shape, confirms).  It
-passes the lane list (``torch.empty(N, int32)``) and the stream's
-counters (``torch.zeros`` once per device and stream; the fold kernel
-leaves them at zero, and a failed launch drops them).  A call of at most
+threads, where ``grid_cap`` is the SM count times the blocks the occupancy
+API finds resident on one SM (asked once per device and table shape; one
+on an H100).  It passes the stream's scratch: the counters (``torch.zeros``
+once per device and stream; the fold kernel leaves them at zero) and the
+lane list (``torch.empty`` int32, kept and grown to the widest call so far;
+calls on one stream run in order, so they can share it).  A failed launch
+drops both.  A call of at most
 1024 lanes (the one-lane calls of ``_fast_multi``) runs the fold kernel
 alone on one block, one thread per lane, and needs neither.
 :data:`LAUNCHES` counts one per call, whether it launched two kernels or
@@ -27,12 +29,12 @@ one.
 
 Build: at first use, ``nvcc -gencode arch=compute_90a,code=sm_90a`` compiles
 the source into a shared library with a plain C interface under
-``s2_verification_tpu_torch/_build/`` (named by the source's content hash
-and the ``-D`` defines, so an edited source never loads a stale library),
-bound with ``ctypes``.  No PyTorch headers are compiled, so the build takes
-seconds.  ``build(defines)`` builds a variant with other tuning constants
-(``FOLD_ROUND_SHARED``, ``FOLD_ROUND_GLOBAL``) or the trace build
-(``FOLD_TRACE``); only ``foldbench`` uses that.
+``s2_verification_tpu_torch/_build/`` (named by the source's content hash,
+so an edited source never loads a stale library), bound with ``ctypes``.
+No PyTorch headers are compiled, so the build takes seconds.
+``build(trace=True)`` builds the diagnostic ``-DFOLD_TRACE`` library, whose
+fold kernel records a per-warp timeline; ``foldbench`` launches it
+through ``fold_lanes_cuda(..., trace=True)``.
 
 What bounds it on the card: integer operations (32 bytes per lane; per
 fold step about 31 instructions, 20 of them on the integer ALU pipe), see
@@ -41,6 +43,7 @@ csrc/fold_lanes.cu.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -58,7 +61,6 @@ from .xxh3 import fold_record_hashes_indexed
 __all__ = [
     "LAUNCHES",
     "BUILD",
-    "BUILDS",
     "LAST_LAUNCH",
     "build",
     "compile_library",
@@ -73,19 +75,17 @@ BUILD_DIR = _PKG / "_build"
 
 #: kernel launches since the last :func:`reset_launches`
 LAUNCHES = {"fold_lanes": 0}
-#: what the default build did: library path, seconds spent compiling (0.0
-#: when an existing library was loaded), and the compiler's output
+#: what the build did: library path, seconds spent compiling (0.0 when an
+#: existing library was loaded), and the compiler's output
 BUILD: dict = {}
-#: the same for every build, by its ``-D`` defines (``()`` is the default)
-BUILDS: dict[tuple[str, ...], dict] = {}
 #: the last launch: ``shared`` (1 when the table was staged in shared
 #: memory), fold ``blocks`` launched, ``grid_cap`` (the persistent grid),
 #: ``block_lanes`` (threads per fold block)
 LAST_LAUNCH: dict = {}
 
-_libs: dict[tuple[str, ...], ctypes.CDLL] = {}
+_libs: dict[bool, ctypes.CDLL] = {}
 _plans: dict[tuple, tuple[int, int, int, int]] = {}
-_counters: dict[tuple, torch.Tensor] = {}
+_scratch: dict[tuple, tuple[torch.Tensor, torch.Tensor]] = {}
 _lock = threading.Lock()
 
 
@@ -108,14 +108,14 @@ def nvcc_path() -> str:
     return found
 
 
-def compile_library(source: Path, defines: tuple[str, ...] = ()) -> tuple[Path, float, str]:
-    """``nvcc`` ``source`` (with ``-D`` ``defines``) into a shared library
-    under :data:`BUILD_DIR`, unless one built from the same bytes exists.
-    Returns ``(path, seconds compiling, compiler output)``; raises if nvcc
-    fails.  Safe to call from several threads at once."""
-    tag = hashlib.sha1(source.read_bytes() + repr(tuple(defines)).encode()).hexdigest()[:12]
+def compile_library(source: Path, trace: bool = False) -> tuple[Path, float, str]:
+    """``nvcc`` ``source`` (with ``-DFOLD_TRACE`` if ``trace``) into a shared
+    library under :data:`BUILD_DIR`, unless one built from the same bytes
+    exists.  Returns ``(path, seconds compiling, compiler output)``; raises
+    if nvcc fails.  Safe to call from several threads at once."""
+    tag = hashlib.sha1(source.read_bytes()).hexdigest()[:12]
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    so = BUILD_DIR / f"lib{source.stem}-{tag}.so"
+    so = BUILD_DIR / f"lib{source.stem}-{tag}{'-trace' if trace else ''}.so"
     if so.exists():
         return so, 0.0, ""
     t0 = time.monotonic()
@@ -132,7 +132,7 @@ def compile_library(source: Path, defines: tuple[str, ...] = ()) -> tuple[Path, 
         "-shared",
         "-Xcompiler",
         "-fPIC",
-        *(f"-D{d}" for d in defines),
+        *(["-DFOLD_TRACE"] if trace else []),
         "-o",
         tmp,
         str(source),
@@ -146,17 +146,14 @@ def compile_library(source: Path, defines: tuple[str, ...] = ()) -> tuple[Path, 
     return so, time.monotonic() - t0, log
 
 
-def build(defines: tuple[str, ...] = ()) -> ctypes.CDLL:
+def build(trace: bool = False) -> ctypes.CDLL:
     """Compile (if needed) and load the kernel library; idempotent.
-
-    ``defines`` (``("FOLD_ROUND_SHARED=1", ...)``) build a variant with other
-    tuning constants into a library of its own.  :data:`BUILDS` holds what
-    each build did, :data:`BUILD` the default's."""
-    defines = tuple(defines)
+    ``trace`` builds the diagnostic library (``-DFOLD_TRACE``, which also
+    exports ``fold_lanes_trace``) instead; :data:`BUILD` is the product's."""
     with _lock:
-        if defines in _libs:
-            return _libs[defines]
-    so, seconds, log = compile_library(SOURCE, defines)
+        if trace in _libs:
+            return _libs[trace]
+    so, seconds, log = compile_library(SOURCE, trace)
     lib = ctypes.CDLL(str(so))
     p, i = ctypes.c_void_p, ctypes.c_int
     ip = ctypes.POINTER(ctypes.c_int)
@@ -169,12 +166,11 @@ def build(defines: tuple[str, ...] = ()) -> ctypes.CDLL:
     lib.fold_lanes_error_string.argtypes = [i]
     lib.fold_lanes_error_string.restype = ctypes.c_char_p
     with _lock:
-        if defines not in _libs:
-            BUILDS[defines] = dict(path=str(so), seconds=seconds, log=log)
-            if not defines:
-                BUILD.update(BUILDS[defines])
-            _libs[defines] = lib
-        return _libs[defines]
+        if trace not in _libs:
+            if not trace:
+                BUILD.update(path=str(so), seconds=seconds, log=log)
+            _libs[trace] = lib
+        return _libs[trace]
 
 
 def _check(lib: ctypes.CDLL, rc: int, what: str) -> None:
@@ -196,16 +192,8 @@ def plan(lib: ctypes.CDLL, device: torch.device, r: int, l: int) -> tuple[int, i
     return got
 
 
-def fold_lanes_cuda(
-    seed: torch.Tensor,
-    row: torch.Tensor,
-    length: torch.Tensor,
-    rh: torch.Tensor,
-    lib: ctypes.CDLL | None = None,
-) -> torch.Tensor:
-    """Launch the kernel on CUDA tensors: ``seed``/``row``/``length`` are
-    ``[N]`` int64, ``rh`` the ``[R, L]`` int64 table.  Returns ``[N]``.
-    ``lib`` is a variant from :func:`build` (default: the default build)."""
+def _check_args(seed, row, length, rh) -> None:
+    """Raise, saying what is wrong, on arguments the kernel cannot take."""
     dev = seed.device
     if dev.type != "cuda":
         raise ValueError(f"fold_lanes_cuda needs CUDA tensors, got {dev}")
@@ -216,33 +204,62 @@ def fold_lanes_cuda(
             raise ValueError(f"fold_lanes: {name} must be int64, got {t.dtype}")
         if t.dim() != nd:
             raise ValueError(f"fold_lanes: {name} must be {nd}-D, got {tuple(t.shape)}")
-    n = seed.shape[0]
-    r, l = int(rh.shape[0]), int(rh.shape[1])
-    if row.shape[0] != n or length.shape[0] != n:
+    if row.shape[0] != seed.shape[0] or length.shape[0] != seed.shape[0]:
         raise ValueError("fold_lanes: seed, row and length must have one length")
+    raise ValueError("fold_lanes: bad arguments")
+
+
+def fold_lanes_cuda(
+    seed: torch.Tensor,
+    row: torch.Tensor,
+    length: torch.Tensor,
+    rh: torch.Tensor,
+    trace: bool = False,
+) -> torch.Tensor:
+    """Launch the kernel on CUDA tensors: ``seed``/``row``/``length`` are
+    ``[N]`` int64, ``rh`` the ``[R, L]`` int64 table.  Returns ``[N]``.
+    ``trace`` launches the diagnostic build (:func:`build`).
+
+    A call's host work is most of its time below about 0.04 ms of device
+    work (the search's narrow calls), so the common case takes one test of
+    the arguments, no device guard when the device is current, and the
+    stream's raw handle."""
+    if not (
+        seed.is_cuda
+        and seed.dtype == row.dtype == length.dtype == rh.dtype == torch.int64
+        and seed.get_device() == row.get_device() == length.get_device() == rh.get_device()
+        and seed.dim() == row.dim() == length.dim() == 1
+        and rh.dim() == 2
+        and seed.shape[0] == row.shape[0] == length.shape[0]
+    ):
+        _check_args(seed, row, length, rh)
+    dev = seed.device
+    n = seed.shape[0]
+    r, l = rh.shape
     if n >= 1 << 30 or r * (l | 1) >= 1 << 31:
         raise ValueError(f"fold_lanes: {n} lanes or an [{r}, {l}] table exceed int32 indexing")
-    seed, row, length, rh = (t.contiguous() for t in (seed, row, length, rh))
+    if not (seed.is_contiguous() and row.is_contiguous() and length.is_contiguous() and rh.is_contiguous()):
+        seed, row, length, rh = (t.contiguous() for t in (seed, row, length, rh))
     out = torch.empty_like(seed)
     if n == 0:
         return out
-    if lib is None:
-        lib = build()
+    lib = _libs.get(trace) or build(trace)
     shared, stride, grid_cap, block_lanes = plan(lib, dev, r, l)
     blocks = min(grid_cap, -(-n // block_lanes))
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    # More than one block: the kernel lists the lanes that fold in `lanes`
-    # and counts in this stream's counters, which it leaves at zero.
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)
+    # More than one block: the kernel lists the lanes that fold in this
+    # stream's lane list and counts in its counters, which it leaves at zero.
     lanes = counters = None
     if blocks > 1:
-        lanes = torch.empty(n, dtype=torch.int32, device=dev)
         key = (id(lib), dev.index, stream)
-        counters = _counters.get(key)
+        counters, lanes = _scratch.get(key) or (None, None)
         if counters is None:
-            counters = _counters[key] = torch.zeros(
-                lib.fold_lanes_counters(), dtype=torch.int32, device=dev
-            )
-    with torch.cuda.device(dev):
+            counters = torch.zeros(lib.fold_lanes_counters(), dtype=torch.int32, device=dev)
+        if lanes is None or lanes.numel() < n:
+            lanes = torch.empty(n, dtype=torch.int32, device=dev)
+        _scratch[key] = counters, lanes
+    guard = contextlib.nullcontext() if dev.index == torch.cuda.current_device() else torch.cuda.device(dev)
+    with guard:
         rc = lib.fold_lanes_launch(
             seed.data_ptr(),
             row.data_ptr(),
@@ -260,7 +277,7 @@ def fold_lanes_cuda(
             stream,
         )
     if rc != 0 and counters is not None:
-        _counters.pop(key, None)  # a launch that failed may leave them nonzero
+        _scratch.pop(key, None)  # a launch that failed may leave the counters nonzero
     _check(lib, rc, "launch")
     LAUNCHES["fold_lanes"] += 1
     LAST_LAUNCH.update(shared=shared, blocks=blocks, grid_cap=grid_cap, block_lanes=block_lanes)

@@ -9,7 +9,8 @@ card the CUDA kernel against the plain fold.  Every comparison is
 integer-exact (tolerance 0).
 
 Also the measuring helpers that need no card: the lane statistics of a
-call and the reading of the step loop from SASS.
+call, the bound, and the reading of the step loop from SASS and of
+registers from the ptxas log.
 """
 
 import jax
@@ -20,7 +21,14 @@ import torch
 
 from s2_verification_tpu.ops.u64 import U64
 from s2_verification_tpu.ops.xxh3 import fold_record_hashes_indexed as jax_fold
-from s2_verification_tpu_torch.foldbench import call_stats, edge_cases, step_counts
+from s2_verification_tpu_torch.foldbench import (
+    STEP_INSTRUCTIONS,
+    call_stats,
+    edge_cases,
+    fold_bound_ms,
+    ptxas_lines,
+    step_counts,
+)
 from s2_verification_tpu_torch.ops import fold_cuda, xxh3
 from s2_verification_tpu_torch.ops.step_kernel import join_u64
 
@@ -79,6 +87,36 @@ def test_call_stats_counts_the_one_thread_per_lane_warps():
     assert st["steps"] == 10 + 31 * 4 + 7
     assert st["warp_efficiency"] == st["steps"] / (32 * (10 + 7 + 0))
     assert call_stats(torch.zeros(5, dtype=torch.int64), 3)["warp_efficiency"] is None
+
+
+def test_bound_counts_fixed_step_costs_wherever_the_table_lies():
+    # Steps 5 + 100 (clamped) + 0 + 0 on a slow clock, so operations set it;
+    # the ALU pipe (18.50 of 64 per clock) is the busiest.
+    length = torch.tensor([5, 200, -1, 0])
+    clocks = 1e6
+    want = 105 * STEP_INSTRUCTIONS["alu"] / 64 / clocks * 1e3
+    for r in (16, 4096):  # a table that fits shared memory and one that does not
+        ms, by = fold_bound_ms(length, r, 100, clocks)
+        assert by == "operations" and ms == pytest.approx(want, rel=1e-12)
+    # On a fast clock the bytes set it: 32 per lane and the table once.
+    ms, by = fold_bound_ms(length, 4096, 100, 1e15)
+    assert by == "bytes" and ms == pytest.approx((4 * 32 + 4096 * 100 * 8) / 3.35e12 * 1e3)
+
+
+def test_ptxas_lines_name_each_kernel():
+    log = """ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_111fold_kernelILb0EEEvPKyPKxS4_S2_iiiPyPiS5_' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_111fold_kernelILb0EEEvPKyPKxS4_S2_iiiPyPiS5_
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 48 registers, used 1 barriers, 41088 bytes smem
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_111scan_kernelEPKxiiPiS2_' for 'sm_90a'
+ptxas info    : Used 32 registers, used 1 barriers, 256 bytes smem
+"""
+    assert ptxas_lines(log) == [
+        "fold/global: 0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "fold/global: Used 48 registers, used 1 barriers, 41088 bytes smem",
+        "scan: Used 32 registers, used 1 barriers, 256 bytes smem",
+    ]
 
 
 _SASS = """
