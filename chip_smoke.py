@@ -30,7 +30,23 @@ on the first failed phase:
 5. the unsatisfiable k=8 history must exit 1 (ILLEGAL);
 6. the device verdicts of k=6 (OK and unsatisfiable) must equal the port's
    CPU oracle;
-7. the kernel list, one JSON line of kernel measurements, and as the last
+7. the collector path, with the port's collector only: the five
+   ``scripts/table_bench.py`` configurations at seed 4242 with the fault
+   plan of ``bench.py:395-400`` (copied here: ``bench.py`` imports JAX),
+   each collected, timed and decided on the card, the four small ones
+   equal to the port's CPU oracle, with both replay checks refusing their
+   witness once a real-time pair is swapped
+   (:func:`swap_real_time_pair`); then the 5×2000 ``match-seq-num``
+   headline at seed 20260729, whose JSONL must hash to
+   :data:`HEADLINE_SHA256`, through the CLI in process (``check
+   -backend=device -stats``, launch counts reset just before and read just
+   after, every fold call recorded), which must exit 0 with a witness that
+   replays (:func:`replay_fast`) and the search statistics of
+   :data:`HEADLINE_STATS`; three warm ``check_device_auto`` calls; every
+   recorded fold call again, bit-exact against the plain fold, with their
+   total device and per-call time beside the summed bound, and the largest
+   by steps measured alone;
+8. the kernel list, one JSON line of kernel measurements, and as the last
    line ``{"ok": true, "device": {...}}``.
 
 Fold times are per call, from CUDA events: ``call`` with back-to-back
@@ -48,6 +64,7 @@ Without a CUDA device it exits 2 and prints no result.
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import io
 import json
 import os
@@ -57,9 +74,42 @@ import time
 
 import torch
 
+#: sha256 of the JSONL (``utils/events.write_history``) of the 5×2000
+#: match-seq-num history at seed 20260729 with :func:`bench_faults`: what
+#: the JAX package's collector (``s2_verification_tpu.collector``, with the
+#: C ``xxhash``) writes for ``bench.py:476``'s ``make_bench_history``, and
+#: what the port's collector writes (``tests/test_torch_collector.py`` holds
+#: the two collectors byte for byte).
+HEADLINE_SHA256 = "8a3594230bdb13cefad1e8d77c4d2ebd76671196f9ff003d26e8b363d2f6a4c4"
+#: The headline's search statistics from the port's ``check_device_auto(...,
+#: device="cpu")``, which the JAX engine's match (layers, peak frontier,
+#: expanded).
+HEADLINE_STATS = {"layers": 2885, "max_frontier": 3, "expanded": 5785}
+#: ``scripts/table_bench.py:27-33`` without the CPU-intractable 16×2000.
+TABLE_CONFIGS = [
+    ("regular", 2, 50),
+    ("regular", 5, 100),
+    ("match-seq-num", 5, 200),
+    ("fencing", 8, 500),
+    ("match-seq-num", 5, 2000),
+]
+
+
 def fail(msg: str) -> None:
     print(f"FAIL: {msg}", flush=True)
     sys.exit(1)
+
+
+def bench_faults(clients: int, ops: int):
+    """The fault plan of ``bench.py:395-400`` (``make_bench_history``)."""
+    from s2_verification_tpu_torch.collector.fake_s2 import FaultPlan
+
+    return FaultPlan(
+        p_append_definite=0.05,
+        p_append_indefinite=12.0 / max(clients * ops, 1),
+        p_read_fail=0.02,
+        p_check_tail_fail=0.02,
+    )
 
 
 def replay_ok(hist, order) -> bool:
@@ -79,6 +129,40 @@ def replay_ok(hist, order) -> bool:
         if not states:
             return False
     return True
+
+
+def replay_fast(hist, order) -> bool:
+    """:func:`replay_ok` in O(n) of the order: an op placed after another
+    must not have returned before that one was called, so at each position
+    the earliest return among the ops placed later is compared with the
+    call of the op placed there."""
+    from s2_verification_tpu_torch.models.stream import INIT_STATE, step_set
+
+    ops = hist.ops
+    if sorted(order) != list(range(len(ops))):
+        return False
+    later_ret = float("inf")
+    for j in reversed(order):
+        if later_ret < ops[j].call:
+            return False
+        later_ret = min(later_ret, ops[j].ret)
+    states = [INIT_STATE]
+    for j in order:
+        states = step_set(states, ops[j].inp, ops[j].out)
+        if not states:
+            return False
+    return True
+
+
+def swap_real_time_pair(hist, order) -> list[int] | None:
+    """``order`` with its first adjacent pair that real time orders (the
+    first op returned before the second was called) swapped: a witness that
+    both replay checks must refuse.  None if no such pair is adjacent."""
+    ops = hist.ops
+    for i in range(len(order) - 1):
+        if ops[order[i]].ret < ops[order[i + 1]].call:
+            return order[:i] + [order[i + 1], order[i]] + order[i + 2 :]
+    return None
 
 
 def main() -> int:
@@ -213,6 +297,8 @@ def main() -> int:
         fail(f"main path: adversarial k=10 exit {rc}, outcome {res and res.outcome}")
     if res.linearization is None or not replay_ok(captured["hist"], res.linearization):
         fail("main path: the witness does not replay")
+    if not replay_fast(captured["hist"], res.linearization):
+        fail("main path: the O(n) replay check refuses a witness the pairwise one accepts")
     print(
         f"main path: check adversarial k=10 batch=100 seed=0 -> exit 0 OK, witness replays; "
         f"wall {wall:.3f} s, layers {stats.get('layers')}, peak frontier "
@@ -340,6 +426,153 @@ def main() -> int:
             f"(host syncs {syncs})",
             flush=True,
         )
+
+    # -- 7. the collector path ---------------------------------------------
+    from s2_verification_tpu_torch.collector.collect import CollectConfig, collect_history
+
+    def collect(workflow, clients, ops, seed):
+        t0 = time.monotonic()
+        events = collect_history(
+            CollectConfig(clients, ops, workflow, seed=seed, faults=bench_faults(clients, ops))
+        )
+        return events, time.monotonic() - t0
+
+    for workflow, clients, ops in TABLE_CONFIGS:
+        events, collect_s = collect(workflow, clients, ops, 4242)
+        hist = prepare(events)
+        syncs0 = dev_mod.SYNCS[0]
+        t0 = time.monotonic()
+        res = dev_mod.check_device_auto(hist, collect_stats=True)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        if res.outcome.value != "ok" or not replay_fast(hist, res.linearization or []):
+            fail(f"{workflow} {clients}x{ops}: device {res.outcome}, or the witness does not replay")
+        line = (
+            f"collector {workflow} {clients}x{ops} seed 4242: collected in {collect_s:.3f} s, "
+            f"{len(events)} events, {len(hist.ops)} checked ops; device OK in {wall:.3f} s, "
+            f"layers {res.stats.layers}, peak frontier {res.stats.max_frontier}, "
+            f"host syncs {dev_mod.SYNCS[0] - syncs0}"
+        )
+        if ops < 2000:
+            want_v = check(hist).outcome
+            if want_v != res.outcome:
+                fail(f"{workflow} {clients}x{ops}: device {res.outcome}, oracle {want_v}")
+            if not replay_ok(hist, res.linearization):
+                fail(f"{workflow} {clients}x{ops}: the pairwise replay check refuses the witness")
+            bad = swap_real_time_pair(hist, list(res.linearization))
+            if bad is None or replay_ok(hist, bad) or replay_fast(hist, bad):
+                fail(f"{workflow} {clients}x{ops}: a witness with a real-time pair swapped "
+                     "is not refused by both replay checks")
+            line += (f"; == oracle {want_v.value}, both replay checks pass, and both refuse "
+                     "the witness with a real-time pair swapped")
+        print(line, flush=True)
+
+    events, collect_s = collect("match-seq-num", 5, 2000, 20260729)
+    buf = io.StringIO()
+    ev.write_history(events, buf)
+    digest = hashlib.sha256(buf.getvalue().encode("utf-8")).hexdigest()
+    if digest != HEADLINE_SHA256:
+        fail(f"headline JSONL sha256 {digest}, want {HEADLINE_SHA256}")
+    print(f"collector headline match-seq-num 5x2000 seed 20260729: collected in {collect_s:.3f} s, "
+          f"{len(events)} events, JSONL sha256 {digest} (pinned)", flush=True)
+    with fb.recording_folds(dev_mod) as calls:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fold_cuda.reset_launches()
+        syncs0 = dev_mod.SYNCS[0]
+        t0 = time.monotonic()
+        rc, captured, stats = run_cli(events, "headline-5x2000")
+        torch.cuda.synchronize()
+        first_wall = time.monotonic() - t0
+        collector_launches = dict(fold_cuda.LAUNCHES)
+        syncs = dev_mod.SYNCS[0] - syncs0
+        peak = torch.cuda.max_memory_allocated()
+    res, hist = captured.get("res"), captured.get("hist")
+    if rc != 0 or res is None or res.outcome.value != "ok":
+        fail(f"headline: exit {rc}, outcome {res and res.outcome}")
+    if res.linearization is None or not replay_fast(hist, res.linearization):
+        fail("headline: the witness does not replay")
+    got_stats = {k: stats.get(k) for k in HEADLINE_STATS}
+    if got_stats != HEADLINE_STATS:
+        fail(f"headline search statistics {got_stats}, the CPU run's {HEADLINE_STATS}")
+    for name, count in collector_launches.items():
+        if count == 0:
+            fail(f"the collector path launched {name} no time")
+    warm = []
+    for _ in range(3):
+        t0 = time.monotonic()
+        res_w = dev_mod.check_device_auto(hist)
+        torch.cuda.synchronize()
+        warm.append(time.monotonic() - t0)
+        if res_w.outcome.value != "ok" or not replay_fast(hist, res_w.linearization or []):
+            fail("warm check_device_auto of the headline is not OK with a replaying witness")
+    warm_median = sorted(warm)[1]
+    card_name = fb.card()
+    print(
+        f"headline check (CLI, in process): exit 0 OK, witness replays; {len(hist.ops)} checked ops; "
+        f"layers {stats['layers']}, peak frontier {stats['max_frontier']}, expanded "
+        f"{stats['expanded']} (== the CPU run); host syncs {syncs}, fold launches "
+        f"{collector_launches['fold_lanes']}; first call {first_wall:.3f} s, warm "
+        + ", ".join(f"{w:.3f}" for w in warm)
+        + f" s; {len(hist.ops) / warm_median:.0f} ops verified per s (warm median); "
+        f"peak memory {peak / 2**30:.3f} GiB; card {card_name}",
+        flush=True,
+    )
+    print(f"cli stats: {json.dumps(stats)}", flush=True)
+
+    # Every fold call of the headline again: bit-exact against the plain
+    # fold (one plain fold per table over all its calls' lanes), then timed
+    # in groups small enough to queue behind one spin kernel.
+    if len(calls) != collector_launches["fold_lanes"]:
+        fail(f"recorded {len(calls)} headline fold calls, counted {collector_launches['fold_lanes']}")
+    outs = [fold_cuda.fold_lanes(*a) for a in calls]
+    groups: list[list[int]] = []
+    for j, a in enumerate(calls):
+        for g in groups:
+            if calls[g[0]][3].shape == a[3].shape and torch.equal(calls[g[0]][3], a[3]):
+                g.append(j)
+                break
+        else:
+            groups.append([j])
+    for g in groups:
+        want = xxh3.fold_record_hashes_indexed(
+            *(torch.cat([calls[j][i] for j in g]) for i in range(3)), calls[g[0]][3]
+        )
+        if not torch.equal(torch.cat([outs[j] for j in g]), want):
+            fail(f"headline fold calls differ from the plain fold (table group of {len(g)} calls)")
+    lanes = sum(int(a[0].numel()) for a in calls)
+    steps = [int(a[2].clamp(min=0, max=a[3].shape[1]).sum()) for a in calls]
+    bound_sum = sum(fb.fold_bound_ms(a[2], int(a[3].shape[0]), int(a[3].shape[1]), clocks)[0]
+                    for a in calls)
+    dev_sum = call_sum = host_sum = 0.0
+    for i in range(0, len(calls), 256):
+        chunk = calls[i:i + 256]
+
+        def run_chunk(chunk=chunk):
+            for a in chunk:
+                fold_cuda.fold_lanes(*a)
+
+        d, c, h = fb.times(run_chunk, 1, sm_hz)
+        dev_sum, call_sum, host_sum = dev_sum + d, call_sum + c, host_sum + h
+    shapes = sorted({(int(a[0].numel()), int(a[3].shape[0]), int(a[3].shape[1])) for a in calls})
+    print(
+        f"headline fold calls: {len(calls)} calls bit-exact in {len(groups)} table group(s), "
+        f"{lanes} lanes, {sum(steps)} steps, shapes (lanes, R, L) {shapes[:4]}"
+        f"{' ...' if len(shapes) > 4 else ''}; device {dev_sum:.3f} ms in all "
+        f"({dev_sum / len(calls):.4f} ms per call), per call from Python {call_sum / len(calls):.4f} ms, "
+        f"host {host_sum / len(calls):.4f} ms; summed bound {bound_sum:.4f} ms "
+        f"(device time at {100 * bound_sum / dev_sum:.1f}% of it)",
+        flush=True,
+    )
+    largest = max(range(len(calls)), key=lambda j: (steps[j], -j))
+    at_headline = measure(calls[largest], f"headline call {largest + 1}, the largest by steps", reps=20)
+    print(f"LAST_LAUNCH at the headline's largest call: {json.dumps(fold_cuda.LAST_LAUNCH)}", flush=True)
+    kernels[0]["launches_by_path"] = {
+        "adversarial k=10 batch=100 (main path)": kernels[0]["launches"],
+        "collector 5x2000 match-seq-num headline": collector_launches["fold_lanes"],
+    }
+    kernels[0]["collector_call"] = {k: at_headline[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms")}
+    del calls, outs
 
     print(f"kernels: {', '.join(k['name'] for k in kernels)}", flush=True)
     print(f"total {time.monotonic() - t_start:.1f} s", flush=True)

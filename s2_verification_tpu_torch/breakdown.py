@@ -1,9 +1,10 @@
-"""Where the GPU search spends its time, on one adversarial history.
+"""Where the GPU search spends its time, on one history.
 
     python -m s2_verification_tpu_torch.breakdown [--k 10] [--batch 100]
-        [--seed 0] [--exhaustive] [--json OUT.json]
+        [--seed 0] [--file H.jsonl] [--exhaustive] [--json OUT.json]
 
-Decides ``adversarial_events(k, batch, seed)`` once to warm up and once
+Decides ``adversarial_events(k, batch, seed)``, or the JSONL history at
+``--file`` (e.g. one written by ``collect``), once to warm up and once
 under ``torch.profiler``, on the first CUDA device, and prints:
 
 - the card (name and power limit from nvidia-smi);
@@ -15,7 +16,11 @@ under ``torch.profiler``, on the first CUDA device, and prints:
 
 ``--exhaustive`` runs ``check_device(beam=False, max_frontier=2^20)``
 instead of the default ``check_device_auto`` (beam first), which measures
-the exhaustive phase at full width.  Needs a CUDA device.
+the exhaustive phase at full width.  A search that expands more
+than :data:`WHOLE_MAX_LAYERS` layers (a collected history's thousands)
+is profiled over only :data:`WINDOW_LAYERS` whole layers from its middle,
+the rest of the call unprofiled: the profiler's own processing of over a
+million launches takes longer than the search.  Needs a CUDA device.
 
 The profiled wall includes the profiler and a device synchronisation
 around every timed phase, so it is for phase shares only; ``chip_smoke.py``
@@ -25,6 +30,7 @@ times a plain warm call.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import subprocess
 import sys
@@ -37,6 +43,7 @@ from .checker import device as dev_mod
 from .checker.entries import prepare
 from .collector.adversarial import adversarial_events
 from .ops import fold_cuda
+from .utils import events as ev
 
 _PHASES = {
     "encode_and_tables": ("encode_history", "build_tables"),
@@ -59,9 +66,10 @@ def _timed(name, fn, acc):
     return wrapper
 
 
-def _device_times(prof) -> dict[str, float]:
-    """Self device time (ms) by CUDA kernel name."""
+def _device_times(prof) -> tuple[dict[str, float], int]:
+    """Self device time (ms) by CUDA kernel name, and the number of kernels."""
     out: dict[str, float] = {}
+    n = 0
     for evt in prof.key_averages():
         if evt.device_type != torch.autograd.DeviceType.CUDA:
             continue
@@ -70,11 +78,64 @@ def _device_times(prof) -> dict[str, float]:
             us = evt.self_cuda_time_total
         if us:
             out[evt.key] = out.get(evt.key, 0.0) + us / 1e3
-    return out
+            n += evt.count
+    return out, n
 
 
-def run(k: int, batch: int, seed: int, exhaustive: bool) -> dict:
-    hist = prepare(adversarial_events(k, batch=batch, seed=seed))
+def _profiled_window(fn, start: int, n: int, box: dict):
+    """Wrap ``_expand_layer``: profile from its call ``start`` to its call
+    ``start + n``, i.e. ``n`` whole layers of the search loop, and keep the
+    profiler, the window's wall and its host syncs in ``box``."""
+    calls = [0]
+
+    def wrapper(*a, **kw):
+        i = calls[0]
+        calls[0] += 1
+        if i in (start, start + n):
+            torch.cuda.synchronize()
+            if i == start:
+                box["prof"] = torch.profiler.profile(activities=_ACTIVITIES)
+                box["prof"].__enter__()
+                box["syncs0"], box["t0"] = dev_mod.SYNCS[0], time.perf_counter()
+            else:
+                box["wall"] = time.perf_counter() - box["t0"]
+                box["syncs"] = dev_mod.SYNCS[0] - box["syncs0"]
+                box["prof"].__exit__(None, None, None)
+        return fn(*a, **kw)
+
+    return wrapper
+
+
+_ACTIVITIES = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+WHOLE_MAX_LAYERS = 1000
+WINDOW_LAYERS = 200
+
+
+def _busy(prof, wall: float) -> dict:
+    dev_ms, kernels = _device_times(prof)
+    busy_ms = sum(dev_ms.values())
+    return {
+        "kernels": kernels,
+        "device_busy_ms": round(busy_ms, 3),
+        "device_busy_share": round(busy_ms / 1e3 / wall, 4) if wall else None,
+        "top_kernels_ms": dict(
+            sorted(((k_, round(v, 3)) for k_, v in dev_ms.items()), key=lambda kv: -kv[1])[:15]
+        ),
+    }
+
+
+def run(
+    k: int,
+    batch: int,
+    seed: int,
+    exhaustive: bool,
+    file: str | None = None,
+) -> dict:
+    if file:
+        hist, name = prepare(ev.read_history(file)), file
+    else:
+        hist = prepare(adversarial_events(k, batch=batch, seed=seed))
+        name = f"adversarial k={k} batch={batch} seed={seed}"
 
     def decide():
         if exhaustive:
@@ -82,35 +143,51 @@ def run(k: int, batch: int, seed: int, exhaustive: bool) -> dict:
         return dev_mod.check_device_auto(hist, collect_stats=True)
 
     fold_cuda.build()
-    decide()  # warm-up: allocator, kernel load
+    # warm-up (allocator, kernel load), counting the layers _expand_layer runs
+    expand_layer, expanded_layers = dev_mod._expand_layer, [0]
+
+    def counted(*a, **kw):
+        expanded_layers[0] += 1
+        return expand_layer(*a, **kw)
+
+    dev_mod._expand_layer = counted
+    try:
+        decide()
+    finally:
+        dev_mod._expand_layer = expand_layer
 
     acc: dict[str, float] = defaultdict(float)
     saved = {}
     for phase, names in _PHASES.items():
-        for name in names:
-            saved[name] = getattr(dev_mod, name)
-            setattr(dev_mod, name, _timed(phase, saved[name], acc))
+        for name_ in names:
+            saved[name_] = getattr(dev_mod, name_)
+            setattr(dev_mod, name_, _timed(phase, saved[name_], acc))
+    box: dict = {}
+    window = WINDOW_LAYERS if expanded_layers[0] > WHOLE_MAX_LAYERS else None
+    if window:
+        start = (expanded_layers[0] - window) // 2
+        saved["_expand_layer"] = dev_mod._expand_layer
+        dev_mod._expand_layer = _profiled_window(dev_mod._expand_layer, start, window, box)
     try:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         fold_cuda.reset_launches()
         syncs0 = dev_mod.SYNCS[0]
-        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-        with torch.profiler.profile(activities=acts) as prof:
+        with contextlib.nullcontext() if window else torch.profiler.profile(
+            activities=_ACTIVITIES
+        ) as prof:
             t0 = time.perf_counter()
             res = decide()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
     finally:
-        for name, fn in saved.items():
-            setattr(dev_mod, name, fn)
+        for name_, fn in saved.items():
+            setattr(dev_mod, name_, fn)
     st = res.stats
-    dev_ms = _device_times(prof)
-    busy_ms = sum(dev_ms.values())
     phases = {p: round(acc.get(p, 0.0), 6) for p in _PHASES}
     phases["other"] = round(wall - sum(phases.values()), 6)
-    return {
-        "history": f"adversarial k={k} batch={batch} seed={seed}",
+    out = {
+        "history": name,
         "entry": "check_device(beam=False, max_frontier=2^20)" if exhaustive else "check_device_auto",
         "outcome": res.outcome.value,
         "wall_s": round(wall, 6),
@@ -122,12 +199,16 @@ def run(k: int, batch: int, seed: int, exhaustive: bool) -> dict:
         "host_syncs": dev_mod.SYNCS[0] - syncs0,
         "fold_launches": fold_cuda.LAUNCHES["fold_lanes"],
         "peak_memory_bytes": torch.cuda.max_memory_allocated(),
-        "device_busy_ms": round(busy_ms, 3),
-        "device_busy_share": round(busy_ms / 1e3 / wall, 4) if wall else None,
-        "top_kernels_ms": dict(
-            sorted(((k_, round(v, 3)) for k_, v in dev_ms.items()), key=lambda kv: -kv[1])[:15]
-        ),
     }
+    if not window:
+        return {**out, **_busy(prof, wall)}
+    out["window"] = {
+        "layers": [start, start + window],
+        "wall_s": round(box["wall"], 6),
+        "host_syncs": box["syncs"],
+        **_busy(box["prof"], box["wall"]),
+    }
+    return out
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -135,6 +216,7 @@ def main(argv: list[str] | None = None) -> int:
     p.add_argument("--k", type=int, default=10)
     p.add_argument("--batch", type=int, default=100)
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--file", default=None, help="decide this JSONL history instead")
     p.add_argument("--exhaustive", action="store_true")
     p.add_argument("--json", default=None, help="also write the result here")
     args = p.parse_args(argv)
@@ -145,7 +227,7 @@ def main(argv: list[str] | None = None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True,
     ).stdout.strip()
-    out = {"card": card, **run(args.k, args.batch, args.seed, args.exhaustive)}
+    out = {"card": card, **run(args.k, args.batch, args.seed, args.exhaustive, args.file)}
     print(json.dumps(out, indent=1))
     if args.json:
         with open(args.json, "w", encoding="utf-8") as f:

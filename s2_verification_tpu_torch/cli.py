@@ -1,4 +1,10 @@
-"""Command line: ``python -m s2_verification_tpu_torch check -file=H.jsonl``.
+"""Command line: ``python -m s2_verification_tpu_torch check -file=H.jsonl``
+and ``python -m s2_verification_tpu_torch collect``.
+
+``collect`` records a history against the in-process fault-injecting fake
+S2 (``collector/``), with the JAX package's flags and defaults, writes
+``<out-dir>/records.<epoch>.jsonl`` and prints its path (exit 0; 64 on a
+usage error or an unknown ``--campaign``).
 
 ``check`` decides one JSONL history (the reference collector's format,
 utils/events.py) and exits with the verdict, as the JAX package's CLI does:
@@ -32,6 +38,8 @@ from . import __version__
 from .checker.device import DeviceUnavailable, check_device_auto
 from .checker.entries import History, prepare
 from .checker.oracle import CheckOutcome, CheckResult, check
+from .collector.collect import CollectConfig, collect_to_file
+from .collector.fake_s2 import FaultPlan
 from .utils import events as ev
 
 log = logging.getLogger("s2_verification_tpu_torch.cli")
@@ -146,6 +154,85 @@ def _check_one(args: argparse.Namespace, on_result=None) -> int:
     return 2
 
 
+def _cmd_collect(args: argparse.Namespace) -> int:
+    if args.list_campaigns:
+        from .collector.campaign import builtin_campaigns
+
+        for name, c in sorted(builtin_campaigns().items()):
+            print(
+                f"{name:16s} workflow={c.workflow:13s} "
+                f"violation={c.violation_class() or '-':15s} {c.description}"
+            )
+        return 0
+    if args.campaign:
+        from .collector.campaign import collect_labeled_to_file, get_campaign
+
+        try:
+            campaign = get_campaign(args.campaign)
+        except KeyError as e:
+            log.error("%s", e.args[0])
+            return USAGE_EXIT
+        if args.socket:
+            log.error(
+                "--campaign needs the in-process path (per-client fault "
+                "facades); --socket is unsupported"
+            )
+            return USAGE_EXIT
+        if args.workflow is not None and args.workflow != campaign.workflow:
+            log.warning(
+                "--workflow %s ignored: campaign %r runs workflow %s",
+                args.workflow,
+                campaign.name,
+                campaign.workflow,
+            )
+        path, lpath, label = collect_labeled_to_file(
+            campaign,
+            args.seed,
+            out_dir=args.out_dir,
+            clients=args.num_concurrent_clients,
+            ops=args.num_ops_per_client,
+        )
+        log.info(
+            "ground-truth label expect=%s (violation=%s confirmed=%s) at %s",
+            label["expect"],
+            label["violation"],
+            label["confirmed"],
+            lpath,
+        )
+        print(path)
+        return 0
+    faults = FaultPlan.chaos(args.chaos) if args.chaos > 0 else FaultPlan()
+    cfg = CollectConfig(
+        num_concurrent_clients=(
+            5 if args.num_concurrent_clients is None else args.num_concurrent_clients
+        ),
+        num_ops_per_client=(
+            100 if args.num_ops_per_client is None else args.num_ops_per_client
+        ),
+        workflow=args.workflow if args.workflow is not None else "regular",
+        seed=args.seed,
+        faults=faults,
+    )
+    if args.socket:
+        # The stream state and fault injection live in a server on another
+        # thread and loop; the collector speaks the seam protocol over a
+        # real unix socket (collect-history.rs:70-94 speaks to a network
+        # endpoint).
+        from .collector.collect import default_stream
+        from .collector.socket_s2 import S2SocketServer, S2SocketTransport
+
+        with S2SocketServer(default_stream(cfg), args.socket):
+            path = collect_to_file(
+                cfg, stream=S2SocketTransport(args.socket), out_dir=args.out_dir
+            )
+    else:
+        path = collect_to_file(cfg, out_dir=args.out_dir)
+    # The reference prints the history path as its last act
+    # (collect-history.rs:195-200).
+    print(path)
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = _Parser(
         prog="s2_verification_tpu_torch",
@@ -177,19 +264,81 @@ def build_parser() -> argparse.ArgumentParser:
         action="store_true",
         help="print one machine-readable JSON line on stdout",
     )
+
+    g = sub.add_parser("collect", help="collect a history against the fake S2")
+    g.add_argument(
+        "basin",
+        nargs="?",
+        default="local",
+        help="ignored (collection runs against the in-process fake S2)",
+    )
+    g.add_argument(
+        "stream",
+        nargs="?",
+        default="stream",
+        help="ignored (collection runs against the in-process fake S2)",
+    )
+    g.add_argument(
+        "--num-concurrent-clients",
+        type=int,
+        default=None,
+        help="default 5 (or the campaign's own sizing with --campaign)",
+    )
+    g.add_argument(
+        "--num-ops-per-client",
+        type=int,
+        default=None,
+        help="default 100 (or the campaign's own sizing with --campaign)",
+    )
+    g.add_argument(
+        "--workflow",
+        default=None,
+        choices=["regular", "match-seq-num", "fencing"],
+        help="default regular; a --campaign dictates its own workflow",
+    )
+    g.add_argument("--seed", type=int, default=0)
+    g.add_argument(
+        "--chaos",
+        type=float,
+        default=0.2,
+        help="fault-injection intensity for the fake S2 (0 disables)",
+    )
+    g.add_argument(
+        "--campaign",
+        metavar="NAME",
+        help="run one named fault campaign (time-phased faults, optional "
+        "deliberate violation) and write a ground-truth "
+        "<path>.label.json sidecar (expect=legal|illegal + the injected "
+        "violation class) next to the history",
+    )
+    g.add_argument(
+        "--list-campaigns",
+        action="store_true",
+        help="list the builtin campaign matrix and exit",
+    )
+    g.add_argument("--out-dir", default="./data")
+    g.add_argument(
+        "--socket",
+        metavar="PATH",
+        help="collect over a loopback unix-domain socket at PATH (serves "
+        "the fault-injecting stream from another thread) instead of the "
+        "in-process call path",
+    )
     return p
 
 
 def main(argv: list[str] | None = None, *, on_result=None) -> int:
     """Run the CLI.  ``on_result(path, CheckResult, History)``, when given,
-    is called with each decided history — for in-process callers that
-    inspect the witness."""
+    is called with each history ``check`` decides — for in-process callers
+    that inspect the witness."""
     logging.basicConfig(
         stream=sys.stderr,
         level=os.environ.get("S2VTPU_LOG", "INFO").upper(),
         format="%(asctime)s %(levelname)s %(name)s %(message)s",
     )
     args = build_parser().parse_args(argv)
+    if args.cmd == "collect":
+        return _cmd_collect(args)
     return _check_one(args, on_result=on_result)
 
 

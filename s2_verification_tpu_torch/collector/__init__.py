@@ -1,3 +1,3 @@
-from . import adversarial
+from . import adversarial, collect, fake_s2, workloads
 
-__all__ = ["adversarial"]
+__all__ = ["adversarial", "collect", "fake_s2", "workloads"]

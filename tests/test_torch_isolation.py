@@ -1,7 +1,9 @@
-"""The port stands alone: no JAX, no JAX package, no silent CPU fallback.
+"""The port stands alone: no JAX, no JAX package, no ``xxhash``, no silent
+CPU fallback.
 
-- importing every port module (in a fresh interpreter) leaves ``jax`` and
-  every ``s2_verification_tpu`` module out of ``sys.modules``;
+- importing every port module (in a fresh interpreter) leaves ``jax``,
+  ``xxhash`` and every ``s2_verification_tpu`` module out of
+  ``sys.modules``, and so does a small ``collect_history`` run;
 - no port source (nor chip_smoke.py) imports them;
 - the entry points refuse to run when CUDA is asked for and absent;
 - the CLI's exit codes (0 / 1 / 64) with ``-device cpu``;
@@ -41,28 +43,45 @@ def _modules() -> list[str]:
     return out
 
 
+FORBIDDEN = ("jax", "jaxlib", "s2_verification_tpu", "xxhash")
+
+
 def _is_jax_name(name: str) -> bool:
-    top = name.split(".")[0]
-    return top in ("jax", "jaxlib", "s2_verification_tpu")
+    return name.split(".")[0] in FORBIDDEN
 
 
-def test_importing_the_port_loads_no_jax():
-    mods = _modules()
-    assert "s2_verification_tpu_torch.checker.device" in mods
+def _fresh_interpreter(body: str) -> subprocess.CompletedProcess:
+    """Run ``body`` in a new interpreter that sees only the repo, and fail
+    (exit 1) if it loaded any forbidden module."""
     code = (
         "import importlib, sys\n"
-        f"for m in {mods!r}:\n"
-        "    importlib.import_module(m)\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 's2_verification_tpu'))\n"
+        + body
+        + f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
         "print(len(sys.modules), bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = str(ROOT)
-    proc = subprocess.run(
+    return subprocess.run(
         [sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True, text=True,
         timeout=120,
+    )
+
+
+def test_importing_the_port_loads_no_jax():
+    mods = _modules()
+    for m in ("checker.device", "collector.collect", "collector.campaign", "collector.socket_s2"):
+        assert f"s2_verification_tpu_torch.{m}" in mods
+    proc = _fresh_interpreter(f"for m in {mods!r}:\n    importlib.import_module(m)\n")
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_collecting_loads_no_xxhash_and_no_jax():
+    proc = _fresh_interpreter(
+        "from s2_verification_tpu_torch.collector.collect import CollectConfig, collect_history\n"
+        "from s2_verification_tpu_torch.checker.oracle import check_events\n"
+        "events = collect_history(CollectConfig(3, 20, 'match-seq-num', seed=1))\n"
+        "assert len(events) > 40 and check_events(events).ok\n"
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
