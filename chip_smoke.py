@@ -46,7 +46,23 @@ on the first failed phase:
    recorded fold call again, bit-exact against the plain fold, with their
    total device and per-call time beside the summed bound, and the largest
    by steps measured alone;
-8. the kernel list, one JSON line of kernel measurements, and as the last
+8. prune and speculation (``checker/prune.py``, ``device._spec_dive``):
+   adversarial k=10, batch=100, seed 0 through ``check_device(beam=False,
+   prune=True, speculate_depth=3)`` at the configuration of the JAX
+   package's ``scripts/prune_check.py`` (2^21-row cap, 2^14-row first
+   bucket), which must be OK with a replaying witness and the search
+   statistics of :data:`PRUNED_ADV_STATS`, timed three times warm with its
+   peak memory; the 5×2000 headline through the CLI with ``--prune
+   --speculate-depth 3`` (launch counts reset just before and read just
+   after), with the statistics of :data:`PRUNED_HEADLINE_STATS`, its host
+   syncs, first and two warm walls, and the kernels per layer of a
+   profiled 100-layer window; every fold call of both, bit-exact against
+   the plain fold and timed; then the port's campaign matrix
+   (``collector/campaign.py``: five legal fault shapes, four violation
+   classes, seed 11), each history decided pruned with
+   ``speculate_depth=3`` and un-pruned, which must agree with each other
+   and, where conclusive, with the campaign's label;
+9. the kernel list, one JSON line of kernel measurements, and as the last
    line ``{"ok": true, "device": {...}}``.
 
 Fold times are per call, from CUDA events: ``call`` with back-to-back
@@ -85,6 +101,25 @@ HEADLINE_SHA256 = "8a3594230bdb13cefad1e8d77c4d2ebd76671196f9ff003d26e8b363d2f6a
 #: device="cpu")``, which the JAX engine's match (layers, peak frontier,
 #: expanded).
 HEADLINE_STATS = {"layers": 2885, "max_frontier": 3, "expanded": 5785}
+#: The search statistics of the JAX engine (``s2_verification_tpu``'s
+#: ``check_device``, XLA:CPU) on adversarial k=10, batch=100, seed 0 with
+#: ``max_frontier=2**21, start_frontier=2**14, beam=False, witness=False,
+#: prune=True, speculate_depth=3`` — ``scripts/prune_check.py``'s
+#: configuration; the port's must equal them.
+PRUNED_ADV_STATS = {
+    "layers": 6, "max_frontier": 82152, "expanded": 113146, "auto_closed": 1,
+    "prune_commits": 1, "prune_dead": 0,
+    "spec_launches": 2, "spec_layers": 5, "spec_accepts": 0, "spec_rollbacks": 2,
+}
+#: The JAX engine's ``check_device_auto(prune=True, speculate_depth=3)`` on
+#: the headline (XLA:CPU), which the port's must equal.
+PRUNED_HEADLINE_STATS = {
+    "layers": 936, "max_frontier": 3, "expanded": 1870, "auto_closed": 3888,
+    "prune_commits": 3887, "prune_dead": 1,
+    "spec_launches": 1, "spec_layers": 3, "spec_accepts": 0, "spec_rollbacks": 1,
+}
+#: the campaign seed every builtin violation provably fires under
+CAMPAIGN_SEED = 11
 #: ``scripts/table_bench.py:27-33`` without the CPU-intractable 16×2000.
 TABLE_CONFIGS = [
     ("regular", 2, 50),
@@ -171,7 +206,7 @@ def main() -> int:
         return 2
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
-    from s2_verification_tpu_torch import cli
+    from s2_verification_tpu_torch import breakdown, cli
     from s2_verification_tpu_torch import foldbench as fb
     from s2_verification_tpu_torch.checker import device as dev_mod
     from s2_verification_tpu_torch.checker.entries import prepare
@@ -246,6 +281,57 @@ def main() -> int:
         return {"ms": call_ms, "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": b_ms,
                 "bound_by": b_by, "max_abs_err": err}
 
+    def recheck_calls(calls, what, max_lanes=1 << 23):
+        """Every recorded fold call again, bit-exact against the plain fold
+        (one plain fold per run of calls on one table, up to ``max_lanes``
+        lanes), then timed in groups small enough to queue behind one spin
+        kernel; prints one line and returns each call's steps."""
+        outs = [fold_cuda.fold_lanes(*a) for a in calls]
+        groups: list[list[int]] = []
+        group_lanes = 0
+        for j, a in enumerate(calls):
+            g = groups[-1] if groups else None
+            n = int(a[0].numel())
+            if (g and calls[g[0]][3].shape == a[3].shape and torch.equal(calls[g[0]][3], a[3])
+                    and group_lanes + n <= max_lanes):
+                g.append(j)
+                group_lanes += n
+            else:
+                groups.append([j])
+                group_lanes = n
+        for g in groups:
+            want = xxh3.fold_record_hashes_indexed(
+                *(torch.cat([calls[j][i] for j in g]) for i in range(3)), calls[g[0]][3]
+            )
+            if not torch.equal(torch.cat([outs[j] for j in g]), want):
+                fail(f"{what} fold calls differ from the plain fold (group of {len(g)} calls)")
+        del outs
+        lanes = sum(int(a[0].numel()) for a in calls)
+        steps = [int(a[2].clamp(min=0, max=a[3].shape[1]).sum()) for a in calls]
+        bound_sum = sum(fb.fold_bound_ms(a[2], int(a[3].shape[0]), int(a[3].shape[1]), clocks)[0]
+                        for a in calls)
+        dev_sum = call_sum = host_sum = 0.0
+        for i in range(0, len(calls), 256):
+            chunk = calls[i:i + 256]
+
+            def run_chunk(chunk=chunk):
+                for a in chunk:
+                    fold_cuda.fold_lanes(*a)
+
+            d, c, h = fb.times(run_chunk, 1, sm_hz)
+            dev_sum, call_sum, host_sum = dev_sum + d, call_sum + c, host_sum + h
+        shapes = sorted({(int(a[0].numel()), int(a[3].shape[0]), int(a[3].shape[1])) for a in calls})
+        print(
+            f"{what} fold calls: {len(calls)} calls bit-exact in {len(groups)} group(s), "
+            f"{lanes} lanes, {sum(steps)} steps, shapes (lanes, R, L) {shapes[:4]}"
+            f"{' ...' if len(shapes) > 4 else ''}; device {dev_sum:.3f} ms in all "
+            f"({dev_sum / len(calls):.4f} ms per call), per call from Python {call_sum / len(calls):.4f} ms, "
+            f"host {host_sum / len(calls):.4f} ms; summed bound {bound_sum:.4f} ms "
+            f"(device time at {100 * bound_sum / dev_sum:.1f}% of it)",
+            flush=True,
+        )
+        return steps
+
     # -- 3. kernel vs plain on random inputs and edge cases ------------------
     for label, (r, w), seed in (
         ("2^20 random lanes, shared-memory table", (13, 100), 0),
@@ -264,7 +350,7 @@ def main() -> int:
           f"{dev_ms:.4f} ms device, {call_ms:.4f} ms per call, {host_ms:.4f} ms host", flush=True)
 
     # -- 4. main path through the CLI ----------------------------------------
-    def run_cli(events, tag):
+    def run_cli(events, tag, extra=()):
         captured = {}
         with tempfile.TemporaryDirectory() as tmp:
             path = os.path.join(tmp, f"{tag}.jsonl")
@@ -273,7 +359,7 @@ def main() -> int:
             out = io.StringIO()
             with contextlib.redirect_stdout(out):
                 rc = cli.main(
-                    ["check", f"-file={path}", "-backend=device", "-stats"],
+                    ["check", f"-file={path}", "-backend=device", "-stats", *extra],
                     on_result=lambda _p, res, hist: captured.update(res=res, hist=hist),
                 )
         stats = json.loads(out.getvalue().strip().splitlines()[-1]) if out.getvalue().strip() else {}
@@ -525,45 +611,7 @@ def main() -> int:
     # in groups small enough to queue behind one spin kernel.
     if len(calls) != collector_launches["fold_lanes"]:
         fail(f"recorded {len(calls)} headline fold calls, counted {collector_launches['fold_lanes']}")
-    outs = [fold_cuda.fold_lanes(*a) for a in calls]
-    groups: list[list[int]] = []
-    for j, a in enumerate(calls):
-        for g in groups:
-            if calls[g[0]][3].shape == a[3].shape and torch.equal(calls[g[0]][3], a[3]):
-                g.append(j)
-                break
-        else:
-            groups.append([j])
-    for g in groups:
-        want = xxh3.fold_record_hashes_indexed(
-            *(torch.cat([calls[j][i] for j in g]) for i in range(3)), calls[g[0]][3]
-        )
-        if not torch.equal(torch.cat([outs[j] for j in g]), want):
-            fail(f"headline fold calls differ from the plain fold (table group of {len(g)} calls)")
-    lanes = sum(int(a[0].numel()) for a in calls)
-    steps = [int(a[2].clamp(min=0, max=a[3].shape[1]).sum()) for a in calls]
-    bound_sum = sum(fb.fold_bound_ms(a[2], int(a[3].shape[0]), int(a[3].shape[1]), clocks)[0]
-                    for a in calls)
-    dev_sum = call_sum = host_sum = 0.0
-    for i in range(0, len(calls), 256):
-        chunk = calls[i:i + 256]
-
-        def run_chunk(chunk=chunk):
-            for a in chunk:
-                fold_cuda.fold_lanes(*a)
-
-        d, c, h = fb.times(run_chunk, 1, sm_hz)
-        dev_sum, call_sum, host_sum = dev_sum + d, call_sum + c, host_sum + h
-    shapes = sorted({(int(a[0].numel()), int(a[3].shape[0]), int(a[3].shape[1])) for a in calls})
-    print(
-        f"headline fold calls: {len(calls)} calls bit-exact in {len(groups)} table group(s), "
-        f"{lanes} lanes, {sum(steps)} steps, shapes (lanes, R, L) {shapes[:4]}"
-        f"{' ...' if len(shapes) > 4 else ''}; device {dev_sum:.3f} ms in all "
-        f"({dev_sum / len(calls):.4f} ms per call), per call from Python {call_sum / len(calls):.4f} ms, "
-        f"host {host_sum / len(calls):.4f} ms; summed bound {bound_sum:.4f} ms "
-        f"(device time at {100 * bound_sum / dev_sum:.1f}% of it)",
-        flush=True,
-    )
+    steps = recheck_calls(calls, "headline")
     largest = max(range(len(calls)), key=lambda j: (steps[j], -j))
     at_headline = measure(calls[largest], f"headline call {largest + 1}, the largest by steps", reps=20)
     print(f"LAST_LAUNCH at the headline's largest call: {json.dumps(fold_cuda.LAST_LAUNCH)}", flush=True)
@@ -572,7 +620,176 @@ def main() -> int:
         "collector 5x2000 match-seq-num headline": collector_launches["fold_lanes"],
     }
     kernels[0]["collector_call"] = {k: at_headline[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms")}
-    del calls, outs
+    del calls
+
+    # -- 8. prune and speculation --------------------------------------------
+    def stats_of(st, keys):
+        return {k: getattr(st, k) for k in keys}
+
+    adv_hist = prepare(main_events)
+    adv_kw = dict(max_frontier=1 << 21, start_frontier=1 << 14, beam=False, collect_stats=True,
+                  prune=True, speculate_depth=3)
+    with fb.recording_folds(dev_mod) as calls:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fold_cuda.reset_launches()
+        syncs0 = dev_mod.SYNCS[0]
+        t0 = time.monotonic()
+        res = dev_mod.check_device(adv_hist, **adv_kw)
+        torch.cuda.synchronize()
+        first_wall = time.monotonic() - t0
+        adv_launches = dict(fold_cuda.LAUNCHES)
+        syncs = dev_mod.SYNCS[0] - syncs0
+        peak = torch.cuda.max_memory_allocated()
+    if res.outcome.value != "ok" or not replay_ok(adv_hist, res.linearization or []):
+        fail(f"pruned adversarial k=10: outcome {res.outcome}, or the witness does not replay")
+    got_stats = stats_of(res.stats, PRUNED_ADV_STATS)
+    if got_stats != PRUNED_ADV_STATS:
+        fail(f"pruned adversarial k=10 statistics {got_stats}, the JAX engine's {PRUNED_ADV_STATS}")
+    if adv_launches["fold_lanes"] == 0:
+        fail("the pruned adversarial path launched fold_lanes no time")
+    warm = []
+    for _ in range(3):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.monotonic()
+        res_w = dev_mod.check_device(adv_hist, **adv_kw)
+        torch.cuda.synchronize()
+        warm.append((time.monotonic() - t0, torch.cuda.max_memory_allocated()))
+        if (res_w.outcome.value != "ok" or not replay_ok(adv_hist, res_w.linearization or [])
+                or stats_of(res_w.stats, PRUNED_ADV_STATS) != PRUNED_ADV_STATS):
+            fail("a warm pruned adversarial k=10 call differs from the first")
+    print(
+        f"pruned adversarial k=10 (check_device beam off, cap 2^21, first bucket 2^14, prune, "
+        f"speculate_depth=3): OK, witness replays; statistics == the JAX engine's "
+        f"{json.dumps(got_stats)}; host syncs {syncs}, fold launches {adv_launches['fold_lanes']}; "
+        f"first call {first_wall:.3f} s, peak memory {peak / 2**30:.3f} GiB; warm "
+        + ", ".join(f"{w:.3f} s ({m / 2**30:.3f} GiB)" for w, m in warm),
+        flush=True,
+    )
+    if len(calls) != adv_launches["fold_lanes"]:
+        fail(f"recorded {len(calls)} pruned adversarial fold calls, counted {adv_launches['fold_lanes']}")
+    recheck_calls(calls, "pruned adversarial k=10")
+    del calls
+
+    pruned_args = ["--prune", "--speculate-depth", "3"]
+    with fb.recording_folds(dev_mod) as calls:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fold_cuda.reset_launches()
+        syncs0 = dev_mod.SYNCS[0]
+        t0 = time.monotonic()
+        rc, captured, stats = run_cli(events, "headline-5x2000-pruned", pruned_args)
+        torch.cuda.synchronize()
+        first_wall = time.monotonic() - t0
+        head_launches = dict(fold_cuda.LAUNCHES)
+        syncs = dev_mod.SYNCS[0] - syncs0
+        peak = torch.cuda.max_memory_allocated()
+    res = captured.get("res")
+    if rc != 0 or res is None or res.outcome.value != "ok":
+        fail(f"pruned headline: exit {rc}, outcome {res and res.outcome}")
+    if res.linearization is None or not replay_fast(hist, res.linearization):
+        fail("pruned headline: the witness does not replay")
+    got_stats = {k: stats.get(k, 0) for k in PRUNED_HEADLINE_STATS}
+    if got_stats != PRUNED_HEADLINE_STATS:
+        fail(f"pruned headline statistics {got_stats}, the JAX engine's {PRUNED_HEADLINE_STATS}")
+    if head_launches["fold_lanes"] == 0:
+        fail("the pruned headline launched fold_lanes no time")
+    warm = []
+    for _ in range(2):
+        t0 = time.monotonic()
+        res_w = dev_mod.check_device_auto(hist, prune=True, speculate_depth=3)
+        torch.cuda.synchronize()
+        warm.append(time.monotonic() - t0)
+        if res_w.outcome.value != "ok" or not replay_fast(hist, res_w.linearization or []):
+            fail("warm pruned check_device_auto of the headline is not OK with a replaying witness")
+    # Kernels per layer: a 100-layer window from the middle of one more
+    # call, under the profiler (the whole call's launches would take the
+    # profiler longer to process than the search).
+    box: dict = {}
+    start = (PRUNED_HEADLINE_STATS["layers"] - 100) // 2
+    real_expand = dev_mod._expand_layer
+    dev_mod._expand_layer = breakdown.profiled_window(real_expand, start, 100, box)
+    try:
+        dev_mod.check_device_auto(hist, prune=True, speculate_depth=3)
+        torch.cuda.synchronize()
+    finally:
+        dev_mod._expand_layer = real_expand
+    if "wall" not in box:
+        fail(f"pruned headline: the search expanded fewer than {start + 100} layers")
+    window = breakdown.busy(box["prof"], box["wall"])
+    print(
+        f"pruned headline check (CLI --prune --speculate-depth 3, in process): exit 0 OK, witness "
+        f"replays; statistics == the JAX engine's {json.dumps(got_stats)}; host syncs {syncs} "
+        f"(un-pruned: see above), fold launches {head_launches['fold_lanes']}; first call "
+        f"{first_wall:.3f} s, warm " + ", ".join(f"{w:.3f}" for w in warm)
+        + f" s; {len(hist.ops) / min(warm):.0f} ops verified per s (best warm); peak memory "
+        f"{peak / 2**30:.3f} GiB; profiled window of 100 layers ({start}-{start + 100}): "
+        f"{window['kernels']} kernels ({window['kernels'] / 100:.1f} a layer), {box['syncs']} host "
+        f"syncs, {box['wall']:.3f} s, device busy {window['device_busy_ms']:.2f} ms "
+        f"({100 * window['device_busy_share']:.2f}% under the profiler); card {fb.card()}",
+        flush=True,
+    )
+    print(f"cli stats: {json.dumps(stats)}", flush=True)
+    if len(calls) != head_launches["fold_lanes"]:
+        fail(f"recorded {len(calls)} pruned headline fold calls, counted {head_launches['fold_lanes']}")
+    recheck_calls(calls, "pruned headline")
+    del calls
+
+    from s2_verification_tpu_torch.collector.campaign import (
+        VIOLATION_CLASSES,
+        builtin_campaigns,
+        collect_labeled,
+    )
+
+    classes = set()
+    calls, camp_launches = [], 0
+    for name, camp in sorted(builtin_campaigns().items()):
+        events_c, label = collect_labeled(camp, seed=CAMPAIGN_SEED)
+        hist_c = prepare(events_c)
+        fold_cuda.reset_launches()
+        with fb.recording_folds(dev_mod) as pruned_calls:
+            t0 = time.monotonic()
+            pruned = dev_mod.check_device_auto(hist_c, prune=True, speculate_depth=3, collect_stats=True)
+            torch.cuda.synchronize()
+            t1 = time.monotonic()
+        camp_launches += fold_cuda.LAUNCHES["fold_lanes"]
+        calls += pruned_calls
+        plain = dev_mod.check_device_auto(hist_c, collect_stats=True)
+        torch.cuda.synchronize()
+        t2 = time.monotonic()
+        expect = label.get("expect")
+        if pruned.outcome != plain.outcome:
+            fail(f"campaign {name}: pruned {pruned.outcome.value}, un-pruned {plain.outcome.value}")
+        if pruned.outcome.value in ("ok", "illegal") and pruned.outcome.value != {
+            "legal": "ok", "illegal": "illegal"
+        }.get(expect):
+            fail(f"campaign {name}: {pruned.outcome.value} against its label {expect}")
+        if pruned.outcome.value == "ok" and not replay_fast(hist_c, pruned.linearization or []):
+            fail(f"campaign {name}: the pruned witness does not replay")
+        if camp.violation_class() is not None:
+            classes.add(camp.violation_class())
+        ps = pruned.stats
+        print(
+            f"campaign {name} (seed {CAMPAIGN_SEED}, {len(hist_c.ops)} ops, label {expect}): pruned "
+            f"{pruned.outcome.value} in {t1 - t0:.3f} s (layers {ps.layers}, peak frontier "
+            f"{ps.max_frontier}, commits {ps.prune_commits}, dead {ps.prune_dead}, spec "
+            f"layers/accepts/rollbacks {ps.spec_layers}/{ps.spec_accepts}/{ps.spec_rollbacks}) "
+            f"== un-pruned {plain.outcome.value} in {t2 - t1:.3f} s (layers {plain.stats.layers})",
+            flush=True,
+        )
+    if len(calls) != camp_launches:
+        fail(f"recorded {len(calls)} pruned campaign fold calls, counted {camp_launches}")
+    if set(VIOLATION_CLASSES) - classes:
+        fail(f"violation classes never exercised: {sorted(set(VIOLATION_CLASSES) - classes)}")
+    if camp_launches == 0:
+        fail("the pruned campaign runs launched fold_lanes no time")
+    recheck_calls(calls, "pruned campaign matrix")
+    del calls
+    kernels[0]["launches_by_path"].update({
+        "adversarial k=10 batch=100, check_device beam off, prune, speculate_depth=3": adv_launches["fold_lanes"],
+        "collector headline, --prune --speculate-depth 3": head_launches["fold_lanes"],
+        "campaign matrix (9 histories), pruned, speculate_depth=3": camp_launches,
+    })
 
     print(f"kernels: {', '.join(k['name'] for k in kernels)}", flush=True)
     print(f"total {time.monotonic() - t_start:.1f} s", flush=True)

@@ -1,7 +1,8 @@
 """Where the GPU search spends its time, on one history.
 
     python -m s2_verification_tpu_torch.breakdown [--k 10] [--batch 100]
-        [--seed 0] [--file H.jsonl] [--exhaustive] [--json OUT.json]
+        [--seed 0] [--file H.jsonl] [--exhaustive] [--prune]
+        [--speculate-depth K] [--json OUT.json]
 
 Decides ``adversarial_events(k, batch, seed)``, or the JSONL history at
 ``--file`` (e.g. one written by ``collect``), once to warm up and once
@@ -16,7 +17,9 @@ under ``torch.profiler``, on the first CUDA device, and prints:
 
 ``--exhaustive`` runs ``check_device(beam=False, max_frontier=2^20)``
 instead of the default ``check_device_auto`` (beam first), which measures
-the exhaustive phase at full width.  A search that expands more
+the exhaustive phase at full width.  ``--prune`` and ``--speculate-depth
+K`` pass the same options to either entry (the dive's expansions count as
+layers of the window below).  A search that expands more
 than :data:`WHOLE_MAX_LAYERS` layers (a collected history's thousands)
 is profiled over only :data:`WINDOW_LAYERS` whole layers from its middle,
 the rest of the call unprofiled: the profiler's own processing of over a
@@ -41,6 +44,7 @@ import torch
 
 from .checker import device as dev_mod
 from .checker.entries import prepare
+from .checker.profile import accel_counters
 from .collector.adversarial import adversarial_events
 from .ops import fold_cuda
 from .utils import events as ev
@@ -82,7 +86,7 @@ def _device_times(prof) -> tuple[dict[str, float], int]:
     return out, n
 
 
-def _profiled_window(fn, start: int, n: int, box: dict):
+def profiled_window(fn, start: int, n: int, box: dict):
     """Wrap ``_expand_layer``: profile from its call ``start`` to its call
     ``start + n``, i.e. ``n`` whole layers of the search loop, and keep the
     profiler, the window's wall and its host syncs in ``box``."""
@@ -111,7 +115,7 @@ WHOLE_MAX_LAYERS = 1000
 WINDOW_LAYERS = 200
 
 
-def _busy(prof, wall: float) -> dict:
+def busy(prof, wall: float) -> dict:
     dev_ms, kernels = _device_times(prof)
     busy_ms = sum(dev_ms.values())
     return {
@@ -130,6 +134,8 @@ def run(
     seed: int,
     exhaustive: bool,
     file: str | None = None,
+    prune: bool = False,
+    speculate_depth: int = 0,
 ) -> dict:
     if file:
         hist, name = prepare(ev.read_history(file)), file
@@ -137,10 +143,12 @@ def run(
         hist = prepare(adversarial_events(k, batch=batch, seed=seed))
         name = f"adversarial k={k} batch={batch} seed={seed}"
 
+    opts = dict(collect_stats=True, prune=prune, speculate_depth=speculate_depth)
+
     def decide():
         if exhaustive:
-            return dev_mod.check_device(hist, max_frontier=1 << 20, beam=False, collect_stats=True)
-        return dev_mod.check_device_auto(hist, collect_stats=True)
+            return dev_mod.check_device(hist, max_frontier=1 << 20, beam=False, **opts)
+        return dev_mod.check_device_auto(hist, **opts)
 
     fold_cuda.build()
     # warm-up (allocator, kernel load), counting the layers _expand_layer runs
@@ -167,7 +175,7 @@ def run(
     if window:
         start = (expanded_layers[0] - window) // 2
         saved["_expand_layer"] = dev_mod._expand_layer
-        dev_mod._expand_layer = _profiled_window(dev_mod._expand_layer, start, window, box)
+        dev_mod._expand_layer = profiled_window(dev_mod._expand_layer, start, window, box)
     try:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -189,6 +197,8 @@ def run(
     out = {
         "history": name,
         "entry": "check_device(beam=False, max_frontier=2^20)" if exhaustive else "check_device_auto",
+        "prune": prune,
+        "speculate_depth": speculate_depth,
         "outcome": res.outcome.value,
         "wall_s": round(wall, 6),
         "phases_s": phases,
@@ -196,17 +206,18 @@ def run(
         "max_frontier": st.max_frontier,
         "expanded": st.expanded,
         "pruned": st.pruned,
+        **accel_counters(st),
         "host_syncs": dev_mod.SYNCS[0] - syncs0,
         "fold_launches": fold_cuda.LAUNCHES["fold_lanes"],
         "peak_memory_bytes": torch.cuda.max_memory_allocated(),
     }
     if not window:
-        return {**out, **_busy(prof, wall)}
+        return {**out, **busy(prof, wall)}
     out["window"] = {
         "layers": [start, start + window],
         "wall_s": round(box["wall"], 6),
         "host_syncs": box["syncs"],
-        **_busy(box["prof"], box["wall"]),
+        **busy(box["prof"], box["wall"]),
     }
     return out
 
@@ -218,6 +229,9 @@ def main(argv: list[str] | None = None) -> int:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--file", default=None, help="decide this JSONL history instead")
     p.add_argument("--exhaustive", action="store_true")
+    p.add_argument("--prune", action="store_true", help="the verdict-exact prunes (checker/prune.py)")
+    p.add_argument("--speculate-depth", type=int, default=0, metavar="K",
+                   help="one K-layer speculative dive per search segment (0 = off)")
     p.add_argument("--json", default=None, help="also write the result here")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
@@ -227,7 +241,11 @@ def main(argv: list[str] | None = None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True,
     ).stdout.strip()
-    out = {"card": card, **run(args.k, args.batch, args.seed, args.exhaustive, args.file)}
+    out = {
+        "card": card,
+        **run(args.k, args.batch, args.seed, args.exhaustive, args.file,
+              prune=args.prune, speculate_depth=args.speculate_depth),
+    }
     print(json.dumps(out, indent=1))
     if args.json:
         with open(args.json, "w", encoding="utf-8") as f:

@@ -34,6 +34,12 @@ fetches the handful of scalars that steer it: each such fetch is one
 host<->device synchronisation, counted in ``FrontierStats.host_syncs``.
 A lone forced row (:func:`_fast_multi`) steps one op per synchronisation.
 
+With ``prune=True`` the tables carry the verdict-exact prunes of
+``checker/prune.py`` (append rank gate, eager commit in auto-close, tail
+pins); with ``speculate_depth > 0`` every search segment starts with one
+speculative dive (:func:`_spec_dive`) that expands the best few rows a few
+layers ahead through the same :func:`_expand_layer`.
+
 Soundness under capacity pressure mirrors the JAX engine: an OK is always
 conclusive; a dead end after beam pruning is UNKNOWN and
 :func:`check_device_auto` escalates to the exhaustive phase.  The
@@ -45,6 +51,7 @@ the other options of the JAX engine that are not ported yet raise
 from __future__ import annotations
 
 import logging
+import time
 from typing import NamedTuple
 
 import numpy as np
@@ -55,6 +62,7 @@ from ..models.encode import (
     EncodedHistory,
     encode_history,
     intern_state,
+    op_class_masks,
     round_pow2,
 )
 from ..models.stream import StreamState, step_set
@@ -63,7 +71,7 @@ from ..ops.step_kernel import DeviceOps, DeviceState, join_u64, step_kernel
 from ..ops.xxh3 import shr
 from .entries import History
 from .oracle import CheckOutcome, CheckResult
-from .prune import RANK_INF, neutral_tables
+from .prune import RANK_INF, analyze_encoded, neutral_tables
 from .stats import FrontierStats
 
 __all__ = [
@@ -122,7 +130,8 @@ class SearchTables(NamedTuple):
     #: mixed-radix strides of the exact packed counts key (u64 bit patterns
     #: in int64); zeros when prod(chain_len + 1) overflows 2^64
     pack: torch.Tensor  # [C] int64
-    #: commutativity-prune tables, always neutral here (checker/prune.py)
+    #: commutativity-prune tables (checker/prune.py); neutral, so that every
+    #: consumer is a no-op, unless the search runs with ``prune=True``
     app_rank: torch.Tensor  # [N] int64
     minrank_tab: torch.Tensor  # [C, Lc+1] int64
     pintail_tab: torch.Tensor  # [C, Lc+1] int64
@@ -158,10 +167,17 @@ class RunOut(NamedTuple):
     expanded: int
     eager_closed: int
     pin_killed: int
+    #: speculation counters: dive layers advanced (incl. rolled back),
+    #: dives that found the accept, dives discarded on misprediction
+    spec_layers: int
+    spec_accepts: int
+    spec_rollbacks: int
     #: counts of one live row of the deepest committed layer (diagnostics)
     deep_counts: torch.Tensor  # [C]
     #: on STOP_CAPACITY: the aborted layer's unique-children count
     want: int
+    #: valid rows of ``frontier``
+    live: int
 
 
 STOP_RUNNING, STOP_ACCEPT, STOP_EMPTY, STOP_CAPACITY = 0, 1, 2, 3
@@ -220,14 +236,15 @@ def can_exact_pack(enc: EncodedHistory) -> bool:
     return _pack_strides(enc.chain_len)[0]
 
 
-def _table_arrays(enc: EncodedHistory) -> dict[str, np.ndarray]:
+def _table_arrays(enc: EncodedHistory, prune: bool = False) -> dict[str, np.ndarray]:
     """The JAX engine's ``build_tables`` contents as numpy arrays, under the
-    JAX field names (``ops.*`` for the op columns)."""
+    JAX field names (``ops.*`` for the op columns); the prune tables come
+    from :func:`.prune.analyze_encoded` when ``prune`` is set."""
     n = int(enc.op_type.shape[0])
     c, lc = enc.chain_ops.shape
-    pt = neutral_tables(n, (c, lc))
+    pt = analyze_encoded(enc) if prune else neutral_tables(n, (c, lc))
 
-    is_indef = enc.out_failure & ~enc.out_definite & (enc.op_type == 0)
+    is_indef = op_class_masks(enc)["is_indef"]
     settable = {int(enc.set_token[j]) for j in range(n) if enc.has_set_token[j]}
     tok_never = np.array(
         [
@@ -320,8 +337,8 @@ def tables_from_arrays(d: dict, device) -> SearchTables:
     )
 
 
-def build_tables(enc: EncodedHistory, device) -> SearchTables:
-    return tables_from_arrays(_table_arrays(enc), device)
+def build_tables(enc: EncodedHistory, device, prune: bool = False) -> SearchTables:
+    return tables_from_arrays(_table_arrays(enc, prune), device)
 
 
 def frontier_from_arrays(d: dict, device) -> Frontier:
@@ -379,7 +396,10 @@ def _next_and_cands(tables: SearchTables, counts: torch.Tensor):
     nret = torch.where(has_next, ops.ret[nxt], _INF_TIME)
     m = nret.min(-1, keepdim=True).values
     cand = has_next & (ops.call[nxt] < m)
-    # Rank gate (checker/prune.py): a no-op under the neutral tables.
+    # Rank gate (checker/prune.py): successful appends linearize in
+    # out_tail order in every accepting interleaving, so a ranked candidate
+    # above the minimum remaining rank heads a branch that can never
+    # accept.  A no-op under the neutral tables.
     minrank = tables.minrank_tab[ar, counts].min(-1, keepdim=True).values
     rank_nxt = tables.app_rank[nxt]
     cand = cand & ((rank_nxt == _RANK_INF) | (rank_nxt <= minrank))
@@ -684,6 +704,45 @@ def _expand_layer(tables: SearchTables, fr: Frontier, *, allow_prune: bool, exac
 # ---------------------------------------------------------------------------
 
 
+def _close_and_pin(tables: SearchTables, fr: Frontier) -> Frontier:
+    """Auto-close every row, then drop the rows the tail pins kill."""
+    counts = _auto_close(tables, fr)[0]
+    return fr._replace(counts=counts, valid=fr.valid & ~(fr.tail > _row_tail_pin(tables, counts)))
+
+
+def _spec_dive(tables: SearchTables, fr: Frontier, depth: int, width: int, exact_pack: bool):
+    """One speculative beam dive (the JAX engine's ``_spec_dive``).
+
+    Copies the ``width`` best rows off the closed, pinned entry frontier —
+    ordered by the lazy beam priority, fewest linearized indefinite appends
+    first, dead rows last, by a stable sort — and expands them up to
+    ``depth`` layers, checking for an accept after each.  Every dive row is
+    a real reachable configuration (each layer step-validates its states),
+    so an accepting row is conclusive.  An entry frontier that already
+    accepts is the exact loop's business: the dive stands down.
+
+    Returns ``(found, k, beam, idx)``: whether the dive found an accept
+    (its row ``idx`` of ``beam``), and the dive layers it ran.
+    """
+    c = fr.counts.shape[1]
+    ar = torch.arange(c, device=fr.counts.device)
+    entry = _close_and_pin(tables, fr)
+    opens = tables.opens_tab[ar, entry.counts].sum(1)
+    key = torch.where(entry.valid, opens.clamp(max=_OPENS_CAP), 2 * _OPENS_CAP)
+    order = torch.argsort(key, stable=True)[:width]
+    beam = Frontier(*(x[order] for x in entry))
+    acc = _accept_rows(tables, beam.counts, beam.valid)
+    entry_acc, alive, idx = _fetch(acc.any(), beam.valid.any(), _first_true(acc))
+    done, k = entry_acc, 0
+    while not done and k < depth and alive:
+        children = _expand_layer(tables, beam, allow_prune=True, exact_pack=exact_pack)[0]
+        beam = _close_and_pin(tables, children)
+        k += 1
+        acc = _accept_rows(tables, beam.counts, beam.valid)
+        done, alive, idx = _fetch(acc.any(), beam.valid.any(), _first_true(acc))
+    return bool(done and not entry_acc), k, beam, idx
+
+
 def run_search(
     tables: SearchTables,
     frontier: Frontier,
@@ -691,6 +750,8 @@ def run_search(
     *,
     allow_prune: bool,
     exact_pack: bool = False,
+    spec_depth: int = 0,
+    spec_width: int = 0,
 ) -> RunOut:
     """Run the frontier search for at most ``max_layers`` layers or to a
     stop (the JAX engine's compiled ``run_search``, as a host loop).
@@ -701,18 +762,45 @@ def run_search(
     pre-expansion frontier, so the caller can escalate and resume exactly.
     ``exact_pack=True`` (valid only when :func:`can_exact_pack` holds)
     dedups on the exact u64 packed counts key.
+
+    ``spec_depth > 0`` runs one speculative dive (:func:`_spec_dive`) of
+    ``min(spec_width, F)`` rows before the first layer, as the JAX engine
+    does once per compiled launch.  A dive accept is conclusive and
+    returns at once: row 0 holds the accepting configuration, the only
+    valid row, and ``layers`` counts the dive's depth.  A dive that finds
+    nothing is discarded wholesale (``spec_rollbacks``) and the exact loop
+    runs from the untouched entry frontier.
     """
     fr = frontier
     stop = STOP_RUNNING
     layers = accept_idx = auto_closed = expanded = eager_closed = pin_killed = want = 0
+    spec_layers = spec_accepts = spec_rollbacks = 0
     pruned_ever = False
     (max_live,) = _fetch(fr.valid.sum())
+    live = max_live
     deep_counts = fr.counts[0]
+    if spec_depth > 0 and spec_width > 0:
+        found, spec_layers, beam, idx = _spec_dive(
+            tables, fr, spec_depth, min(spec_width, fr.capacity), exact_pack
+        )
+        if found:
+            # The JAX engine's accept carry: the entry frontier with row 0
+            # replaced by the accepting row, the only valid one.
+            acc = Frontier(*(x.clone() for x in fr))
+            for x, y in zip(acc, beam):
+                x[0] = y[idx]
+            acc.valid.zero_()
+            acc.valid[0] = True
+            fr, stop, layers, live, spec_accepts = acc, STOP_ACCEPT, spec_layers, 1, 1
+            deep_counts = beam.counts[idx]
+        elif spec_layers > 0:
+            spec_rollbacks = 1
     while stop == STOP_RUNNING and layers < max_layers:
         closed_counts, ac_n, eager_n = _auto_close(tables, fr)
         closed = fr._replace(counts=closed_counts)
-        # Tail-pin dead rows (checker/prune.py): a no-op under the neutral
-        # tables.
+        # Tail-pin dead rows (checker/prune.py): a row whose tail has passed
+        # the smallest statically-pinned tail among its remaining ops can
+        # never linearize that op.  A no-op under the neutral tables.
         pin_dead = closed.valid & (closed.tail > _row_tail_pin(tables, closed.counts))
         closed = closed._replace(valid=closed.valid & ~pin_dead)
         acc_row = _accept_rows(tables, closed.counts, closed.valid)
@@ -775,6 +863,7 @@ def run_search(
         # stretch, else the pre-expansion rows).
         resume = accept_any or need_cap or (empty and not children_are_diag)
         fr = closed if resume else children
+        live = n_live_h if resume else children_live
         # A capacity stop abandons this layer (the caller replays it), so
         # only committed layers count.
         if not need_cap:
@@ -800,8 +889,12 @@ def run_search(
         expanded=expanded,
         eager_closed=eager_closed,
         pin_killed=pin_killed,
+        spec_layers=spec_layers,
+        spec_accepts=spec_accepts,
+        spec_rollbacks=spec_rollbacks,
         deep_counts=deep_counts,
         want=want,
+        live=live,
     )
 
 
@@ -875,13 +968,11 @@ _UNPORTED = {
     "mesh": "multi-device sharding",
     "spill": "host-RAM spill",
     "device_rows_cap": "chunked HBM-resident tier",
-    "prune": "commutativity prune",
-    "speculate_depth": "speculative dive",
     "witness_max_frontier": "per-layer witness log",
     "sort_dedup": "sort dedup",
-    "profile": "segment profile",
-    "progress": "progress heartbeats",
 }
+
+_STOP_NAMES = ("RUNNING", "ACCEPT", "EMPTY", "CAPACITY")
 
 
 def _refuse_unported(**opts) -> None:
@@ -908,8 +999,10 @@ def check_device(
     device_rows_cap: int = 0,
     prune: bool = False,
     speculate_depth: int = 0,
+    speculate_width: int = 64,
     sort_dedup: bool | None = None,
     progress=None,
+    start_frontier: int = _START_FRONTIER,
 ) -> CheckResult:
     """Decide linearizability on the GPU (``device=None``) or on the device
     given.  Verdict semantics match the JAX engine: OK and un-pruned ILLEGAL
@@ -925,21 +1018,38 @@ def check_device(
     re-search (:func:`_recover_witness_bounded`).  Rows dedup on the exact
     packed counts key whenever :func:`can_exact_pack` holds, else on the
     Zobrist key.
+
+    ``prune=True`` activates the verdict-exact commutativity prunes
+    (:mod:`.prune`): the append rank gate, eager commit of inert and
+    passing-filter candidates, and tail-pin dead-row elimination.  They
+    never change a verdict and never set ``stats.pruned``.
+
+    ``speculate_depth > 0`` runs one speculative dive per search segment
+    (:func:`_spec_dive`): the best ``speculate_width`` rows expand up to
+    ``speculate_depth`` layers, accepting conclusively if a dive row
+    accepts and rolling back wholesale otherwise.  (The JAX engine stands
+    the dive down while its per-layer witness log is live; the port has no
+    such log, so the dive always runs.)
+
+    ``profile=True`` (implies ``collect_stats``) appends one entry per
+    search segment to ``stats.timeline``: cumulative layers, the segment's
+    peak live rows, the rows it ends with, ops auto-closed, elapsed wall
+    seconds, the stop and the bucket.  ``progress`` (a
+    :class:`.progress.ProgressSink`) is offered one update per segment.
+    ``start_frontier`` is the first bucket's row count.
     """
     _refuse_unported(
         checkpoint_path=checkpoint_path,
         mesh=mesh,
         spill=spill,
         device_rows_cap=device_rows_cap,
-        prune=prune,
-        speculate_depth=speculate_depth,
         witness_max_frontier=witness_max_frontier,
         sort_dedup=sort_dedup,
-        profile=profile,
-        progress=progress,
     )
     dev = resolve_device(device)
+    collect_stats = collect_stats or profile
     syncs0 = SYNCS[0]
+    t_run0 = time.monotonic()
     enc = encode_history(history)
     stats = FrontierStats()
     if enc.total_remaining == 0:
@@ -951,11 +1061,11 @@ def check_device(
         if collect_stats:
             res.stats = stats  # type: ignore[attr-defined]
         return res
-    tables = build_tables(enc, dev)
+    tables = build_tables(enc, dev, prune=prune)
     xp = can_exact_pack(enc)
     cap_layers = int(enc.total_remaining) + 2
     f_cap = _floor_pow2(max_frontier, 2)
-    f = round_pow2(max(min(_START_FRONTIER, f_cap), len(enc.init_states)), 2)
+    f = round_pow2(max(min(start_frontier, f_cap), len(enc.init_states)), 2)
     frontier = init_frontier(enc, f, dev)
     log.debug(
         "device search: %d ops over %d chains, frontier=%d (cap %d), %s, %s",
@@ -974,13 +1084,16 @@ def check_device(
             cap_layers - stats.layers,
             allow_prune=allow_prune,
             exact_pack=xp,
+            spec_depth=int(speculate_depth),
+            spec_width=int(speculate_width) if speculate_depth else 0,
         )
         code = out.stop_code
         log.debug(
-            "segment done: stop=%s layers=%d/%d expanded=%d",
-            ("RUNNING", "ACCEPT", "EMPTY", "CAPACITY")[code],
+            "segment done: stop=%s layers=%d/%d live=%d expanded=%d",
+            _STOP_NAMES[code],
             stats.layers + out.layers,
             cap_layers,
+            out.live,
             stats.expanded + out.expanded,
         )
         stats.layers += out.layers
@@ -989,6 +1102,32 @@ def check_device(
         stats.expanded += out.expanded
         stats.prune_commits += out.eager_closed
         stats.prune_dead += out.pin_killed
+        stats.spec_layers += out.spec_layers
+        stats.spec_accepts += out.spec_accepts
+        stats.spec_rollbacks += out.spec_rollbacks
+        if speculate_depth:
+            stats.spec_launches += 1
+        if profile:
+            stats.timeline.append(
+                {
+                    "layer": stats.layers,
+                    "frontier": out.max_live,
+                    "states": out.live,
+                    "auto_closed": out.auto_closed,
+                    "elapsed_s": round(time.monotonic() - t_run0, 6),
+                    "stop": _STOP_NAMES[code],
+                    "bucket": f,
+                }
+            )
+        if progress is not None:
+            progress.update(
+                ops_committed=_fetch(out.deep_counts.sum())[0],
+                total_ops=enc.num_ops,
+                frontier_width=out.live,
+                states_expanded=stats.expanded,
+                layer=stats.layers,
+                engine="device",
+            )
         if allow_prune:
             stats.pruned = stats.pruned or out.pruned_ever
         if code == STOP_ACCEPT:
@@ -1051,25 +1190,31 @@ def check_device_auto(
     device_rows_cap: int | None = None,
     prune: bool = False,
     speculate_depth: int = 0,
+    speculate_width: int = 64,
     progress=None,
 ) -> CheckResult:
     """Beam-first device check with exhaustive escalation (the JAX engine's
     ``check_device_auto``): a beam phase of ``beam_width`` rows, then, if
     it conceded UNKNOWN, an exhaustive phase up to ``exhaustive_cap`` rows.
     Past that cap the JAX engine continues in its chunked tier and host
-    spill; here the exhaustive phase raises ``NotImplementedError``."""
+    spill; here the exhaustive phase raises ``NotImplementedError``.  Both
+    phases get the prune, speculation, profile and progress options."""
     _refuse_unported(
         checkpoint_path=checkpoint_path,
         mesh=mesh,
         spill=spill,
         device_rows_cap=device_rows_cap,
+        witness_max_frontier=witness_max_frontier,
+    )
+    kw = dict(
+        collect_stats=collect_stats,
+        device=resolve_device(device),
+        profile=profile,
         prune=prune,
         speculate_depth=speculate_depth,
-        witness_max_frontier=witness_max_frontier,
-        profile=profile,
+        speculate_width=speculate_width,
         progress=progress,
     )
-    kw = dict(collect_stats=collect_stats, device=resolve_device(device))
     res = check_device(history, max_frontier=beam_width, beam=True, **kw)
     if res.outcome != CheckOutcome.UNKNOWN:
         return res
@@ -1100,7 +1245,7 @@ def _accept_remaining(enc: EncodedHistory, counts) -> list[int] | None:
     all indefinite appends (that is what accept means), and linearizing
     them in call order respects both chain order and real time; returns
     None if a remainder is not an indefinite append (never expected)."""
-    is_indef = enc.out_failure & ~enc.out_definite & (enc.op_type == 0)
+    is_indef = op_class_masks(enc)["is_indef"]
     remaining = [
         int(enc.chain_ops[c, k])
         for c in range(enc.num_chains)

@@ -17,17 +17,19 @@ class FrontierStats:
     auto_closed: int = 0
     expanded: int = 0
     pruned: bool = False
-    #: verdict-exact commutativity-prune counters (zero under the neutral
-    #: tables this port builds; see checker/prune.py)
+    #: verdict-exact commutativity-prune counters (``prune=True`` runs; see
+    #: checker/prune.py).  ``prune_ranked`` counts the host frontier
+    #: engine's rank-gate drops; that engine is not ported, so it stays 0
     prune_commits: int = 0
     prune_dead: int = 0
     prune_ranked: int = 0
-    #: speculative-dive counters (zero: speculation is not ported yet)
+    #: speculative-dive counters (``speculate_depth > 0`` runs): segments
+    #: that ran a dive, dive layers, dives that accepted, dives discarded
     spec_launches: int = 0
     spec_layers: int = 0
     spec_accepts: int = 0
     spec_rollbacks: int = 0
-    #: per-segment profile entries (``profile=True`` runs; not ported yet)
+    #: per-segment profile entries (``profile=True`` runs)
     timeline: list = field(default_factory=list)
     #: per-shard summary (multi-device runs; not ported yet)
     shards: list = field(default_factory=list)

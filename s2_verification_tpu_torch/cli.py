@@ -22,7 +22,10 @@ Backends: ``device`` (default) runs the GPU frontier search
 ``cpu`` runs the same search with the plain PyTorch fold); ``oracle`` runs
 the CPU Wing–Gong reference (checker/oracle.py), bounded by
 ``-time-budget``.  The device search ignores ``-time-budget``, as in the
-JAX package.  There is no HTML visualization yet.
+JAX package.  ``--prune`` and ``--speculate-depth K`` turn on the device
+search's verdict-exact prunes and speculative dive (the oracle ignores
+both); ``-profile OUT.json`` writes the search-shape profile
+(checker/profile.py).  There is no HTML visualization yet.
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ from . import __version__
 from .checker.device import DeviceUnavailable, check_device_auto
 from .checker.entries import History, prepare
 from .checker.oracle import CheckOutcome, CheckResult, check
+from .checker.profile import accel_counters, job_profile
 from .collector.collect import CollectConfig, collect_to_file
 from .collector.fake_s2 import FaultPlan
 from .utils import events as ev
@@ -66,7 +70,14 @@ def _run_backend(args: argparse.Namespace, hist: History) -> CheckResult:
     if args.backend == "oracle":
         budget = args.time_budget
         return check(hist, time_budget_s=None if budget is None or budget <= 0 else budget)
-    return check_device_auto(hist, collect_stats=args.stats, device=args.device)
+    return check_device_auto(
+        hist,
+        collect_stats=args.stats,
+        device=args.device,
+        profile=bool(args.profile),
+        prune=args.prune,
+        speculate_depth=args.speculate_depth,
+    )
 
 
 def _check_one(args: argparse.Namespace, on_result=None) -> int:
@@ -100,6 +111,22 @@ def _check_one(args: argparse.Namespace, on_result=None) -> int:
     if on_result is not None:
         on_result(file_path, res, checked)
 
+    if args.profile:
+        # Search-shape profile: FrontierStats fields + the per-segment
+        # timeline, the JAX CLI's schema.
+        prof = job_profile(res)
+        prof.update(
+            file=file_path,
+            outcome=res.outcome.value,
+            backend=args.backend,
+            wall_s=round(dt, 4),
+            ops=len(checked.ops),
+        )
+        with open(args.profile, "w", encoding="utf-8") as f:
+            json.dump(prof, f, indent=2)
+            f.write("\n")
+        log.info("wrote search profile to %s", args.profile)
+
     if args.stats:
         # One machine-readable line on stdout: verdict, wall-clock, search
         # statistics (the JAX CLI's -stats schema plus host_syncs/device).
@@ -122,6 +149,7 @@ def _check_one(args: argparse.Namespace, on_result=None) -> int:
                 host_syncs=st.host_syncs,
                 device=args.device,
             )
+            line.update(accel_counters(st))
         if res.steps:
             line["steps"] = res.steps
         print(json.dumps(line), flush=True)
@@ -259,10 +287,36 @@ def build_parser() -> argparse.ArgumentParser:
         help="oracle time budget in seconds (0 or unset = run to completion)",
     )
     c.add_argument(
+        "--prune",
+        action="store_true",
+        help="verdict-exact search pruning (checker/prune.py): forced "
+        "append order, eager commit of inert/passing-filter ops, "
+        "tail-pin dead-configuration elimination — same verdicts, "
+        "smaller search",
+    )
+    c.add_argument(
+        "--speculate-depth",
+        type=int,
+        default=0,
+        metavar="K",
+        help="speculative multi-layer expansion for the device search: "
+        "one K-layer dive per search segment, wholesale-discarded on "
+        "misprediction (0 = off)",
+    )
+    c.add_argument(
         "-stats",
         "--stats",
         action="store_true",
-        help="print one machine-readable JSON line on stdout",
+        help="print one machine-readable JSON line on stdout (with the "
+        "prune and speculation counters where nonzero)",
+    )
+    c.add_argument(
+        "-profile",
+        "--profile",
+        default=None,
+        metavar="OUT.json",
+        help="write a search-shape profile JSON (FrontierStats + "
+        "per-segment timeline) — the JAX CLI's schema",
     )
 
     g = sub.add_parser("collect", help="collect a history against the fake S2")

@@ -42,6 +42,7 @@ __all__ = [
     "EncodedHistory",
     "encode_history",
     "intern_state",
+    "op_class_masks",
     "round_pow2",
     "INF_TIME",
 ]
@@ -147,6 +148,32 @@ class EncodedHistory:
         forced = set(self.forced_prefix)
         n_total = self.num_ops + len(self.forced_prefix)
         return [i for i in range(n_total) if i not in forced]
+
+
+def op_class_masks(enc: "EncodedHistory") -> dict[str, np.ndarray]:
+    """Step-kernel behavior classes of every encoded op row, as one shared
+    derivation (the device tables and the prune analysis need the same
+    masks):
+
+    - ``is_indef``: indefinite append failure — the only two-successor op;
+    - ``inert``: identity on every state (definite failures of any type,
+      failed reads/check_tails — the latter are definite by construction);
+    - ``filter_succ``: successful read/check_tail — a pure filter pinned
+      to its observed tail (and hash, when present);
+    - ``app_succ``: successful append — single-successor mutator that
+      linearizes exactly at tail ``out_tail - num_records``.
+
+    Padded rows (zeroed arrays past ``num_ops``) fall into ``app_succ``
+    with zero records; consumers must reach ops through the chain tables
+    (padded rows are in no chain), not through these masks alone.
+    """
+    is_append = enc.op_type == APPEND
+    return {
+        "is_indef": enc.out_failure & ~enc.out_definite & is_append,
+        "inert": enc.out_failure & (enc.out_definite | ~is_append),
+        "filter_succ": ~is_append & ~enc.out_failure,
+        "app_succ": is_append & ~enc.out_failure,
+    }
 
 
 def _forced_prefix(history: History) -> tuple[list[int], list[StreamState]]:

@@ -247,11 +247,8 @@ UNPORTED = [
     ("mesh", object()),
     ("spill", True),
     ("device_rows_cap", 1 << 23),
-    ("prune", True),
-    ("speculate_depth", 2),
     ("witness_max_frontier", 64),
     ("sort_dedup", True),
-    ("profile", True),
 ]
 
 
@@ -265,5 +262,5 @@ UNPORTED_CALLS = [("check_device", o, v) for o, v in UNPORTED] + [
 )
 def test_unported_tiers_raise(entry, option, value):
     hp = prepare(to_port(jax_adversarial(3, batch=2, seed=0)))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match=option):
         getattr(pdev, entry)(hp, device="cpu", **{option: value})

@@ -70,7 +70,15 @@ def _fresh_interpreter(body: str) -> subprocess.CompletedProcess:
 
 def test_importing_the_port_loads_no_jax():
     mods = _modules()
-    for m in ("checker.device", "collector.collect", "collector.campaign", "collector.socket_s2"):
+    for m in (
+        "checker.device",
+        "checker.prune",
+        "checker.progress",
+        "checker.profile",
+        "collector.collect",
+        "collector.campaign",
+        "collector.socket_s2",
+    ):
         assert f"s2_verification_tpu_torch.{m}" in mods
     proc = _fresh_interpreter(f"for m in {mods!r}:\n    importlib.import_module(m)\n")
     assert proc.returncode == 0, proc.stdout + proc.stderr
