@@ -62,7 +62,31 @@ on the first failed phase:
    classes, seed 11), each history decided pruned with
    ``speculate_depth=3`` and un-pruned, which must agree with each other
    and, where conclusive, with the campaign's label;
-9. the kernel list, one JSON line of kernel measurements, and as the last
+9. the chunked device-resident tier (``device._expand_layer_chunked``):
+   adversarial k=10, batch=100, seed 0 through ``check_device(beam=False,
+   max_frontier=2**17, device_rows_cap=2**20)``, plain and with
+   ``prune=True, speculate_depth=3``, each with the JAX engine's search
+   statistics (:data:`TIER_K10_STATS`, :data:`TIER_K10_PRUNED_STATS`) and a
+   replaying witness, launch counts reset just before each run and read
+   just after it, every fold call of both bit-exact against the plain
+   fold, three warm calls of the plain run with their peak memory, and the
+   in-core run at a 2^20-row bucket with sort dedup and with the probe
+   table beside it, each with its fold launches;
+   adversarial k=12, batch=100, seed 0 at the JAX record's configuration
+   (``max_frontier=2**21, device_rows_cap=2**24``), which must be OK with
+   a replaying witness and peak at :data:`K12_PEAK` rows, with its wall,
+   the witness recovery's share, peak memory, the chunks of each chunked
+   layer, and its largest fold call by steps bit-exact against the plain
+   fold and timed beside its bound; the unsatisfiable k=8 history through
+   the tier (:data:`TIER_K8_UNSAT_STATS`), ILLEGAL with refusal reports and
+   every fold call bit-exact, and once more with ``device_rows_cap`` under
+   its peak and ``spill=True``, which must raise ``NotImplementedError``
+   naming the host-RAM spill; and the unsatisfiable k=9 through the tier in
+   2^17-row chunks (:data:`TIER_K9_UNSAT_STATS`), whose widest layers
+   expand several live chunks and compact across them, ILLEGAL with its
+   chunks and compactions per layer, wall, peak memory and every fold call
+   bit-exact;
+10. the kernel list, one JSON line of kernel measurements, and as the last
    line ``{"ok": true, "device": {...}}``.
 
 Fold times are per call, from CUDA events: ``call`` with back-to-back
@@ -118,6 +142,33 @@ PRUNED_HEADLINE_STATS = {
     "prune_commits": 3887, "prune_dead": 1,
     "spec_launches": 1, "spec_layers": 3, "spec_accepts": 0, "spec_rollbacks": 1,
 }
+#: The JAX engine's ``check_device`` (XLA:CPU) on adversarial k=10,
+#: batch=100, seed 0 through its chunked tier: ``beam=False,
+#: max_frontier=2**17, device_rows_cap=2**20`` (2^17-row chunks under a
+#: frontier that peaks above 2^18 rows), plain and with ``prune=True,
+#: speculate_depth=3``; the port's must equal them.
+TIER_K10_STATS = {"layers": 7, "max_frontier": 410971, "expanded": 606058, "auto_closed": 0}
+TIER_K10_PRUNED_STATS = {
+    "layers": 6, "max_frontier": 82152, "expanded": 113146, "auto_closed": 1,
+    "prune_commits": 1, "prune_dead": 0,
+    "spec_launches": 6, "spec_layers": 17, "spec_accepts": 0, "spec_rollbacks": 6,
+}
+#: The JAX engine's ``check_device`` on the unsatisfiable k=8, batch=100,
+#: seed 0 through the tier: ``beam=False, max_frontier=2**10,
+#: device_rows_cap=TIER_K8_ROWS``, the smallest power of two that decides it
+#: (at 2^16 rows the JAX engine concedes UNKNOWN).
+TIER_K8_ROWS = 1 << 17
+TIER_K8_UNSAT_STATS = {"layers": 9, "max_frontier": 109601, "expanded": 595456, "auto_closed": 0}
+#: The JAX engine's ``check_device`` on the unsatisfiable k=9, batch=100,
+#: seed 0 through the tier: ``beam=False, max_frontier=2**17,
+#: device_rows_cap=TIER_K9_ROWS``, the smallest power of two that decides it
+#: (at 2^20 rows the conservative fit test overflows and the JAX engine
+#: concedes UNKNOWN).
+TIER_K9_ROWS = 1 << 21
+TIER_K9_UNSAT_STATS = {"layers": 10, "max_frontier": 986410, "expanded": 5361920, "auto_closed": 0}
+#: Peak frontier of adversarial k=12, batch=100, seed 0 (the JAX engine's
+#: record, ``BASELINE.md``: a count of the search, not of the hardware).
+K12_PEAK = 10_850_401
 #: the campaign seed every builtin violation provably fires under
 CAMPAIGN_SEED = 11
 #: ``scripts/table_bench.py:27-33`` without the CPU-intractable 16×2000.
@@ -198,6 +249,324 @@ def swap_real_time_pair(hist, order) -> list[int] | None:
         if ops[order[i]].ret < ops[order[i + 1]].call:
             return order[:i] + [order[i + 1], order[i]] + order[i + 2 :]
     return None
+
+
+@contextlib.contextmanager
+def counting_chunks(dev_mod):
+    """Count the chunked layers the search runs through ``dev_mod`` while
+    inside, the chunks each one expands and the cross-chunk compactions it
+    makes before its final one: ``{"layers": [(rows, chunks, compactions),
+    ...]}``."""
+    box: dict = {"layers": []}
+    real = dev_mod._expand_layer_chunked, dev_mod._expand_slice, dev_mod._compact_children
+    seen = {"slices": 0, "compactions": 0}
+
+    def layer(tables, fr, **kw):
+        before = dict(seen)
+        out = real[0](tables, fr, **kw)
+        box["layers"].append((fr.capacity, seen["slices"] - before["slices"],
+                              seen["compactions"] - before["compactions"] - 1))
+        return out
+
+    def slice_(*a, **kw):
+        seen["slices"] += 1
+        return real[1](*a, **kw)
+
+    def compact(*a, **kw):
+        seen["compactions"] += 1
+        return real[2](*a, **kw)
+
+    dev_mod._expand_layer_chunked, dev_mod._expand_slice, dev_mod._compact_children = layer, slice_, compact
+    try:
+        yield box
+    finally:
+        dev_mod._expand_layer_chunked, dev_mod._expand_slice, dev_mod._compact_children = real
+
+
+def run_tier_phase(dev_mod, fold_cuda, xxh3, fb, prepare, adversarial_events, k10_events,
+                   recheck_calls, clocks, sm_hz, stats_of) -> dict:
+    """Phase 9, the chunked device-resident tier; returns the fold's
+    launches on its paths and its largest chunked call, measured."""
+    out: dict = {"launches_by_path": {}}
+
+    def gib(b):
+        return f"{b / 2**30:.3f} GiB"
+
+    # Adversarial k=10 through the tier: 2^17-row chunks.
+    hist = prepare(k10_events)
+    kw = dict(max_frontier=1 << 17, device_rows_cap=1 << 20, beam=False, collect_stats=True)
+    with fb.recording_folds(dev_mod) as calls, counting_chunks(dev_mod) as chunks:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fold_cuda.reset_launches()
+        syncs0 = dev_mod.SYNCS[0]
+        t0 = time.monotonic()
+        res = dev_mod.check_device(hist, **kw)
+        torch.cuda.synchronize()
+        first_wall = time.monotonic() - t0
+        launches = dict(fold_cuda.LAUNCHES)
+        syncs = dev_mod.SYNCS[0] - syncs0
+        peak = torch.cuda.max_memory_allocated()
+    if res.outcome.value != "ok" or not replay_ok(hist, res.linearization or []):
+        fail(f"tier k=10: outcome {res.outcome}, or the witness does not replay")
+    got = stats_of(res.stats, TIER_K10_STATS)
+    if got != TIER_K10_STATS:
+        fail(f"tier k=10 statistics {got}, the JAX engine's {TIER_K10_STATS}")
+    if not chunks["layers"] or launches["fold_lanes"] == 0 or len(calls) != launches["fold_lanes"]:
+        fail(f"tier k=10: {len(chunks['layers'])} chunked layers, {launches['fold_lanes']} fold "
+             f"launches, {len(calls)} recorded")
+    recheck_calls(calls, "tier k=10")
+    del calls  # before the warm calls, whose peak memory is read
+    warm = []
+    for _ in range(3):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.monotonic()
+        res_w = dev_mod.check_device(hist, **kw)
+        torch.cuda.synchronize()
+        warm.append((time.monotonic() - t0, torch.cuda.max_memory_allocated()))
+        if res_w.outcome.value != "ok" or stats_of(res_w.stats, TIER_K10_STATS) != TIER_K10_STATS:
+            fail("a warm tier k=10 call differs from the first")
+    print(
+        f"tier k=10 (check_device beam off, 2^17-row chunks, device rows 2^20): OK, witness "
+        f"replays; statistics == the JAX engine's {json.dumps(got)}; chunked layers (bucket rows, "
+        f"chunks, compactions before the last) {chunks['layers']}; host syncs {syncs}, fold "
+        f"launches {launches['fold_lanes']}; first call {first_wall:.3f} s, peak memory "
+        f"{gib(peak)} (its fold calls recorded); warm "
+        + ", ".join(f"{w:.3f} s ({gib(m)})" for w, m in warm),
+        flush=True,
+    )
+    out["launches_by_path"]["adversarial k=10 through the chunked tier (2^17-row chunks)"] = launches["fold_lanes"]
+
+    pkw = dict(kw, prune=True, speculate_depth=3)
+    with fb.recording_folds(dev_mod) as calls, counting_chunks(dev_mod) as chunks:
+        fold_cuda.reset_launches()
+        res = dev_mod.check_device(hist, **pkw)
+        pruned_launches = fold_cuda.LAUNCHES["fold_lanes"]
+    got = stats_of(res.stats, TIER_K10_PRUNED_STATS)
+    if res.outcome.value != "ok" or not replay_ok(hist, res.linearization or []):
+        fail(f"pruned tier k=10: outcome {res.outcome}, or the witness does not replay")
+    if got != TIER_K10_PRUNED_STATS:
+        fail(f"pruned tier k=10 statistics {got}, the JAX engine's {TIER_K10_PRUNED_STATS}")
+    t0 = time.monotonic()
+    dev_mod.check_device(hist, **pkw)
+    torch.cuda.synchronize()
+    print(f"pruned tier k=10 (prune, speculate_depth=3): OK, witness replays; statistics == the JAX "
+          f"engine's {json.dumps(got)}; chunked layers {chunks['layers']}; fold launches "
+          f"{pruned_launches}; warm {time.monotonic() - t0:.3f} s", flush=True)
+    if pruned_launches == 0 or not chunks["layers"] or len(calls) != pruned_launches:
+        fail(f"pruned tier k=10: {len(chunks['layers'])} chunked layers, {pruned_launches} fold "
+             f"launches, {len(calls)} recorded")
+    recheck_calls(calls, "pruned tier k=10")
+    del calls
+    out["launches_by_path"]["adversarial k=10 through the tier, prune, speculate_depth=3"] = pruned_launches
+
+    # The same history in core at a 2^20-row bucket: sort dedup against
+    # the probe table, in turns, after one call of each.
+    incore: dict = {True: [], False: []}
+    for sd in (True, False, False, True, True, False, False, True):
+        torch.cuda.reset_peak_memory_stats()
+        fold_cuda.reset_launches()
+        t0 = time.monotonic()
+        res = dev_mod.check_device(hist, max_frontier=1 << 20, beam=False, collect_stats=True, sort_dedup=sd)
+        torch.cuda.synchronize()
+        incore[sd].append((time.monotonic() - t0, torch.cuda.max_memory_allocated(), res.stats,
+                           fold_cuda.LAUNCHES["fold_lanes"]))
+        if res.outcome.value != "ok" or not replay_ok(hist, res.linearization or []):
+            fail(f"in-core k=10 sort_dedup={sd}: outcome {res.outcome}, or the witness does not replay")
+    for sd, runs in incore.items():
+        st = runs[-1][2]
+        print(
+            f"in-core k=10 (2^20-row bucket) sort_dedup={sd}: OK; layers {st.layers}, peak frontier "
+            f"{st.max_frontier}, expanded {st.expanded}; fold launches a run "
+            f"{sorted({n for *_, n in runs})}; warm "
+            + ", ".join(f"{w:.3f} s ({gib(m)})" for w, m, _, _ in runs[1:]),
+            flush=True,
+        )
+
+    # Adversarial k=12 at the JAX record's configuration: only the largest
+    # fold call by steps is kept (a 2^21-row chunk's call is 54.5 M lanes).
+    k12 = prepare(adversarial_events(12, batch=100, seed=0))
+    largest: dict = {"steps": -1}
+    witness_s = [0.0]
+    real_fold, real_witness = dev_mod.fold_lanes, dev_mod._recover_witness_bounded
+
+    def keep_largest(seed, row, length, rh):
+        steps = int(length.clamp(min=0, max=rh.shape[1]).sum())
+        if steps > largest["steps"]:
+            largest.update(steps=steps, args=[t.clone() for t in (seed, row, length, rh)])
+        return real_fold(seed, row, length, rh)
+
+    def timed_witness(*a, **kw):
+        t = time.monotonic()
+        try:
+            return real_witness(*a, **kw)
+        finally:
+            witness_s[0] += time.monotonic() - t
+
+    dev_mod.fold_lanes, dev_mod._recover_witness_bounded = keep_largest, timed_witness
+    try:
+        with counting_chunks(dev_mod) as chunks:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            fold_cuda.reset_launches()
+            syncs0 = dev_mod.SYNCS[0]
+            t0 = time.monotonic()
+            res = dev_mod.check_device(
+                k12, max_frontier=1 << 21, device_rows_cap=1 << 24, beam=False, collect_stats=True
+            )
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t0
+            k12_launches = fold_cuda.LAUNCHES["fold_lanes"]
+            syncs = dev_mod.SYNCS[0] - syncs0
+            peak = torch.cuda.max_memory_allocated()
+    finally:
+        dev_mod.fold_lanes, dev_mod._recover_witness_bounded = real_fold, real_witness
+    st = res.stats
+    if res.outcome.value != "ok" or not replay_ok(k12, res.linearization or []):
+        fail(f"k=12: outcome {res.outcome}, or the witness does not replay")
+    if st.max_frontier != K12_PEAK:
+        fail(f"k=12 peak frontier {st.max_frontier}, the JAX engine's {K12_PEAK}")
+    if not chunks["layers"] or k12_launches == 0:
+        fail(f"k=12: {len(chunks['layers'])} chunked layers, {k12_launches} fold launches")
+    print(
+        f"k=12 (check_device beam off, 2^21-row chunks, device rows 2^24): OK, witness replays, "
+        f"peak frontier {st.max_frontier} (== the JAX engine's); layers {st.layers}, expanded "
+        f"{st.expanded}; chunked layers (bucket rows, chunks, compactions before the last) "
+        f"{chunks['layers']}; first call {wall:.3f} s (the largest fold call kept on the side), "
+        f"witness recovery {witness_s[0]:.3f} s ({100 * witness_s[0] / wall:.1f}%); host syncs "
+        f"{syncs}, fold launches {k12_launches}; "
+        f"peak memory {gib(peak)}; card {fb.card()}",
+        flush=True,
+    )
+    out["launches_by_path"]["adversarial k=12 through the tier (2^21-row chunks)"] = k12_launches
+
+    a = largest.pop("args")
+    got = fold_cuda.fold_lanes(*a)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    want = xxh3.fold_record_hashes_indexed(*a)
+    end.record()
+    torch.cuda.synchronize()
+    plain_ms = start.elapsed_time(end)
+    if not torch.equal(got, want):
+        fail(f"the k=12 largest fold call differs from the plain fold: {int((got != want).sum())} lanes")
+    err = float((got.double() - want.double()).abs().max())
+    del got, want
+    dev_ms, call_ms, host_ms = fb.times(lambda: fold_cuda.fold_lanes(*a), 5, sm_hz)
+    r, w = int(a[3].shape[0]), int(a[3].shape[1])
+    b_ms, b_by = fb.fold_bound_ms(a[2], r, w, clocks)
+    cs = fb.call_stats(a[2], w)
+    print(
+        f"k=12 largest fold call by steps: lanes {cs['lanes']}, active {cs['active']}, steps "
+        f"{cs['steps']}, R={r} L={w}: bit-exact; kernel {call_ms:.4f} ms per call, {dev_ms:.4f} ms "
+        f"device, {host_ms:.4f} ms host; plain {plain_ms:.3f} ms (one call); bound {b_ms:.4f} ms "
+        f"({b_by}), device time at {100 * b_ms / dev_ms:.0f}% of it",
+        flush=True,
+    )
+    out["chunked_call"] = {
+        "path": "adversarial k=12, the largest call by steps", "lanes": cs["lanes"],
+        "steps": cs["steps"], "ms": call_ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+        "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err,
+    }
+    del a
+
+    # The unsatisfiable k=8 through the tier, then past a cap under its peak.
+    k8 = prepare(adversarial_events(8, batch=100, seed=0, unsatisfiable=True))
+    kw8 = dict(max_frontier=1 << 10, device_rows_cap=TIER_K8_ROWS, beam=False, collect_stats=True)
+    with fb.recording_folds(dev_mod) as calls, counting_chunks(dev_mod) as chunks:
+        fold_cuda.reset_launches()
+        t0 = time.monotonic()
+        res = dev_mod.check_device(k8, **kw8)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        k8_launches = fold_cuda.LAUNCHES["fold_lanes"]
+    got = stats_of(res.stats, TIER_K8_UNSAT_STATS)
+    if res.outcome.value != "illegal" or not res.refusals:
+        fail(f"unsatisfiable k=8 through the tier: {res.outcome}, {len(res.refusals)} refusal reports")
+    if got != TIER_K8_UNSAT_STATS or not chunks["layers"]:
+        fail(f"unsatisfiable k=8 through the tier: statistics {got} (the JAX engine's "
+             f"{TIER_K8_UNSAT_STATS}), {len(chunks['layers'])} chunked layers")
+    under = 1 << (res.stats.max_frontier.bit_length() - 1)
+    if under == res.stats.max_frontier:
+        under //= 2
+    try:
+        dev_mod.check_device(k8, **dict(kw8, device_rows_cap=under, spill=True))
+    except NotImplementedError as e:
+        if "host-RAM spill" not in str(e):
+            fail(f"the spill refusal does not name the spill: {e}")
+        refusal = str(e)
+    else:
+        fail(f"unsatisfiable k=8 with device_rows_cap={under} and spill=True did not raise")
+    print(
+        f"unsatisfiable k=8 through the tier (2^10-row chunks, device rows {TIER_K8_ROWS}): ILLEGAL "
+        f"with {len(res.refusals)} refusal reports in {wall:.3f} s; statistics == the JAX engine's "
+        f"{json.dumps(got)}; chunked layers {chunks['layers']}; fold launches "
+        f"{k8_launches}; with device_rows_cap={under} and spill=True: "
+        f"NotImplementedError ({refusal})",
+        flush=True,
+    )
+    if k8_launches == 0 or len(calls) != k8_launches:
+        fail(f"the unsatisfiable k=8 run through the tier: {k8_launches} fold launches, "
+             f"{len(calls)} recorded")
+    recheck_calls(calls, "unsatisfiable k=8 through the tier")
+    del calls
+    out["launches_by_path"]["unsatisfiable k=8 through the tier (2^10-row chunks)"] = k8_launches
+
+    # The unsatisfiable k=9 sweeps its whole space, so its widest layers
+    # expand several live 2^17-row chunks each.  Its fold calls are recorded
+    # in one more call, after the timed ones, so that no recorded copy
+    # counts in their peak memory.
+    k9 = prepare(adversarial_events(9, batch=100, seed=0, unsatisfiable=True))
+    kw9 = dict(max_frontier=1 << 17, device_rows_cap=TIER_K9_ROWS, beam=False, collect_stats=True)
+    with counting_chunks(dev_mod) as chunks:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fold_cuda.reset_launches()
+        syncs0 = dev_mod.SYNCS[0]
+        t0 = time.monotonic()
+        res = dev_mod.check_device(k9, **kw9)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        k9_launches = fold_cuda.LAUNCHES["fold_lanes"]
+        syncs = dev_mod.SYNCS[0] - syncs0
+        peak = torch.cuda.max_memory_allocated()
+    got = stats_of(res.stats, TIER_K9_UNSAT_STATS)
+    if res.outcome.value != "illegal" or not res.refusals:
+        fail(f"unsatisfiable k=9 through the tier: {res.outcome}, {len(res.refusals)} refusal reports")
+    if got != TIER_K9_UNSAT_STATS:
+        fail(f"unsatisfiable k=9 through the tier: statistics {got}, the JAX engine's {TIER_K9_UNSAT_STATS}")
+    widest = max((n for _, n, _ in chunks["layers"]), default=0)
+    if widest < 2 or k9_launches == 0:
+        fail(f"unsatisfiable k=9 through the tier: at most {widest} chunks a layer, {k9_launches} "
+             "fold launches")
+    warm = []
+    for _ in range(2):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.monotonic()
+        res_w = dev_mod.check_device(k9, **kw9)
+        torch.cuda.synchronize()
+        warm.append((time.monotonic() - t0, torch.cuda.max_memory_allocated()))
+        if res_w.outcome.value != "illegal" or stats_of(res_w.stats, TIER_K9_UNSAT_STATS) != got:
+            fail("a warm unsatisfiable k=9 call through the tier differs from the first")
+    print(
+        f"unsatisfiable k=9 through the tier (2^17-row chunks, device rows {TIER_K9_ROWS}): ILLEGAL "
+        f"with {len(res.refusals)} refusal reports; statistics == the JAX engine's {json.dumps(got)}; "
+        f"chunked layers (bucket rows, chunks, compactions before the last) {chunks['layers']}; host "
+        f"syncs {syncs}, fold launches {k9_launches}; first call {wall:.3f} s, peak memory "
+        f"{gib(peak)}; warm " + ", ".join(f"{w:.3f} s ({gib(m)})" for w, m in warm)
+        + f"; card {fb.card()}",
+        flush=True,
+    )
+    with fb.recording_folds(dev_mod) as calls:
+        fold_cuda.reset_launches()
+        dev_mod.check_device(k9, **kw9)
+        if len(calls) != fold_cuda.LAUNCHES["fold_lanes"] or len(calls) != k9_launches:
+            fail(f"unsatisfiable k=9 through the tier: {len(calls)} fold calls recorded, "
+                 f"{fold_cuda.LAUNCHES['fold_lanes']} launched, {k9_launches} in the first call")
+    recheck_calls(calls, "unsatisfiable k=9 through the tier")
+    del calls
+    out["launches_by_path"]["unsatisfiable k=9 through the tier (2^17-row chunks)"] = k9_launches
+    return out
 
 
 def main() -> int:
@@ -790,6 +1159,12 @@ def main() -> int:
         "collector headline, --prune --speculate-depth 3": head_launches["fold_lanes"],
         "campaign matrix (9 histories), pruned, speculate_depth=3": camp_launches,
     })
+
+    # -- 9. the chunked device-resident tier -------------------------------
+    tier = run_tier_phase(dev_mod, fold_cuda, xxh3, fb, prepare, adversarial_events, main_events,
+                          recheck_calls, clocks, sm_hz, stats_of)
+    kernels[0]["launches_by_path"].update(tier["launches_by_path"])
+    kernels[0]["chunked_call"] = tier["chunked_call"]
 
     print(f"kernels: {', '.join(k['name'] for k in kernels)}", flush=True)
     print(f"total {time.monotonic() - t_start:.1f} s", flush=True)

@@ -1,8 +1,8 @@
 """Where the GPU search spends its time, on one history.
 
     python -m s2_verification_tpu_torch.breakdown [--k 10] [--batch 100]
-        [--seed 0] [--file H.jsonl] [--exhaustive] [--prune]
-        [--speculate-depth K] [--json OUT.json]
+        [--seed 0] [--file H.jsonl] [--exhaustive] [--max-frontier N]
+        [--device-rows N] [--prune] [--speculate-depth K] [--json OUT.json]
 
 Decides ``adversarial_events(k, batch, seed)``, or the JSONL history at
 ``--file`` (e.g. one written by ``collect``), once to warm up and once
@@ -13,11 +13,17 @@ under ``torch.profiler``, on the first CUDA device, and prints:
   (``run_search``), witness recovery, final-state fetch, and the rest;
 - device time by kernel (the top entries) and the device's busy share of
   the profiled wall time;
-- host synchronisations, fold-kernel launches, peak device memory.
+- host synchronisations, fold-kernel launches, peak device memory, and
+  kernels and syncs per layer.
 
-``--exhaustive`` runs ``check_device(beam=False, max_frontier=2^20)``
-instead of the default ``check_device_auto`` (beam first), which measures
-the exhaustive phase at full width.  ``--prune`` and ``--speculate-depth
+``--exhaustive`` runs ``check_device(beam=False, max_frontier=N)``
+(``--max-frontier``, 2^20 by default) instead of the default
+``check_device_auto`` (beam first), which measures the exhaustive phase at
+full width.  ``--device-rows N`` passes ``device_rows_cap=N`` to the
+exhaustive search: above its ``--max-frontier`` bucket the frontier grows
+on the device, each layer expanded in bucket-sized chunks (the chunked
+layers are counted as ``chunked_layers``); e.g. ``--exhaustive
+--max-frontier 131072 --device-rows 1048576`` at k=10.  ``--prune`` and ``--speculate-depth
 K`` pass the same options to either entry (the dive's expansions count as
 layers of the window below).  A search that expands more
 than :data:`WHOLE_MAX_LAYERS` layers (a collected history's thousands)
@@ -136,6 +142,8 @@ def run(
     file: str | None = None,
     prune: bool = False,
     speculate_depth: int = 0,
+    max_frontier: int = 1 << 20,
+    device_rows: int | None = None,
 ) -> dict:
     if file:
         hist, name = prepare(ev.read_history(file)), file
@@ -144,25 +152,34 @@ def run(
         name = f"adversarial k={k} batch={batch} seed={seed}"
 
     opts = dict(collect_stats=True, prune=prune, speculate_depth=speculate_depth)
+    if device_rows is not None:
+        opts["device_rows_cap"] = device_rows
 
     def decide():
         if exhaustive:
-            return dev_mod.check_device(hist, max_frontier=1 << 20, beam=False, **opts)
+            return dev_mod.check_device(hist, max_frontier=max_frontier, beam=False, **opts)
         return dev_mod.check_device_auto(hist, **opts)
 
     fold_cuda.build()
-    # warm-up (allocator, kernel load), counting the layers _expand_layer runs
-    expand_layer, expanded_layers = dev_mod._expand_layer, [0]
+    # warm-up (allocator, kernel load), counting the layers _expand_layer
+    # and _expand_layer_chunked run
+    layer_fns = {n: getattr(dev_mod, n) for n in ("_expand_layer", "_expand_layer_chunked")}
+    layer_calls = dict.fromkeys(layer_fns, 0)
 
-    def counted(*a, **kw):
-        expanded_layers[0] += 1
-        return expand_layer(*a, **kw)
+    def counted(name):
+        def wrapper(*a, **kw):
+            layer_calls[name] += 1
+            return layer_fns[name](*a, **kw)
 
-    dev_mod._expand_layer = counted
+        return wrapper
+
+    for n in layer_fns:
+        setattr(dev_mod, n, counted(n))
     try:
         decide()
     finally:
-        dev_mod._expand_layer = expand_layer
+        for n, fn in layer_fns.items():
+            setattr(dev_mod, n, fn)
 
     acc: dict[str, float] = defaultdict(float)
     saved = {}
@@ -171,9 +188,9 @@ def run(
             saved[name_] = getattr(dev_mod, name_)
             setattr(dev_mod, name_, _timed(phase, saved[name_], acc))
     box: dict = {}
-    window = WINDOW_LAYERS if expanded_layers[0] > WHOLE_MAX_LAYERS else None
+    window = WINDOW_LAYERS if layer_calls["_expand_layer"] > WHOLE_MAX_LAYERS else None
     if window:
-        start = (expanded_layers[0] - window) // 2
+        start = (layer_calls["_expand_layer"] - window) // 2
         saved["_expand_layer"] = dev_mod._expand_layer
         dev_mod._expand_layer = profiled_window(dev_mod._expand_layer, start, window, box)
     try:
@@ -196,7 +213,11 @@ def run(
     phases["other"] = round(wall - sum(phases.values()), 6)
     out = {
         "history": name,
-        "entry": "check_device(beam=False, max_frontier=2^20)" if exhaustive else "check_device_auto",
+        "entry": (
+            f"check_device(beam=False, max_frontier={max_frontier}, device_rows_cap={device_rows or 0})"
+            if exhaustive
+            else "check_device_auto" + ("" if device_rows is None else f"(device_rows_cap={device_rows})")
+        ),
         "prune": prune,
         "speculate_depth": speculate_depth,
         "outcome": res.outcome.value,
@@ -210,9 +231,12 @@ def run(
         "host_syncs": dev_mod.SYNCS[0] - syncs0,
         "fold_launches": fold_cuda.LAUNCHES["fold_lanes"],
         "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+        "chunked_layers": layer_calls["_expand_layer_chunked"],
+        "host_syncs_per_layer": round((dev_mod.SYNCS[0] - syncs0) / max(st.layers, 1), 3),
     }
     if not window:
-        return {**out, **busy(prof, wall)}
+        b = busy(prof, wall)
+        return {**out, **b, "kernels_per_layer": round(b["kernels"] / max(st.layers, 1), 1)}
     out["window"] = {
         "layers": [start, start + window],
         "wall_s": round(box["wall"], 6),
@@ -229,6 +253,10 @@ def main(argv: list[str] | None = None) -> int:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--file", default=None, help="decide this JSONL history instead")
     p.add_argument("--exhaustive", action="store_true")
+    p.add_argument("--max-frontier", type=int, default=1 << 20, metavar="N",
+                   help="the exhaustive search's expansion bucket (with --exhaustive; default 2^20)")
+    p.add_argument("--device-rows", type=int, default=None, metavar="N",
+                   help="device-resident frontier cap of the exhaustive search (device_rows_cap)")
     p.add_argument("--prune", action="store_true", help="the verdict-exact prunes (checker/prune.py)")
     p.add_argument("--speculate-depth", type=int, default=0, metavar="K",
                    help="one K-layer speculative dive per search segment (0 = off)")
@@ -244,7 +272,8 @@ def main(argv: list[str] | None = None) -> int:
     out = {
         "card": card,
         **run(args.k, args.batch, args.seed, args.exhaustive, args.file,
-              prune=args.prune, speculate_depth=args.speculate_depth),
+              prune=args.prune, speculate_depth=args.speculate_depth,
+              max_frontier=args.max_frontier, device_rows=args.device_rows),
     }
     print(json.dumps(out, indent=1))
     if args.json:

@@ -25,8 +25,14 @@ One layer:
    (the CUDA kernel on the card); an indefinite append emits two child
    rows, everything else one;
 4. **dedup + compact** — three probe rounds of a scatter-min hash table
-   with an exact compare against each slot's winner, then beam selection
-   by a bincount threshold and a cumsum scatter into the next frontier.
+   with an exact compare against each slot's winner (or, with
+   ``sort_dedup``, one lexicographic sort of the packed child identity),
+   then beam selection by a bincount threshold and a cumsum scatter into
+   the next frontier.
+
+An exhaustive frontier that outgrows its expansion bucket stays on the
+device up to ``device_rows_cap`` rows and is expanded in bucket-sized
+chunks (:func:`_expand_layer_chunked`), as in the JAX engine.
 
 Where the JAX engine runs the whole search as one compiled
 ``lax.while_loop``, this port drives the layers from a host loop and
@@ -42,10 +48,10 @@ layers ahead through the same :func:`_expand_layer`.
 
 Soundness under capacity pressure mirrors the JAX engine: an OK is always
 conclusive; a dead end after beam pruning is UNKNOWN and
-:func:`check_device_auto` escalates to the exhaustive phase.  The
-exhaustive phase's later tiers (the chunked HBM tier, the host spill) and
-the other options of the JAX engine that are not ported yet raise
-``NotImplementedError`` naming the tier, never answer UNKNOWN in its place.
+:func:`check_device_auto` escalates to the exhaustive phase.  The tiers of
+the JAX engine that are not ported yet (the host-RAM spill, checkpoints,
+the per-layer witness log, the mesh) raise ``NotImplementedError`` naming
+the tier, never answer UNKNOWN in its place.
 """
 
 from __future__ import annotations
@@ -88,6 +94,7 @@ __all__ = [
     "run_search",
     "check_device",
     "check_device_auto",
+    "default_device_rows_cap",
     "SYNCS",
 ]
 
@@ -174,6 +181,8 @@ class RunOut(NamedTuple):
     spec_rollbacks: int
     #: counts of one live row of the deepest committed layer (diagnostics)
     deep_counts: torch.Tensor  # [C]
+    #: their sum (ops committed), fetched with the scalars that steer the loop
+    deep_ops: int
     #: on STOP_CAPACITY: the aborted layer's unique-children count
     want: int
     #: valid rows of ``frontier``
@@ -476,9 +485,10 @@ def _fast_multi(tables: SearchTables, budget: int, fr: Frontier, idx: int):
     stays single-chain and the next op is not an indefinite append.  One
     synchronisation per op (the JAX engine runs this loop on device).
 
-    Returns ``(children, n_unique, n_steps, deep_row)``: a row that dies
-    mid-stretch keeps its death-point configuration (pre-attempt counts and
-    state) so the refusal diagnostics can name the culprit.
+    Returns ``(children, n_unique, n_steps, deep_row, deep_ops)``, with
+    ``deep_ops`` the sum of ``deep_row``: a row that dies mid-stretch keeps
+    its death-point configuration (pre-attempt counts and state) so the
+    refusal diagnostics can name the culprit.
     """
     ops = tables.ops
     c = fr.counts.shape[1]
@@ -503,7 +513,7 @@ def _fast_multi(tables: SearchTables, budget: int, fr: Frontier, idx: int):
         tok = torch.where(va, sa.token, tok)
         n += 1
         o, chain, single = nxt_op(counts)
-        alive, single_h, indef = _fetch(va, single, tables.is_indef[o])
+        alive, single_h, indef, deep_ops = _fetch(va, single, tables.is_indef[o], counts.sum())
         if not (alive and single_h and not indef and n < budget):
             break
     # The idx row stays marked valid even when it died: on STOP_EMPTY the
@@ -519,7 +529,7 @@ def _fast_multi(tables: SearchTables, budget: int, fr: Frontier, idx: int):
     children.tail[idx] = tail
     children.hash[idx] = h
     children.tok[idx] = tok
-    return children, int(alive), n, counts
+    return children, int(alive), n, counts, deep_ops
 
 
 # ---------------------------------------------------------------------------
@@ -549,6 +559,38 @@ def _zob_fold(zob: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
     for ci in range(1, counts.shape[1]):
         out ^= contrib[:, ci]
     return out
+
+
+_SIGN = -(1 << 63)
+
+
+def _dedup_sort(invalid: torch.Tensor, ident, values=()):
+    """Total-order sort + adjacent-equality head mask over a row identity
+    ``(pk, tail, hash, tok)`` (the JAX engine's ``_dedup_sort``): the one
+    dedup routine of the in-core sort path and both passes of the chunked
+    tier.
+
+    Rows sort lexicographically by (invalid, pk, tail, hash, tok, row
+    index), ``pk`` and ``hash`` as unsigned 64-bit words (their sign bit
+    flipped for the signed int64 compare) — the order of the JAX engine's
+    six u32/i32 words.  ``torch.sort`` takes one key, so this is stable LSD
+    passes, least significant key first, starting from index order: the
+    row-index tiebreak needs no key of its own, and the first row of every
+    equal run has the smallest index.  Returns ``(head, sorted_ident,
+    sorted_idx, sorted_values)``; ``head`` marks, in sorted space, the
+    first row of each valid identity run.
+    """
+    pk, tail, h, tok = ident
+    perm = torch.arange(invalid.shape[0], device=invalid.device)
+    for key in (tok, h ^ _SIGN, tail, pk ^ _SIGN, invalid.to(torch.uint8)):
+        perm = perm[torch.sort(key[perm], stable=True).indices]
+    sid = tuple(x[perm] for x in ident)
+    same_prev = torch.ones_like(invalid)
+    same_prev[0] = False
+    for w in sid:
+        same_prev[1:] &= w[1:] == w[:-1]
+    head = ~invalid[perm] & ~same_prev
+    return head, sid, perm, tuple(v[perm] for v in values)
 
 
 def _expand_slice(tables: SearchTables, fr: Frontier):
@@ -586,22 +628,20 @@ def _expand_slice(tables: SearchTables, fr: Frontier):
     return t2, h2, k2, valid2, op2, parent2, chain2, cand
 
 
-def _expand_layer(tables: SearchTables, fr: Frontier, *, allow_prune: bool, exact_pack: bool = False):
-    """Expand + dedup + compact one layer.  Returns ``(children, pruned,
-    n_unique, expanded)`` with the last three as device scalars."""
-    f, c = fr.counts.shape
-    e2 = 2 * f * c
-    dev = fr.counts.device
-    ar = torch.arange(c, device=dev)
-    t2, h2, k2, valid2, op2, parent2, chain2, cand = _expand_slice(tables, fr)
+def _probe_dedup(tables: SearchTables, fr: Frontier, t2, h2, k2, valid2, parent2, chain2, pk2):
+    """Scatter-min hash-table dedup of a layer's children.  Equal children
+    share both lane hashes (over the packed key ``pk2``, or the Zobrist
+    counts hash when it is None), so all copies land in one slot; the
+    smallest row index wins, copies that exact-compare equal to the winner
+    drop, unequal collisions re-probe.  Rows still colliding after the
+    probe rounds are kept — a missed merge wastes a row but never changes a
+    verdict.  Returns ``(keep, n_unique)``."""
+    exact_pack = pk2 is not None
+    e2 = valid2.shape[0]
+    dev = valid2.device
+    ar = torch.arange(fr.counts.shape[1], device=dev)
     hi2, lo2 = shr(h2, 32), h2 & _M32
-
     if exact_pack:
-        # Exact mixed-radix counts key: parent keys from an [F, C] product
-        # and sum (mod 2^64), child keys incrementally (+ the stride of the
-        # linearized chain); the dedup compare is then one word per row.
-        pk = (fr.counts * tables.pack).sum(1)
-        pk2 = pk[parent2] + tables.pack[chain2]
         pkh2, pkl2 = shr(pk2, 32), pk2 & _M32
         hh1 = _mix_hash([pkh2, pkl2, t2, hi2, lo2, k2], 0x811C9DC5)
         hh2 = _mix_hash([pkl2, pkh2, t2, hi2, lo2, k2], 0x9747B28C)
@@ -614,12 +654,6 @@ def _expand_layer(tables: SearchTables, fr: Frontier, *, allow_prune: bool, exac
         cz2 = pz2[parent2] ^ tables.zob2[chain2, cnt_pc] ^ tables.zob2[chain2, cnt_pc + 1]
         hh1 = _mix_hash([cz1, t2, hi2, lo2, k2], 0x811C9DC5)
         hh2 = _mix_hash([cz2, t2, hi2, lo2, k2], 0x9747B28C)
-
-    # Scatter-min hash-table dedup: equal children share both hashes so all
-    # copies land in one slot; the smallest row index wins, copies that
-    # exact-compare equal to the winner drop, unequal collisions re-probe.
-    # Rows still colliding after the probe rounds are kept — a missed merge
-    # wastes a row but never changes a verdict.
     tsz = 1 << max(1, (e2 - 1).bit_length())
     idx = torch.arange(e2, device=dev)
     keep_u = torch.zeros(e2, dtype=torch.bool, device=dev)
@@ -645,7 +679,42 @@ def _expand_layer(tables: SearchTables, fr: Frontier, *, allow_prune: bool, exac
         keep_u = keep_u | is_win
         surv = surv & ~is_win & ~dup
     keep = keep_u | surv
-    n_unique = keep.sum()
+    return keep, keep.sum()
+
+
+def _expand_layer(
+    tables: SearchTables,
+    fr: Frontier,
+    *,
+    allow_prune: bool,
+    exact_pack: bool = False,
+    sort_dedup: bool = False,
+):
+    """Expand + dedup + compact one layer.  Returns ``(children, pruned,
+    n_unique, expanded)`` with the last three as device scalars.
+
+    ``sort_dedup`` (with ``exact_pack``) dedups by :func:`_dedup_sort`, a
+    perfect dedup, in place of the probe table."""
+    f, c = fr.counts.shape
+    e2 = 2 * f * c
+    dev = fr.counts.device
+    ar = torch.arange(c, device=dev)
+    t2, h2, k2, valid2, op2, parent2, chain2, cand = _expand_slice(tables, fr)
+    # Exact mixed-radix counts key (when it packs): parent keys from an
+    # [F, C] product and sum (mod 2^64), child keys incrementally (+ the
+    # stride of the linearized chain); the dedup compare is then one word
+    # per row.
+    pk2 = (fr.counts * tables.pack).sum(1)[parent2] + tables.pack[chain2] if exact_pack else None
+    if exact_pack and sort_dedup:
+        # Sort dedup: with the packed key the child identity is four words,
+        # so one lexicographic sort puts every duplicate beside its twin;
+        # the run heads (smallest row index first) are written back in
+        # lane order.
+        head, _sid, sidx, _sv = _dedup_sort(~valid2, (pk2, t2, h2, k2))
+        keep = torch.zeros(e2, dtype=torch.bool, device=dev).index_copy_(0, sidx, head)
+        n_unique = head.sum()
+    else:
+        keep, n_unique = _probe_dedup(tables, fr, t2, h2, k2, valid2, parent2, chain2, pk2)
 
     # Lazy-order rank: total indefinite appends linearized (fewest first).
     lc1 = tables.opens_tab.shape[1] - 1
@@ -699,6 +768,104 @@ def _expand_layer(tables: SearchTables, fr: Frontier, *, allow_prune: bool, exac
     return children, pruned, n_unique, cand.sum()
 
 
+def _compact_children(cb: list[torch.Tensor], cursor: int):
+    """Cross-chunk dedup of the chunked layer's children buffer: its first
+    ``cursor`` rows sorted by :func:`_dedup_sort`, the run heads re-packed
+    densely in sorted order, the rest zeroed.  Returns ``(buffer, rows)``,
+    ``rows`` a device scalar."""
+    f = cb[0].shape[0] - 1
+    dev = cb[0].device
+    head, sid, _sidx, svals = _dedup_sort(
+        torch.arange(f, device=dev) >= cursor, [x[:f] for x in cb[:4]], [x[:f] for x in cb[4:]]
+    )
+    dst = torch.where(head, head.cumsum(0) - 1, f)
+    new = [torch.zeros(f + 1, dtype=torch.int64, device=dev).index_copy_(0, dst, v) for v in (*sid, *svals)]
+    return new, head.sum()
+
+
+def _expand_layer_chunked(tables: SearchTables, fr: Frontier, *, chunk_rows: int):
+    """One exhaustive layer over a frontier too wide to expand in one piece
+    (the JAX engine's ``_expand_layer_chunked``): the frontier stays on the
+    device at full width F while the expansion's working set, 2 ×
+    ``chunk_rows`` × C child lanes, is bounded by the chunk.
+
+    Needs the exact packed counts key.  Each chunk expands through
+    :func:`_expand_slice`, dedups its children with :func:`_dedup_sort` and
+    appends the unique ones behind a write cursor, in sorted order, with
+    each row's global parent and ``op*2 + branch``.  When an append would
+    not fit, the buffer is first deduped across the chunks so far
+    (:func:`_compact_children`); an append that still does not fit drops
+    rows and reports overflow, the pre-expansion frontier intact.  The fit
+    test is conservative: a chunk's rows are not merged against the buffer
+    before it, so a chunk of mostly buffered duplicates can report overflow
+    though the union fits — an early escalation, never a verdict change.
+    A final cross-chunk dedup compacts the buffer in sorted identity order.
+
+    One host fetch per chunk (its unique count, which steers the append),
+    one for the chunks holding a valid row (the others are skipped: they
+    would append nothing), and one per compaction.  Returns ``(children,
+    overflow, n_unique, expanded)``; ``overflow`` is a host bool, and on
+    overflow ``n_unique`` is at least the rows appended, so the jump of
+    :func:`check_device` to a fitting bucket keeps working.
+    """
+    f, c = fr.counts.shape
+    if chunk_rows <= 0 or chunk_rows >= f or f % chunk_rows:
+        raise ValueError(f"chunk_rows={chunk_rows} must divide the frontier's {f} rows")
+    n_chunks = f // chunk_rows
+    ce = chunk_rows * c  # slot-A lanes of a chunk; slot B doubles them
+    dev = fr.counts.device
+    ar = torch.arange(c, device=dev)
+    # Children buffer (pk, tail, hash, tok, global parent, op*2+branch),
+    # dense behind the cursor; slot f takes the rows that are not written.
+    cb = [torch.zeros(f + 1, dtype=torch.int64, device=dev) for _ in range(6)]
+    pk_all = (fr.counts * tables.pack).sum(1)
+    SYNCS[0] += 1
+    live = fr.valid.view(n_chunks, chunk_rows).any(1).tolist()
+    cursor = appended = 0
+    overflow = False
+    expanded = torch.zeros((), dtype=torch.int64, device=dev)
+    for i in range(n_chunks):
+        if not live[i]:
+            continue
+        rows = slice(i * chunk_rows, (i + 1) * chunk_rows)
+        t2, h2, k2, valid2, op2, parent2, chain2, cand = _expand_slice(
+            tables, Frontier(*(x[rows] for x in fr))
+        )
+        pk2 = pk_all[rows][parent2] + tables.pack[chain2]
+        head, sid, sidx, _sv = _dedup_sort(~valid2, (pk2, t2, h2, k2))
+        (u,) = _fetch(head.sum())
+        if cursor + u > f:
+            cb, rows_left = _compact_children(cb, cursor)
+            (cursor,) = _fetch(rows_left)
+        pos = cursor + head.cumsum(0) - 1
+        dst = torch.where(head & (pos < f), pos, f)
+        gparent = i * chunk_rows + (sidx % ce) // c
+        gop = op2[sidx] * 2 + (sidx >= ce).long()
+        for a, v in zip(cb, (*sid, gparent, gop)):
+            a.index_copy_(0, dst, v)
+        overflow = overflow or cursor + u > f
+        cursor = min(cursor + u, f)
+        appended += u
+        expanded += cand.sum()
+        # Free this chunk's lanes before the next chunk allocates its own.
+        del t2, h2, k2, valid2, op2, parent2, chain2, cand, pk2, head, sid, sidx, pos, dst, gparent, gop
+
+    # The final cross-chunk dedup leaves the children dense, in sorted
+    # identity order.
+    (_pk, tail, h, tok, parent, opbr), n_unique = _compact_children(cb, cursor)
+    valid_next = torch.arange(f, device=dev) < n_unique
+    chain_next = tables.ops.chain_of[opbr[:f] // 2]
+    counts_next = torch.where(
+        valid_next[:, None],
+        fr.counts[parent[:f]] + (chain_next[:, None] == ar).long(),
+        0,
+    )
+    children = Frontier(counts=counts_next, tail=tail[:f], hash=h[:f], tok=tok[:f], valid=valid_next)
+    if overflow:
+        n_unique = n_unique.clamp(min=appended)
+    return children, overflow, n_unique, expanded
+
+
 # ---------------------------------------------------------------------------
 # The search loop
 # ---------------------------------------------------------------------------
@@ -710,7 +877,9 @@ def _close_and_pin(tables: SearchTables, fr: Frontier) -> Frontier:
     return fr._replace(counts=counts, valid=fr.valid & ~(fr.tail > _row_tail_pin(tables, counts)))
 
 
-def _spec_dive(tables: SearchTables, fr: Frontier, depth: int, width: int, exact_pack: bool):
+def _spec_dive(
+    tables: SearchTables, fr: Frontier, depth: int, width: int, exact_pack: bool, sort_dedup: bool
+):
     """One speculative beam dive (the JAX engine's ``_spec_dive``).
 
     Copies the ``width`` best rows off the closed, pinned entry frontier —
@@ -721,8 +890,9 @@ def _spec_dive(tables: SearchTables, fr: Frontier, depth: int, width: int, exact
     so an accepting row is conclusive.  An entry frontier that already
     accepts is the exact loop's business: the dive stands down.
 
-    Returns ``(found, k, beam, idx)``: whether the dive found an accept
-    (its row ``idx`` of ``beam``), and the dive layers it ran.
+    Returns ``(found, k, beam, idx, ops)``: whether the dive found an
+    accept (its row ``idx`` of ``beam``, which has ``ops`` ops committed),
+    and the dive layers it ran.
     """
     c = fr.counts.shape[1]
     ar = torch.arange(c, device=fr.counts.device)
@@ -733,14 +903,17 @@ def _spec_dive(tables: SearchTables, fr: Frontier, depth: int, width: int, exact
     beam = Frontier(*(x[order] for x in entry))
     acc = _accept_rows(tables, beam.counts, beam.valid)
     entry_acc, alive, idx = _fetch(acc.any(), beam.valid.any(), _first_true(acc))
-    done, k = entry_acc, 0
+    done, k, ops = entry_acc, 0, 0
     while not done and k < depth and alive:
-        children = _expand_layer(tables, beam, allow_prune=True, exact_pack=exact_pack)[0]
+        children = _expand_layer(
+            tables, beam, allow_prune=True, exact_pack=exact_pack, sort_dedup=sort_dedup
+        )[0]
         beam = _close_and_pin(tables, children)
         k += 1
         acc = _accept_rows(tables, beam.counts, beam.valid)
-        done, alive, idx = _fetch(acc.any(), beam.valid.any(), _first_true(acc))
-    return bool(done and not entry_acc), k, beam, idx
+        i = _first_true(acc)
+        done, alive, idx, ops = _fetch(acc.any(), beam.valid.any(), i, beam.counts[i].sum())
+    return bool(done and not entry_acc), k, beam, idx, ops
 
 
 def run_search(
@@ -752,6 +925,8 @@ def run_search(
     exact_pack: bool = False,
     spec_depth: int = 0,
     spec_width: int = 0,
+    sort_dedup: bool = False,
+    chunk_rows: int = 0,
 ) -> RunOut:
     """Run the frontier search for at most ``max_layers`` layers or to a
     stop (the JAX engine's compiled ``run_search``, as a host loop).
@@ -761,7 +936,12 @@ def run_search(
     ``allow_prune=False``: the loop stops with STOP_CAPACITY and the
     pre-expansion frontier, so the caller can escalate and resume exactly.
     ``exact_pack=True`` (valid only when :func:`can_exact_pack` holds)
-    dedups on the exact u64 packed counts key.
+    dedups on the exact u64 packed counts key; ``sort_dedup=True`` (with
+    ``exact_pack``) dedups by a lexicographic sort of the whole child
+    identity in place of the probe table.  ``chunk_rows`` below the
+    frontier's rows (exhaustive, packed key) expands each layer in
+    ``chunk_rows``-row chunks (:func:`_expand_layer_chunked`); the fast
+    path, the accept test and the dive are unchanged.
 
     ``spec_depth > 0`` runs one speculative dive (:func:`_spec_dive`) of
     ``min(spec_width, F)`` rows before the first layer, as the JAX engine
@@ -776,12 +956,12 @@ def run_search(
     layers = accept_idx = auto_closed = expanded = eager_closed = pin_killed = want = 0
     spec_layers = spec_accepts = spec_rollbacks = 0
     pruned_ever = False
-    (max_live,) = _fetch(fr.valid.sum())
+    max_live, deep_ops = _fetch(fr.valid.sum(), fr.counts[0].sum())
     live = max_live
     deep_counts = fr.counts[0]
     if spec_depth > 0 and spec_width > 0:
-        found, spec_layers, beam, idx = _spec_dive(
-            tables, fr, spec_depth, min(spec_width, fr.capacity), exact_pack
+        found, spec_layers, beam, idx, dive_ops = _spec_dive(
+            tables, fr, spec_depth, min(spec_width, fr.capacity), exact_pack, sort_dedup
         )
         if found:
             # The JAX engine's accept carry: the entry frontier with row 0
@@ -792,7 +972,7 @@ def run_search(
             acc.valid.zero_()
             acc.valid[0] = True
             fr, stop, layers, live, spec_accepts = acc, STOP_ACCEPT, spec_layers, 1, 1
-            deep_counts = beam.counts[idx]
+            deep_counts, deep_ops = beam.counts[idx], dive_ops
         elif spec_layers > 0:
             spec_rollbacks = 1
     while stop == STOP_RUNNING and layers < max_layers:
@@ -821,6 +1001,7 @@ def run_search(
             ac_sum,
             eager_sum,
             pin_sum,
+            base_ops,
         ) = _fetch(
             acc_row.any(),
             fastable,
@@ -830,28 +1011,36 @@ def run_search(
             ac_n.sum(),
             eager_n.sum(),
             pin_dead.sum(),
+            base_row.sum(),
         )
-        pruned = False
+        pruned = overflow = False
         deep_row = None
         children_are_diag = False
         if accept_any:
             children, n_unique, exp_n, n_steps, children_live = closed, 0, 0, 1, n_live_h
         elif is_fast:
-            children, n_unique, n_steps, deep_row = _fast_multi(
+            children, n_unique, n_steps, deep_row, row_ops = _fast_multi(
                 tables, max_layers - layers, closed, live_idx_h
             )
             exp_n, children_live, children_are_diag = n_steps, n_live_h, True
         else:
-            children, pruned_t, n_unique_t, exp_t = _expand_layer(
-                tables, closed, allow_prune=allow_prune, exact_pack=exact_pack
-            )
+            if chunk_rows and chunk_rows < fr.capacity:
+                children, overflow, n_unique_t, exp_t = _expand_layer_chunked(
+                    tables, closed, chunk_rows=chunk_rows
+                )
+                pruned_t = torch.zeros((), dtype=torch.bool, device=closed.valid.device)
+            else:
+                children, pruned_t, n_unique_t, exp_t = _expand_layer(
+                    tables, closed, allow_prune=allow_prune, exact_pack=exact_pack,
+                    sort_dedup=sort_dedup,
+                )
             pruned, n_unique, exp_n, children_live = _fetch(
                 pruned_t, n_unique_t, exp_t, children.valid.sum()
             )
             pruned = bool(pruned)
             n_steps = 1
         empty = not accept_any and n_unique == 0
-        need_cap = (not allow_prune) and pruned
+        need_cap = (not allow_prune) and (pruned or overflow)
         if accept_any:
             stop = STOP_ACCEPT
         elif empty:
@@ -870,7 +1059,10 @@ def run_search(
             layers += n_steps
             max_live = max(max_live, children_live)
             expanded += exp_n
-            deep_counts = base_row if deep_row is None else deep_row
+            if deep_row is None:
+                deep_counts, deep_ops = base_row, base_ops
+            else:
+                deep_counts, deep_ops = deep_row, row_ops
         else:
             want = n_unique
         auto_closed += ac_sum
@@ -893,6 +1085,7 @@ def run_search(
         spec_accepts=spec_accepts,
         spec_rollbacks=spec_rollbacks,
         deep_counts=deep_counts,
+        deep_ops=deep_ops,
         want=want,
         live=live,
     )
@@ -966,13 +1159,15 @@ def _regrow_device(fr: Frontier, capacity: int) -> Frontier:
 _UNPORTED = {
     "checkpoint_path": "checkpoint/resume",
     "mesh": "multi-device sharding",
-    "spill": "host-RAM spill",
-    "device_rows_cap": "chunked HBM-resident tier",
     "witness_max_frontier": "per-layer witness log",
-    "sort_dedup": "sort dedup",
 }
 
 _STOP_NAMES = ("RUNNING", "ACCEPT", "EMPTY", "CAPACITY")
+
+#: layer budget of one search segment while the frontier is above the
+#: expansion bucket: short, so that :func:`check_device` can downsize soon
+#: after the peak (it can only do so between segments)
+_BIG_TIER_CHUNK = 8
 
 
 def _refuse_unported(**opts) -> None:
@@ -988,36 +1183,59 @@ def check_device(
     history: History,
     *,
     max_frontier: int = 65536,
+    state_slots: int | None = None,
     beam: bool = True,
-    collect_stats: bool = False,
-    device=None,
+    start_frontier: int = _START_FRONTIER,
     mesh=None,
+    collect_stats: bool = False,
     profile: bool = False,
     checkpoint_path: str | None = None,
+    checkpoint_every: int = 512,
+    witness: bool = True,
     witness_max_frontier: int = 0,
     spill: bool = False,
+    spill_host_cap: int = 1 << 26,
+    exact_pack: bool | None = None,
+    sort_dedup: bool | None = None,
     device_rows_cap: int = 0,
+    pallas_fold: bool | None = None,
+    progress=None,
     prune: bool = False,
     speculate_depth: int = 0,
     speculate_width: int = 64,
-    sort_dedup: bool | None = None,
-    progress=None,
-    start_frontier: int = _START_FRONTIER,
+    device=None,
 ) -> CheckResult:
     """Decide linearizability on the GPU (``device=None``) or on the device
     given.  Verdict semantics match the JAX engine: OK and un-pruned ILLEGAL
-    are conclusive; a dead end after beam pruning is UNKNOWN.
+    are conclusive; a dead end after beam pruning is UNKNOWN.  The keywords
+    are the JAX engine's, plus ``device``.
 
-    The search starts in a small frontier bucket and escalates on capacity
-    stops, resuming from the returned pre-expansion frontier.  At
-    ``max_frontier`` a beam run prunes and continues; an exhaustive run
-    that outgrows it would need the chunked tier or the host spill, which
-    are not ported yet, and raises ``NotImplementedError``.
+    The search starts in a ``start_frontier``-row bucket and escalates on
+    capacity stops, resuming from the returned pre-expansion frontier.  At
+    ``max_frontier`` a beam run prunes and continues.  An exhaustive run
+    with the packed key and ``device_rows_cap > max_frontier`` keeps its
+    frontier on the device up to ``device_rows_cap`` rows, expanded in
+    ``max_frontier``-row chunks (:func:`_expand_layer_chunked`) in segments
+    of at most :data:`_BIG_TIER_CHUNK` layers, and drops back to a smaller
+    bucket between segments once the live rows fit a quarter of it.  Past
+    that cap an exhaustive run is UNKNOWN (``stats.pruned``), or with
+    ``spill=True`` would hand the frontier to the host-RAM spill, which is
+    not ported: it raises ``NotImplementedError`` there.
 
-    An OK carries a witness linearization from the counts-bounded host
-    re-search (:func:`_recover_witness_bounded`).  Rows dedup on the exact
-    packed counts key whenever :func:`can_exact_pack` holds, else on the
-    Zobrist key.
+    ``witness=True``: an OK carries a witness linearization from the
+    counts-bounded host re-search (:func:`_recover_witness_bounded`);
+    ``witness=False`` skips it (``linearization=None``).  Rows dedup on the
+    exact packed counts key whenever :func:`can_exact_pack` holds, else on
+    the Zobrist key; ``exact_pack`` forces it on or off (``True`` on a
+    history that cannot pack raises ``ValueError``).  ``sort_dedup=True``
+    dedups by a lexicographic sort (:func:`_dedup_sort`) in place of the
+    probe table, and needs the packed key (``ValueError`` otherwise).
+
+    Accepted with no effect: ``state_slots`` (as in the JAX engine);
+    ``checkpoint_every`` and ``spill_host_cap``, which steer tiers that are
+    not ported (``checkpoint_path`` raises); ``pallas_fold``: the fold is
+    always ``csrc/fold_lanes.cu`` on the card and its plain version on the
+    CPU, never the plain version on the card.
 
     ``prune=True`` activates the verdict-exact commutativity prunes
     (:mod:`.prune`): the append rank gate, eager commit of inert and
@@ -1035,22 +1253,26 @@ def check_device(
     search segment to ``stats.timeline``: cumulative layers, the segment's
     peak live rows, the rows it ends with, ops auto-closed, elapsed wall
     seconds, the stop and the bucket.  ``progress`` (a
-    :class:`.progress.ProgressSink`) is offered one update per segment.
-    ``start_frontier`` is the first bucket's row count.
+    :class:`.progress.ProgressSink`) is offered one update per segment,
+    from scalars the search already fetched.
     """
+    del state_slots, checkpoint_every, spill_host_cap, pallas_fold
     _refuse_unported(
         checkpoint_path=checkpoint_path,
         mesh=mesh,
-        spill=spill,
-        device_rows_cap=device_rows_cap,
         witness_max_frontier=witness_max_frontier,
-        sort_dedup=sort_dedup,
     )
     dev = resolve_device(device)
     collect_stats = collect_stats or profile
     syncs0 = SYNCS[0]
     t_run0 = time.monotonic()
     enc = encode_history(history)
+    if exact_pack and not can_exact_pack(enc):
+        # Zeroed strides would alias every counts vector to key 0.
+        raise ValueError(
+            "exact_pack=True requires prod(chain_len+1) <= 2^64 "
+            "(can_exact_pack); this history's counts space overflows u64"
+        )
     stats = FrontierStats()
     if enc.total_remaining == 0:
         res = CheckResult(
@@ -1062,30 +1284,45 @@ def check_device(
             res.stats = stats  # type: ignore[attr-defined]
         return res
     tables = build_tables(enc, dev, prune=prune)
-    xp = can_exact_pack(enc)
+    xp = can_exact_pack(enc) if exact_pack is None else bool(exact_pack)
+    if sort_dedup and not xp:
+        raise ValueError(
+            "sort_dedup=True requires the exact packed counts key "
+            "(can_exact_pack / exact_pack); this history cannot pack"
+        )
+    sd = bool(sort_dedup)
     cap_layers = int(enc.total_remaining) + 2
     f_cap = _floor_pow2(max_frontier, 2)
+    # The device-resident tier: exhaustive, packed key only (a beam run
+    # prunes at the bucket instead).
+    big_cap = _floor_pow2(device_rows_cap, 2) if device_rows_cap > f_cap and not beam and xp else f_cap
     f = round_pow2(max(min(start_frontier, f_cap), len(enc.init_states)), 2)
     frontier = init_frontier(enc, f, dev)
     log.debug(
-        "device search: %d ops over %d chains, frontier=%d (cap %d), %s, %s",
+        "device search: %d ops over %d chains, frontier=%d (cap %d, device rows %d), %s, %s",
         enc.num_ops,
         enc.num_chains,
         f,
         f_cap,
+        big_cap,
         "beam" if beam else "exhaustive",
         dev,
     )
     while True:
         allow_prune = beam and f >= f_cap
+        layers_budget = cap_layers - stats.layers
+        if f > f_cap:
+            layers_budget = min(layers_budget, _BIG_TIER_CHUNK)
         out = run_search(
             tables,
             frontier,
-            cap_layers - stats.layers,
+            layers_budget,
             allow_prune=allow_prune,
             exact_pack=xp,
             spec_depth=int(speculate_depth),
             spec_width=int(speculate_width) if speculate_depth else 0,
+            sort_dedup=sd,
+            chunk_rows=f_cap if big_cap > f_cap and f > f_cap else 0,
         )
         code = out.stop_code
         log.debug(
@@ -1121,7 +1358,7 @@ def check_device(
             )
         if progress is not None:
             progress.update(
-                ops_committed=_fetch(out.deep_counts.sum())[0],
+                ops_committed=out.deep_ops,
                 total_ops=enc.num_ops,
                 frontier_width=out.live,
                 states_expanded=stats.expanded,
@@ -1131,8 +1368,12 @@ def check_device(
         if allow_prune:
             stats.pruned = stats.pruned or out.pruned_ever
         if code == STOP_ACCEPT:
-            lin = _recover_witness_bounded(
-                enc, history, out.frontier.counts[out.accept_idx].cpu().numpy()
+            lin = (
+                _recover_witness_bounded(
+                    enc, history, out.frontier.counts[out.accept_idx].cpu().numpy()
+                )
+                if witness
+                else None
             )
             res = CheckResult(
                 CheckOutcome.OK,
@@ -1149,22 +1390,38 @@ def check_device(
             )
             break
         if code == STOP_CAPACITY:
-            if f < f_cap:
+            if f < big_cap:
                 # Jump straight to a bucket that fits the aborted layer's
                 # children (x2 headroom), resuming from the returned
-                # pre-expansion frontier (no information was lost).
-                f = min(round_pow2(max(out.want * 2, f * 4), 2), f_cap)
+                # pre-expansion frontier (no information was lost); past
+                # f_cap the frontier grows on the device, chunked.
+                f = min(round_pow2(max(out.want * 2, f * 4), 2), big_cap)
                 log.debug("capacity stop: escalating frontier to %d and resuming", f)
                 frontier = _regrow_device(out.frontier, f)
                 continue
-            # Exhaustive and out of room: the JAX engine continues in its
-            # chunked HBM tier or the host spill.
-            raise NotImplementedError(
-                f"the exhaustive search outgrew its {f_cap}-row bucket "
-                f"({out.want} unique children); continuing needs the chunked "
-                "HBM-resident tier or the host-RAM spill, which "
-                "s2_verification_tpu_torch does not have yet"
-            )
+            if not beam and spill:
+                # The JAX engine hands the frontier to its host-RAM spill
+                # here.
+                raise NotImplementedError(
+                    f"spill=True: the exhaustive search outgrew its {big_cap}-row "
+                    f"device bucket ({out.want} unique children); continuing needs "
+                    "the host-RAM spill tier, which s2_verification_tpu_torch does "
+                    "not have yet"
+                )
+            stats.pruned = True
+            res = CheckResult(CheckOutcome.UNKNOWN)
+            break
+        if code == STOP_RUNNING and stats.layers < cap_layers:
+            # Segment boundary: go on from the post-expansion frontier.
+            frontier = out.frontier
+            if f > f_cap and out.live * 4 <= f:
+                # Past the peak: drop to a bucket the live prefix fits with
+                # headroom (never below the expansion bucket), so later
+                # layers stop paying full-width chunked sorts.
+                f = max(round_pow2(max(out.live, 1) * 4, 2), f_cap)
+                log.debug("post-peak downsize: frontier bucket -> %d", f)
+                frontier = _regrow_device(frontier, f)
+            continue
         # Layer cap hit without a verdict: should be impossible (each layer
         # linearizes at least one op); treat as inconclusive.
         res = CheckResult(CheckOutcome.UNKNOWN)
@@ -1175,50 +1432,85 @@ def check_device(
     return res
 
 
+def default_device_rows_cap(device: torch.device, spill: bool) -> int:
+    """:func:`check_device_auto`'s ``device_rows_cap`` when none is given,
+    the JAX engine's rule: 2^23 rows on an accelerator, whose host
+    round-trips are the expensive resource; on the CPU 0 (straight to the
+    spill) when ``spill`` is set, else 2^23 (the tier is then the last
+    conclusive rung)."""
+    return 0 if device.type == "cpu" and spill else 1 << 23
+
+
 def check_device_auto(
     history: History,
     *,
     beam_width: int = 65536,
     exhaustive_cap: int = 1 << 20,
-    collect_stats: bool = False,
-    device=None,
+    state_slots: int | None = None,
     mesh=None,
+    collect_stats: bool = False,
     profile: bool = False,
     checkpoint_path: str | None = None,
+    checkpoint_every: int = 512,
+    witness: bool = True,
     witness_max_frontier: int = 0,
-    spill: bool | None = None,
+    spill: bool = True,
+    spill_host_cap: int = 1 << 26,
     device_rows_cap: int | None = None,
+    progress=None,
     prune: bool = False,
     speculate_depth: int = 0,
     speculate_width: int = 64,
-    progress=None,
+    device=None,
 ) -> CheckResult:
     """Beam-first device check with exhaustive escalation (the JAX engine's
-    ``check_device_auto``): a beam phase of ``beam_width`` rows, then, if
-    it conceded UNKNOWN, an exhaustive phase up to ``exhaustive_cap`` rows.
-    Past that cap the JAX engine continues in its chunked tier and host
-    spill; here the exhaustive phase raises ``NotImplementedError``.  Both
-    phases get the prune, speculation, profile and progress options."""
+    ``check_device_auto``, same keywords plus ``device``): a beam phase of
+    ``beam_width`` rows, then, if it conceded UNKNOWN, an exhaustive phase
+    with an ``exhaustive_cap``-row bucket that keeps growing on the device
+    up to ``device_rows_cap`` rows (:func:`default_device_rows_cap` when
+    None), chunked.  Past that the JAX engine goes on in its host-RAM spill
+    (``spill=True``, the default), which raises ``NotImplementedError``
+    here.  ``device_rows_cap``, ``spill`` and ``spill_host_cap`` go to the
+    exhaustive phase only; the other options to both phases."""
+    del state_slots
     _refuse_unported(
         checkpoint_path=checkpoint_path,
         mesh=mesh,
-        spill=spill,
-        device_rows_cap=device_rows_cap,
         witness_max_frontier=witness_max_frontier,
     )
+    dev = resolve_device(device)
+    if device_rows_cap is None:
+        device_rows_cap = default_device_rows_cap(dev, spill)
+    if 0 < device_rows_cap <= exhaustive_cap:
+        log.warning(
+            "device_rows_cap %d <= exhaustive bucket %d: the HBM-resident "
+            "tier is disabled (use 0 to disable it explicitly)",
+            device_rows_cap,
+            exhaustive_cap,
+        )
     kw = dict(
         collect_stats=collect_stats,
-        device=resolve_device(device),
         profile=profile,
+        checkpoint_every=checkpoint_every,
+        witness=witness,
+        progress=progress,
         prune=prune,
         speculate_depth=speculate_depth,
         speculate_width=speculate_width,
-        progress=progress,
+        device=dev,
     )
     res = check_device(history, max_frontier=beam_width, beam=True, **kw)
     if res.outcome != CheckOutcome.UNKNOWN:
         return res
-    return check_device(history, max_frontier=exhaustive_cap, beam=False, **kw)
+    return check_device(
+        history,
+        max_frontier=exhaustive_cap,
+        beam=False,
+        spill=spill,
+        spill_host_cap=spill_host_cap,
+        device_rows_cap=device_rows_cap,
+        **kw,
+    )
 
 
 # ---------------------------------------------------------------------------

@@ -22,7 +22,12 @@ Backends: ``device`` (default) runs the GPU frontier search
 ``cpu`` runs the same search with the plain PyTorch fold); ``oracle`` runs
 the CPU Wing–Gong reference (checker/oracle.py), bounded by
 ``-time-budget``.  The device search ignores ``-time-budget``, as in the
-JAX package.  ``--prune`` and ``--speculate-depth K`` turn on the device
+JAX package.  ``-device-rows N`` caps the device-resident frontier of the
+device search's exhaustive phase (default 2^23 on the card, 0 on the CPU:
+past its 2^20-row bucket the frontier grows on the device up to N rows,
+expanded in chunks; past N the JAX package spills to host RAM, which this
+port does not have yet, so the search stops with exit 64 there).
+``--prune`` and ``--speculate-depth K`` turn on the device
 search's verdict-exact prunes and speculative dive (the oracle ignores
 both); ``-profile OUT.json`` writes the search-shape profile
 (checker/profile.py).  There is no HTML visualization yet.
@@ -68,8 +73,14 @@ def _read_events(path: str) -> list[ev.LabeledEvent]:
 
 def _run_backend(args: argparse.Namespace, hist: History) -> CheckResult:
     if args.backend == "oracle":
+        if args.device_rows is not None:
+            log.warning(
+                "-device-rows only applies to the device search; the %s backend ignores it",
+                args.backend,
+            )
         budget = args.time_budget
         return check(hist, time_budget_s=None if budget is None or budget <= 0 else budget)
+    dev_kw = {} if args.device_rows is None else {"device_rows_cap": args.device_rows}
     return check_device_auto(
         hist,
         collect_stats=args.stats,
@@ -77,6 +88,7 @@ def _run_backend(args: argparse.Namespace, hist: History) -> CheckResult:
         profile=bool(args.profile),
         prune=args.prune,
         speculate_depth=args.speculate_depth,
+        **dev_kw,
     )
 
 
@@ -285,6 +297,16 @@ def build_parser() -> argparse.ArgumentParser:
         type=float,
         default=None,
         help="oracle time budget in seconds (0 or unset = run to completion)",
+    )
+    c.add_argument(
+        "-device-rows",
+        "--device-rows",
+        type=int,
+        default=None,
+        help="device-resident frontier cap for the device search's "
+        "exhaustive phase (default 2^23; the chunked tier engages only "
+        "above the 2^20 exhaustive bucket — smaller values, or 0, disable "
+        "it)",
     )
     c.add_argument(
         "--prune",

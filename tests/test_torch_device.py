@@ -235,26 +235,29 @@ def test_collected_histories_match_jax(name):
 
 
 def test_exhaustive_overflow_raises_instead_of_unknown():
+    # An in-core search (no device_rows_cap) past its bucket.  The JAX
+    # engine concedes UNKNOWN without its spill and hands the frontier to
+    # the spill with it; the port concedes the same UNKNOWN with
+    # spill=False, and with spill=True raises where the spill would start,
+    # naming the option and the tier.  test_torch_chunked holds the same
+    # stop past a device_rows_cap above the bucket.
     hj, hp = both(jax_adversarial(6, batch=2, seed=3))
-    rj = jdev.check_device(hj, max_frontier=64, beam=False, collect_stats=True)
+    kw = dict(max_frontier=64, beam=False, collect_stats=True)
+    rj = jdev.check_device(hj, **kw)
     assert rj.outcome.value == "unknown"  # the JAX engine without its spill
-    with pytest.raises(NotImplementedError, match="chunked"):
-        pdev.check_device(hp, max_frontier=64, beam=False, device="cpu")
+    assert_results_equal(rj, pdev.check_device(hp, device="cpu", **kw), hp)
+    with pytest.raises(NotImplementedError, match="spill=True.*host-RAM spill"):
+        pdev.check_device(hp, max_frontier=64, beam=False, spill=True, device="cpu")
 
 
 UNPORTED = [
     ("checkpoint_path", "/nonexistent/ck"),
     ("mesh", object()),
-    ("spill", True),
-    ("device_rows_cap", 1 << 23),
     ("witness_max_frontier", 64),
-    ("sort_dedup", True),
 ]
 
 
-UNPORTED_CALLS = [("check_device", o, v) for o, v in UNPORTED] + [
-    ("check_device_auto", o, v) for o, v in UNPORTED if o != "sort_dedup"
-]
+UNPORTED_CALLS = [(e, o, v) for e in ("check_device", "check_device_auto") for o, v in UNPORTED]
 
 
 @pytest.mark.parametrize(

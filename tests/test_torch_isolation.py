@@ -161,8 +161,9 @@ def test_cli_usage_and_parse_errors_exit_64(tmp_path, monkeypatch):
 
 
 def test_cli_unported_tier_exits_64_and_says_so(tmp_path, capsys, monkeypatch):
-    # Caps small enough that the exhaustive phase outgrows its bucket: the
-    # JAX package would go on in its chunked tier, which is not ported.
+    # Caps small enough that the exhaustive phase outgrows its bucket; on
+    # the CPU the device-resident tier is off by default, and the JAX
+    # package would go on in its host-RAM spill, which is not ported.
     real = pdev.check_device_auto
     monkeypatch.setattr(
         cli, "check_device_auto",
@@ -172,7 +173,7 @@ def test_cli_unported_tier_exits_64_and_says_so(tmp_path, capsys, monkeypatch):
     rc = cli.main(["check", f"-file={path}", "-device", "cpu", "-stats"])
     assert rc == 64
     line = capsys.readouterr().out.strip().splitlines()[-1]
-    assert '"outcome": "unported"' in line and "chunked" in line
+    assert '"outcome": "unported"' in line and "spill" in line
 
 
 def test_chip_smoke_fails_without_gpu(tmp_path):

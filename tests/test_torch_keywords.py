@@ -1,0 +1,172 @@
+"""Port parity: the entry points take the JAX engine's keywords, and the
+CLI's ``-device-rows``.
+
+- Every keyword of the JAX ``check_device`` and ``check_device_auto``
+  either gives the JAX engine's result on the CPU (outcome, search
+  statistics, witness, final states, refusals) or raises
+  ``NotImplementedError`` naming itself; ``witness=False`` answers OK
+  without a linearization.
+- A progress sink adds no host synchronisation, and its heartbeats equal
+  the JAX engine's through the chunked tier too.
+- ``check -device cpu -device-rows N -stats`` exits as the JAX CLI does with
+  the same counters, ``N`` reaches the exhaustive phase, and the oracle
+  backend warns and ignores it.
+"""
+
+import inspect
+import json
+import logging
+
+import pytest
+
+from s2_verification_tpu import cli as jcli
+from s2_verification_tpu.checker.progress import ProgressSink as JaxSink
+from s2_verification_tpu_torch import cli as pcli
+from s2_verification_tpu_torch.checker import device as pdev
+from s2_verification_tpu_torch.checker.oracle import CheckOutcome
+from s2_verification_tpu_torch.checker.progress import ProgressSink as PortSink
+
+from test_torch_device import assert_results_equal, both, jax_adversarial, jdev
+from test_torch_encode import jax_text
+from test_torch_progress import Clock
+
+STAT_FIELDS = (
+    "layers", "max_frontier", "expanded", "auto_closed", "pruned", "prune_commits",
+    "prune_dead", "spec_launches", "spec_layers", "spec_accepts", "spec_rollbacks",
+)
+
+#: A setting of each JAX keyword (with whatever it needs beside it) and
+#: whether the port must raise ``NotImplementedError`` naming it.  The
+#: baseline is an exhaustive search of a small adversarial history whose
+#: frontier (peak 161 rows) outgrows a 64-row bucket.
+SETTINGS = {
+    "max_frontier": (dict(max_frontier=256), False),
+    "exhaustive_cap": (dict(exhaustive_cap=256), False),
+    "beam_width": (dict(beam_width=32), False),
+    "state_slots": (dict(state_slots=4), False),
+    "beam": (dict(beam=True, max_frontier=64), False),
+    "start_frontier": (dict(start_frontier=64), False),
+    "mesh": (dict(mesh=object()), True),
+    "collect_stats": (dict(collect_stats=False), False),
+    "profile": (dict(profile=True), False),
+    "checkpoint_path": (dict(checkpoint_path="ck.npz"), True),
+    "checkpoint_every": (dict(checkpoint_every=3), False),
+    "witness": (dict(witness=False), False),
+    "witness_max_frontier": (dict(witness_max_frontier=64), True),
+    # Past the device bucket the JAX engine hands off to its spill.
+    "spill": (dict(spill=True, max_frontier=64, beam_width=2, exhaustive_cap=64, device_rows_cap=0), True),
+    "spill_host_cap": (dict(spill_host_cap=1000), False),
+    "exact_pack": (dict(exact_pack=False), False),
+    "sort_dedup": (dict(sort_dedup=True), False),
+    "device_rows_cap": (dict(device_rows_cap=4096, max_frontier=64, exhaustive_cap=64), False),
+    "pallas_fold": (dict(pallas_fold=True), False),
+    "progress": (dict(progress="sink"), False),
+    "prune": (dict(prune=True), False),
+    "speculate_depth": (dict(speculate_depth=2, prune=True), False),
+    "speculate_width": (dict(speculate_width=8, speculate_depth=2), False),
+}
+
+ENTRIES = {
+    "check_device": dict(max_frontier=4096, beam=False, collect_stats=True),
+    "check_device_auto": dict(beam_width=16, exhaustive_cap=4096, collect_stats=True, spill=False),
+}
+
+
+def _keywords(entry):
+    return [p for p in inspect.signature(getattr(jdev, entry)).parameters if p != "history"]
+
+
+KEYWORD_CASES = [(e, k) for e in ENTRIES for k in _keywords(e)]
+
+
+def _kw(entry, keyword, who):
+    kw = dict(ENTRIES[entry])
+    extra, _ = SETTINGS[keyword]
+    kw.update(extra)
+    names = _keywords(entry)
+    kw = {k: v for k, v in kw.items() if k in names}
+    if kw.get("progress") == "sink":
+        kw["progress"] = (JaxSink if who == "jax" else PortSink)(lambda r: None, time_fn=Clock(step=1.0))
+    return kw
+
+
+@pytest.mark.parametrize("entry,keyword", KEYWORD_CASES, ids=[f"{e}-{k}" for e, k in KEYWORD_CASES])
+def test_jax_keywords_work_or_name_themselves(tmp_path, monkeypatch, entry, keyword):
+    monkeypatch.chdir(tmp_path)
+    assert set(_keywords(entry)) <= set(inspect.signature(getattr(pdev, entry)).parameters)
+    hj, hp = both(jax_adversarial(5, batch=4, seed=1))
+    port = getattr(pdev, entry)
+    if SETTINGS[keyword][1]:
+        with pytest.raises(NotImplementedError, match=keyword):
+            port(hp, device="cpu", **_kw(entry, keyword, "port"))
+        return
+    rj = getattr(jdev, entry)(hj, **_kw(entry, keyword, "jax"))
+    rp = port(hp, device="cpu", **_kw(entry, keyword, "port"))
+    assert rp.outcome == CheckOutcome.OK
+    if keyword == "witness":
+        assert rp.linearization is None and rj.linearization is None
+    if keyword == "collect_stats":
+        assert not hasattr(rp, "stats") and not hasattr(rj, "stats")
+        assert rp.linearization == rj.linearization
+        return
+    assert_results_equal(rj, rp, hp)
+    for f in STAT_FIELDS:
+        assert getattr(rp.stats, f) == getattr(rj.stats, f), f
+
+
+@pytest.mark.parametrize("chunked", [False, True], ids=["in-core", "chunked"])
+def test_progress_adds_no_sync_and_beats_match_jax(chunked):
+    hj, hp = both(jax_adversarial(6, batch=4, seed=1, unsatisfiable=True))
+    kw = dict(beam=False, collect_stats=True)
+    kw.update(dict(max_frontier=64, device_rows_cap=4096) if chunked else dict(max_frontier=4096))
+    plain = pdev.check_device(hp, device="cpu", **kw)
+    beats = {}
+    for who, sink_cls, run in (
+        ("jax", JaxSink, lambda sink: jdev.check_device(hj, progress=sink, **kw)),
+        ("port", PortSink, lambda sink: pdev.check_device(hp, device="cpu", progress=sink, **kw)),
+    ):
+        out = []
+        sink = sink_cls(out.append, min_interval_s=0.5, time_fn=Clock(step=1.0))
+        res = run(sink)
+        beats[who] = (res.outcome.value, out)
+    assert beats["port"] == beats["jax"] and beats["port"][1]
+    assert res.stats.host_syncs == plain.stats.host_syncs > 0
+
+
+def _write(tmp_path, events):
+    path = tmp_path / "h.jsonl"
+    path.write_text(jax_text(events))
+    return str(path)
+
+
+@pytest.mark.parametrize("unsat", [False, True])
+def test_cli_device_rows_matches_jax(tmp_path, capsys, monkeypatch, unsat):
+    monkeypatch.chdir(tmp_path)
+    path = _write(tmp_path, jax_adversarial(6, batch=2, seed=3, unsatisfiable=unsat))
+    rc_j = jcli.main(["check", f"-file={path}", "-backend=device", "-no-viz", "-stats", "-device-rows", "4096"])
+    line_j = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    seen = []
+    real = pdev.check_device
+
+    def spy(history, **kw):
+        seen.append(kw)
+        return real(history, **kw)
+
+    monkeypatch.setattr(pdev, "check_device", spy)
+    rc_p = pcli.main(["check", f"-file={path}", "-device", "cpu", "-stats", "-device-rows", "4096"])
+    line_p = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert rc_p == rc_j == (1 if unsat else 0)
+    for f in ("outcome", "layers", "max_frontier", "expanded", "auto_closed", "pruned", "witness"):
+        assert line_p[f] == line_j[f], f
+    exhaustive = [kw for kw in seen if not kw["beam"]]
+    assert [kw["device_rows_cap"] for kw in exhaustive] == ([4096] if exhaustive else [])
+    assert not any("device_rows_cap" in kw for kw in seen if kw["beam"])
+
+
+def test_cli_oracle_warns_and_ignores_device_rows(tmp_path, capsys, caplog):
+    path = _write(tmp_path, jax_adversarial(4, batch=2, seed=1))
+    with caplog.at_level(logging.WARNING):
+        rc = pcli.main(["check", f"-file={path}", "-backend=oracle", "-device-rows", "7", "-stats"])
+    assert rc == 0
+    assert json.loads(capsys.readouterr().out.strip().splitlines()[-1])["outcome"] == "ok"
+    assert any("-device-rows only applies to the device search" in r.getMessage() for r in caplog.records)
