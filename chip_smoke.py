@@ -79,14 +79,32 @@ on the first failed phase:
    layer, and its largest fold call by steps bit-exact against the plain
    fold and timed beside its bound; the unsatisfiable k=8 history through
    the tier (:data:`TIER_K8_UNSAT_STATS`), ILLEGAL with refusal reports and
-   every fold call bit-exact, and once more with ``device_rows_cap`` under
-   its peak and ``spill=True``, which must raise ``NotImplementedError``
-   naming the host-RAM spill; and the unsatisfiable k=9 through the tier in
+   every fold call bit-exact; and the unsatisfiable k=9 through the tier in
    2^17-row chunks (:data:`TIER_K9_UNSAT_STATS`), whose widest layers
    expand several live chunks and compact across them, ILLEGAL with its
    chunks and compactions per layer, wall, peak memory and every fold call
    bit-exact;
-10. the kernel list, one JSON line of kernel measurements, and as the last
+10. the host-RAM spill and checkpoints (``device._spill_search``,
+   ``checker/checkpoint.py``), each run timed on its first call and warm
+   (but (b)),
+   with its streamed layers, slabs per streamed layer, slab halvings and
+   hybrid in-core segments, host syncs, seconds in ``_dedup_rows``, peak
+   device memory and the host's peak RSS, and its fold calls bit-exact
+   against the plain fold: (a) the unsatisfiable k=8 through the tier into
+   the spill (2^10-row bucket, 2^16-row cap), ILLEGAL with refusal reports;
+   (b) the unsatisfiable k=9 at a 2^17-row bucket straight into the spill
+   and through a 2^20-row tier into it, first calls only; (c) adversarial k=10 at a
+   2^18-row bucket into the spill, OK with a replaying witness and the
+   in-core run's final states; (d) the unsatisfiable k=10 (9,864,101
+   rows at its widest layer) through the CLI's defaults — ``check
+   -backend=device -stats``, no cap flags — which must exit 1 with the JAX
+   record's statistics (:data:`SPILL_K10_UNSAT_STATS`), its largest fold
+   call bit-exact and timed beside its bound; (e) (b) preempted mid-spill
+   and resumed from ``<path>.spill.npz``, and the k=10 tier run with
+   ``checkpoint_every=2`` preempted after its first escalation and
+   resumed, each to the uninterrupted run's verdict and statistics with
+   the snapshot gone; counts pinned from the JAX engine;
+11. the kernel list, one JSON line of kernel measurements, and as the last
    line ``{"ok": true, "device": {...}}``.
 
 Fold times are per call, from CUDA events: ``call`` with back-to-back
@@ -110,8 +128,10 @@ import json
 import os
 import sys
 import tempfile
+import threading
 import time
 
+import numpy as np
 import torch
 
 #: sha256 of the JSONL (``utils/events.write_history``) of the 5×2000
@@ -166,6 +186,28 @@ TIER_K8_UNSAT_STATS = {"layers": 9, "max_frontier": 109601, "expanded": 595456, 
 #: concedes UNKNOWN).
 TIER_K9_ROWS = 1 << 21
 TIER_K9_UNSAT_STATS = {"layers": 10, "max_frontier": 986410, "expanded": 5361920, "auto_closed": 0}
+#: The JAX engine's ``check_device(beam=False, spill=True)`` (XLA:CPU) on the
+#: unsatisfiable k=8, batch=100, seed 0 at ``max_frontier=2**10,
+#: device_rows_cap=2**16`` (the tier hands off to the spill): the counts of
+#: :data:`TIER_K8_UNSAT_STATS`, in 1,073 one-layer slabs over 2 streamed
+#: layers.
+SPILL_K8_ROWS = 1 << 16
+SPILL_K8_SLABS = 1073
+#: The same engine on the unsatisfiable k=9 at ``max_frontier=2**17``:
+#: :data:`TIER_K9_UNSAT_STATS` both straight into the spill
+#: (``device_rows_cap=0``, the record
+#: ``onchip_r5/host_baseline/unsat_k9_spill.k9u.json``; 95 slabs, 4 streamed
+#: layers) and through a 2^20-row tier into it (78 slabs, 2 streamed
+#: layers), where without the spill it concedes UNKNOWN.
+SPILL_K9_SLABS = {0: 95, 1 << 20: 78}
+#: The same engine on adversarial k=10 at ``max_frontier=2**18,
+#: device_rows_cap=0`` (``onchip_r5/host_baseline/sat_k10_spill.k10.json``):
+#: OK through one streamed layer.
+SPILL_K10_STATS = {"layers": 7, "max_frontier": 410971, "expanded": 606058, "auto_closed": 0}
+#: The JAX record of the unsatisfiable k=10, batch=100, seed 0 through the
+#: spill (``onchip_r5/host_baseline/unsat_k10_spill.k10u.json``): ILLEGAL
+#: after sweeping the whole space.
+SPILL_K10_UNSAT_STATS = {"layers": 11, "max_frontier": 9864101, "expanded": 53625344}
 #: Peak frontier of adversarial k=12, batch=100, seed 0 (the JAX engine's
 #: record, ``BASELINE.md``: a count of the search, not of the hardware).
 K12_PEAK = 10_850_401
@@ -486,23 +528,10 @@ def run_tier_phase(dev_mod, fold_cuda, xxh3, fb, prepare, adversarial_events, k1
     if got != TIER_K8_UNSAT_STATS or not chunks["layers"]:
         fail(f"unsatisfiable k=8 through the tier: statistics {got} (the JAX engine's "
              f"{TIER_K8_UNSAT_STATS}), {len(chunks['layers'])} chunked layers")
-    under = 1 << (res.stats.max_frontier.bit_length() - 1)
-    if under == res.stats.max_frontier:
-        under //= 2
-    try:
-        dev_mod.check_device(k8, **dict(kw8, device_rows_cap=under, spill=True))
-    except NotImplementedError as e:
-        if "host-RAM spill" not in str(e):
-            fail(f"the spill refusal does not name the spill: {e}")
-        refusal = str(e)
-    else:
-        fail(f"unsatisfiable k=8 with device_rows_cap={under} and spill=True did not raise")
     print(
         f"unsatisfiable k=8 through the tier (2^10-row chunks, device rows {TIER_K8_ROWS}): ILLEGAL "
         f"with {len(res.refusals)} refusal reports in {wall:.3f} s; statistics == the JAX engine's "
-        f"{json.dumps(got)}; chunked layers {chunks['layers']}; fold launches "
-        f"{k8_launches}; with device_rows_cap={under} and spill=True: "
-        f"NotImplementedError ({refusal})",
+        f"{json.dumps(got)}; chunked layers {chunks['layers']}; fold launches {k8_launches}",
         flush=True,
     )
     if k8_launches == 0 or len(calls) != k8_launches:
@@ -568,6 +597,366 @@ def run_tier_phase(dev_mod, fold_cuda, xxh3, fb, prepare, adversarial_events, k1
     out["launches_by_path"]["unsatisfiable k=9 through the tier (2^17-row chunks)"] = k9_launches
     return out
 
+
+
+class PeakRss:
+    """The process's peak resident set size while inside, sampled from
+    ``/proc/self/status`` every 20 ms (``ru_maxrss`` only grows over the
+    process's life, so it cannot give one run's peak)."""
+
+    @staticmethod
+    def now() -> int:
+        with open("/proc/self/status", encoding="ascii") as f:
+            for line in f:
+                if line.startswith("VmRSS:"):
+                    return int(line.split()[1]) * 1024
+        return 0
+
+    def __enter__(self):
+        self.start = self.peak = self.now()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._sample, daemon=True)
+        self._thread.start()
+        return self
+
+    def _sample(self):
+        while not self._stop.wait(0.02):
+            self.peak = max(self.peak, self.now())
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.peak = max(self.peak, self.now())
+
+
+@contextlib.contextmanager
+def counting_spill(dev_mod):
+    """Count the host-RAM spill's work through ``dev_mod`` while inside:
+    ``{"layers": [slabs of each streamed layer], "halvings": slabs retried
+    in halves, "segments": hybrid in-core segments, "dedup_s": seconds in
+    _dedup_rows, "spills": hand-offs}``."""
+    box = {"layers": [], "halvings": 0, "segments": 0, "dedup_s": 0.0, "spills": 0}
+    real = dev_mod.run_search, dev_mod._dedup_rows, dev_mod._spill_search
+    state = {"inside": False, "slabs": 0}
+
+    def run(tables, fr, max_layers, **kw):
+        out = real[0](tables, fr, max_layers, **kw)
+        if state["inside"]:
+            if max_layers == 1:
+                state["slabs"] += 1
+                box["halvings"] += out.stop_code == dev_mod.STOP_CAPACITY
+            else:
+                box["segments"] += 1
+        return out
+
+    def close_layer():
+        if state["slabs"]:
+            box["layers"].append(state["slabs"])
+            state["slabs"] = 0
+
+    def dedup(*a, **kw):
+        t = time.monotonic()
+        try:
+            return real[1](*a, **kw)
+        finally:
+            box["dedup_s"] += time.monotonic() - t
+            close_layer()
+
+    def spill(*a, **kw):
+        state["inside"] = True
+        box["spills"] += 1
+        try:
+            return real[2](*a, **kw)
+        finally:
+            state["inside"] = False
+            close_layer()
+
+    dev_mod.run_search, dev_mod._dedup_rows, dev_mod._spill_search = run, dedup, spill
+    try:
+        yield box
+    finally:
+        dev_mod.run_search, dev_mod._dedup_rows, dev_mod._spill_search = real
+
+
+@contextlib.contextmanager
+def preempting(dev_mod, should_stop):
+    """Make ``dev_mod.run_search`` raise ``KeyboardInterrupt`` (a simulated
+    preemption) at the first call for which ``should_stop(max_layers,
+    last)`` holds, ``last`` the previous call's result; yields the count of
+    calls made."""
+    real = dev_mod.run_search
+    state = {"calls": 0, "last": None}
+
+    def run(tables, fr, max_layers, **kw):
+        if should_stop(max_layers, state["last"]):
+            raise KeyboardInterrupt
+        state["calls"] += 1
+        state["last"] = real(tables, fr, max_layers, **kw)
+        return state["last"]
+
+    dev_mod.run_search = run
+    try:
+        yield state
+    finally:
+        dev_mod.run_search = real
+
+
+def run_spill_phase(dev_mod, fold_cuda, xxh3, fb, prepare, adversarial_events, run_cli,
+                    recheck_calls, clocks, sm_hz, stats_of, chunk_counter) -> dict:
+    """Phase 10, the host-RAM spill and checkpoints; returns the fold's
+    launches on its paths and run (d)'s largest call, measured."""
+    from s2_verification_tpu_torch.checker.checkpoint import load_checkpoint
+
+    out: dict = {"launches_by_path": {}}
+
+    def gib(b):
+        return f"{b / 2**30:.3f} GiB"
+
+    def measured(fn, record=True):
+        """One timed call of ``fn`` with the spill's counters; ``record``
+        keeps a copy of every fold call's inputs (they count in the peak
+        device memory)."""
+        with contextlib.ExitStack() as stack:
+            calls = stack.enter_context(fb.recording_folds(dev_mod)) if record else None
+            box = stack.enter_context(counting_spill(dev_mod))
+            rss = stack.enter_context(PeakRss())
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            fold_cuda.reset_launches()
+            syncs0 = dev_mod.SYNCS[0]
+            t0 = time.monotonic()
+            res = fn()
+            torch.cuda.synchronize()
+            info = dict(wall=time.monotonic() - t0, launches=fold_cuda.LAUNCHES["fold_lanes"],
+                        syncs=dev_mod.SYNCS[0] - syncs0, peak=torch.cuda.max_memory_allocated())
+        info.update(box, rss=rss.peak, rss0=rss.start, calls=calls)
+        return res, info
+
+    def shape(info):
+        return (
+            f"streamed layers {len(info['layers'])} (slabs each {info['layers']}), slab halvings "
+            f"{info['halvings']}, hybrid in-core segments {info['segments']}, host syncs "
+            f"{info['syncs']}, _dedup_rows {info['dedup_s']:.3f} s, fold launches {info['launches']}, "
+            f"peak memory {gib(info['peak'])}, host RSS {gib(info['rss0'])} at the start, "
+            f"{gib(info['rss'])} at the peak"
+        )
+
+    def check_run(tag, res, info, outcome, want, slabs=None):
+        got = stats_of(res.stats, want)
+        if res.outcome.value != outcome or got != want:
+            fail(f"{tag}: {res.outcome.value} with statistics {got}; want {outcome}, {want}")
+        if outcome == "illegal" and not res.refusals:
+            fail(f"{tag}: ILLEGAL without refusal reports")
+        if info["spills"] != 1 or not info["layers"] or info["launches"] == 0:
+            fail(f"{tag}: {info['spills']} spill hand-offs, {len(info['layers'])} streamed layers, "
+                 f"{info['launches']} fold launches")
+        if slabs is not None and sum(info["layers"]) != slabs:
+            fail(f"{tag}: {sum(info['layers'])} slabs, the JAX engine's {slabs}")
+        return got
+
+    def first_and_warm(tag, fn, outcome, want, slabs=None, warm_calls=1):
+        res, first = measured(fn)
+        got = check_run(tag, res, first, outcome, want, slabs)
+        calls = first.pop("calls")
+        warm = []
+        for _ in range(warm_calls):
+            res_w, w = measured(fn, record=False)
+            check_run(f"{tag} (warm)", res_w, w, outcome, want, slabs)
+            warm.append(w)
+        print(
+            f"{tag}: {outcome.upper()}; statistics == the JAX engine's {json.dumps(got)}; first call "
+            f"{first['wall']:.3f} s ({shape(first)}; its fold inputs recorded); warm "
+            + ("; ".join(f"{w['wall']:.3f} s ({shape(w)})" for w in warm) or "not timed")
+            + f"; card {fb.card()}",
+            flush=True,
+        )
+        if len(calls) != first["launches"]:
+            fail(f"{tag}: {len(calls)} fold calls recorded, {first['launches']} launched")
+        recheck_calls(calls, tag)
+        return res, first
+
+    # (a) The tier hands the unsatisfiable k=8 to the spill.
+    k8 = prepare(adversarial_events(8, batch=100, seed=0, unsatisfiable=True))
+    kw_a = dict(max_frontier=1 << 10, device_rows_cap=SPILL_K8_ROWS, beam=False, spill=True, collect_stats=True)
+    tag = "spill (a): unsatisfiable k=8, 2^10-row bucket, tier to 2^16 rows, then the spill"
+    _, first = first_and_warm(tag, lambda: dev_mod.check_device(k8, **kw_a), "illegal", TIER_K8_UNSAT_STATS,
+                              SPILL_K8_SLABS)
+    out["launches_by_path"]["unsatisfiable k=8, tier to 2^16 rows, then the spill (a)"] = first["launches"]
+
+    # (b) The unsatisfiable k=9 at a 2^17-row bucket: straight into the
+    # spill, and through a 2^20-row tier into it (no warm calls, for the
+    # script's time limit).
+    k9 = prepare(adversarial_events(9, batch=100, seed=0, unsatisfiable=True))
+    kw_b = dict(max_frontier=1 << 17, beam=False, spill=True, collect_stats=True)
+    for cap, slabs in SPILL_K9_SLABS.items():
+        tag = f"spill (b): unsatisfiable k=9, 2^17-row bucket, device_rows_cap={cap}"
+        _, first = first_and_warm(tag, lambda cap=cap: dev_mod.check_device(k9, device_rows_cap=cap, **kw_b),
+                                  "illegal", TIER_K9_UNSAT_STATS, slabs, warm_calls=0)
+        out["launches_by_path"][f"unsatisfiable k=9, 2^17-row bucket, device_rows_cap={cap}, spill (b)"] = (
+            first["launches"])
+
+    # (c) Adversarial k=10 through the spill at a 2^18-row bucket.
+    k10 = prepare(adversarial_events(10, batch=100, seed=0))
+    kw_c = dict(max_frontier=1 << 18, device_rows_cap=0, beam=False, spill=True, collect_stats=True)
+    tag = "spill (c): adversarial k=10, 2^18-row bucket, straight into the spill"
+    res, first = first_and_warm(tag, lambda: dev_mod.check_device(k10, **kw_c), "ok", SPILL_K10_STATS)
+    incore = dev_mod.check_device(k10, max_frontier=1 << 20, beam=False, witness=False)
+    if not replay_ok(k10, res.linearization or []) or res.final_states != incore.final_states:
+        fail(f"{tag}: the witness does not replay, or final states {res.final_states} differ from "
+             f"the in-core run's {incore.final_states}")
+    print(f"{tag}: witness replays; final states == the in-core run's ({len(res.final_states)})", flush=True)
+    out["launches_by_path"]["adversarial k=10, 2^18-row bucket, spill (c)"] = first["launches"]
+
+    # (d) The unsatisfiable k=10 through the CLI's defaults: the beam phase
+    # concedes, the exhaustive phase grows through the tier to 2^23 rows
+    # and hands off to the spill.  Only the largest fold call by steps is
+    # kept.
+    k10u = adversarial_events(10, batch=100, seed=0, unsatisfiable=True)
+    largest: dict = {"steps": -1}
+    real_fold = dev_mod.fold_lanes
+
+    def keep_largest(seed, row, length, rh):
+        steps = int(length.clamp(min=0, max=rh.shape[1]).sum())
+        if steps > largest["steps"]:
+            largest.update(steps=steps, args=[t.clone() for t in (seed, row, length, rh)])
+        return real_fold(seed, row, length, rh)
+
+    tag = "spill (d): unsatisfiable k=10 through `check -backend=device -stats`, no cap flags"
+    dev_mod.fold_lanes = keep_largest
+    try:
+        with chunk_counter(dev_mod) as chunks:
+            (rc, captured, stats), first = measured(lambda: run_cli(k10u, "unsat-k10"), record=False)
+    finally:
+        dev_mod.fold_lanes = real_fold
+    got = {k: stats.get(k) for k in SPILL_K10_UNSAT_STATS}
+    res = captured.get("res")
+    if rc != 1 or res is None or res.outcome.value != "illegal" or not res.refusals:
+        fail(f"{tag}: exit {rc}, outcome {res and res.outcome}")
+    if got != SPILL_K10_UNSAT_STATS:
+        fail(f"{tag}: statistics {got}, the JAX record's {SPILL_K10_UNSAT_STATS}")
+    if first["spills"] != 1 or not chunks["layers"] or first["launches"] == 0:
+        fail(f"{tag}: {first['spills']} spill hand-offs, {len(chunks['layers'])} chunked layers, "
+             f"{first['launches']} fold launches")
+    print(
+        f"{tag}: exit 1 ILLEGAL with {len(res.refusals)} refusal reports; statistics == the JAX "
+        f"record's {json.dumps(got)}; wall {first['wall']:.3f} s (the largest fold call kept on the "
+        f"side); chunked layers (bucket rows, chunks, compactions before the last) {chunks['layers']}; "
+        f"{shape(first)}; card {fb.card()}",
+        flush=True,
+    )
+    print(f"cli stats: {json.dumps(stats)}", flush=True)
+    out["launches_by_path"]["unsatisfiable k=10 through the CLI: beam, tier to 2^23 rows, spill (d)"] = (
+        first["launches"])
+    hist10u = captured["hist"]
+    res_w, warm = measured(lambda: dev_mod.check_device_auto(hist10u, collect_stats=True), record=False)
+    check_run(f"{tag} (warm, check_device_auto)", res_w, warm, "illegal", SPILL_K10_UNSAT_STATS)
+    print(f"{tag}, warm check_device_auto: {warm['wall']:.3f} s ({shape(warm)})", flush=True)
+
+    a = largest.pop("args")
+    got_f = fold_cuda.fold_lanes(*a)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    want_f = xxh3.fold_record_hashes_indexed(*a)
+    end.record()
+    torch.cuda.synchronize()
+    plain_ms = start.elapsed_time(end)
+    if not torch.equal(got_f, want_f):
+        fail(f"the unsatisfiable k=10 largest fold call differs from the plain fold: "
+             f"{int((got_f != want_f).sum())} lanes")
+    err = float((got_f.double() - want_f.double()).abs().max())
+    del got_f, want_f
+    dev_ms, call_ms, host_ms = fb.times(lambda: fold_cuda.fold_lanes(*a), 5, sm_hz)
+    r, w = int(a[3].shape[0]), int(a[3].shape[1])
+    b_ms, b_by = fb.fold_bound_ms(a[2], r, w, clocks)
+    cs = fb.call_stats(a[2], w)
+    print(
+        f"unsatisfiable k=10 largest fold call by steps: lanes {cs['lanes']}, active {cs['active']}, "
+        f"steps {cs['steps']}, R={r} L={w}: bit-exact; kernel {call_ms:.4f} ms per call, {dev_ms:.4f} ms "
+        f"device, {host_ms:.4f} ms host; plain {plain_ms:.3f} ms (one call); bound {b_ms:.4f} ms "
+        f"({b_by}), device time at {100 * b_ms / dev_ms:.0f}% of it",
+        flush=True,
+    )
+    out["spill_call"] = {
+        "path": "unsatisfiable k=10 through the CLI, the largest call by steps", "lanes": cs["lanes"],
+        "steps": cs["steps"], "ms": call_ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+        "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err,
+    }
+    del a
+
+    # (e) Checkpoint resume on the card: (b) preempted mid-spill, and the
+    # k=10 tier run preempted after its first escalation.
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = os.path.join(tmp, "k9.ck")
+        kw_e = dict(kw_b, device_rows_cap=0, checkpoint_path=ck)
+        slabs = {"n": 0}
+
+        def mid_spill(max_layers, _last):
+            slabs["n"] += max_layers == 1
+            return slabs["n"] == SPILL_K9_SLABS[0] * 2 // 3
+
+        try:
+            with preempting(dev_mod, mid_spill):
+                dev_mod.check_device(k9, **kw_e)
+        except KeyboardInterrupt:
+            pass
+        else:
+            fail("spill (e): the unsatisfiable k=9 was not preempted")
+        snap = ck + ".spill.npz"
+        if not os.path.exists(snap):
+            fail(f"spill (e): no {os.path.basename(snap)} after the preemption")
+        with np.load(snap) as z:
+            snap_layers, snap_rows = int(z["layers"]), len(z["host"])
+        fold_cuda.reset_launches()
+        t0 = time.monotonic()
+        res = dev_mod.check_device(k9, **kw_e)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        resumed_launches = fold_cuda.LAUNCHES["fold_lanes"]
+        got = stats_of(res.stats, TIER_K9_UNSAT_STATS)
+        if res.outcome.value != "illegal" or got != TIER_K9_UNSAT_STATS or os.path.exists(snap):
+            fail(f"spill (e): the resumed k=9 is {res.outcome.value} with {got} (want "
+                 f"{TIER_K9_UNSAT_STATS}), snapshot left: {os.path.exists(snap)}")
+        print(
+            f"spill (e): unsatisfiable k=9 (b, device_rows_cap=0) preempted at slab {slabs['n']}, resumed "
+            f"from {os.path.basename(snap)} (layer {snap_layers}, {snap_rows} host rows) in {wall:.3f} s: "
+            f"ILLEGAL, statistics == the uninterrupted run's {json.dumps(got)}, snapshot removed; fold "
+            f"launches {resumed_launches}",
+            flush=True,
+        )
+        out["launches_by_path"]["unsatisfiable k=9 resumed from its spill snapshot (e)"] = resumed_launches
+
+        ck = os.path.join(tmp, "k10.ck")
+        kw_t = dict(max_frontier=1 << 17, device_rows_cap=1 << 20, beam=False, collect_stats=True,
+                    checkpoint_path=ck, checkpoint_every=2)
+        try:
+            with preempting(dev_mod, lambda _m, last: last is not None
+                            and last.stop_code == dev_mod.STOP_CAPACITY) as state:
+                dev_mod.check_device(k10, **kw_t)
+        except KeyboardInterrupt:
+            pass
+        else:
+            fail("checkpoint (e): the k=10 tier run was not preempted")
+        saved = load_checkpoint(ck)
+        fold_cuda.reset_launches()
+        t0 = time.monotonic()
+        res = dev_mod.check_device(k10, **kw_t)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        resumed_launches = fold_cuda.LAUNCHES["fold_lanes"]
+        got = stats_of(res.stats, TIER_K10_STATS)
+        if (res.outcome.value != "ok" or got != TIER_K10_STATS or os.path.exists(ck)
+                or not replay_ok(k10, res.linearization or [])):
+            fail(f"checkpoint (e): the resumed k=10 is {res.outcome.value} with {got} (want "
+                 f"{TIER_K10_STATS}), snapshot left: {os.path.exists(ck)}, or its witness does not replay")
+        print(
+            f"checkpoint (e): adversarial k=10 through the tier, checkpoint_every=2, preempted after "
+            f"{state['calls']} segments at its first escalation (snapshot: {saved.f}-row bucket, layer "
+            f"{saved.layers_done}), resumed in {wall:.3f} s: OK, witness replays, statistics == the "
+            f"uninterrupted run's {json.dumps(got)}, snapshot removed; fold launches {resumed_launches}",
+            flush=True,
+        )
+        out["launches_by_path"]["adversarial k=10 tier run resumed from its checkpoint (e)"] = resumed_launches
+    return out
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1165,6 +1554,14 @@ def main() -> int:
                           recheck_calls, clocks, sm_hz, stats_of)
     kernels[0]["launches_by_path"].update(tier["launches_by_path"])
     kernels[0]["chunked_call"] = tier["chunked_call"]
+
+    # -- 10. the host-RAM spill and checkpoints ----------------------------
+    t_phase = time.monotonic()
+    spill = run_spill_phase(dev_mod, fold_cuda, xxh3, fb, prepare, adversarial_events, run_cli,
+                            recheck_calls, clocks, sm_hz, stats_of, counting_chunks)
+    print(f"phase 10 (spill and checkpoints): {time.monotonic() - t_phase:.1f} s", flush=True)
+    kernels[0]["launches_by_path"].update(spill["launches_by_path"])
+    kernels[0]["spill_call"] = spill["spill_call"]
 
     print(f"kernels: {', '.join(k['name'] for k in kernels)}", flush=True)
     print(f"total {time.monotonic() - t_start:.1f} s", flush=True)

@@ -46,18 +46,31 @@ pins); with ``speculate_depth > 0`` every search segment starts with one
 speculative dive (:func:`_spec_dive`) that expands the best few rows a few
 layers ahead through the same :func:`_expand_layer`.
 
+An exhaustive frontier that outgrows the device too goes to the host-RAM
+spill (:func:`_spill_search`): the frontier lives in host memory and streams
+through the device in one-layer slabs, with an exact host-side dedup between
+layers.  With ``checkpoint_path`` the search snapshots its frontier (or the
+spill its host matrix) in the JAX engine's file format
+(:mod:`.checkpoint`) and resumes from a matching snapshot.
+
 Soundness under capacity pressure mirrors the JAX engine: an OK is always
 conclusive; a dead end after beam pruning is UNKNOWN and
 :func:`check_device_auto` escalates to the exhaustive phase.  The tiers of
-the JAX engine that are not ported yet (the host-RAM spill, checkpoints,
-the per-layer witness log, the mesh) raise ``NotImplementedError`` naming
-the tier, never answer UNKNOWN in its place.
+the JAX engine that are not ported yet (the per-layer witness log, the mesh)
+raise ``NotImplementedError`` naming the tier, never answer UNKNOWN in its
+place.
 """
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
+import json
 import logging
+import os
 import time
+import zipfile
+from collections import deque
 from typing import NamedTuple
 
 import numpy as np
@@ -76,6 +89,14 @@ from ..ops.fold_cuda import fold_lanes
 from ..ops.step_kernel import DeviceOps, DeviceState, join_u64, step_kernel
 from ..ops.xxh3 import shr
 from .entries import History
+from .checkpoint import (
+    Checkpoint,
+    CheckpointError,
+    fingerprint_mismatch_reason,
+    history_fingerprint,
+    load_checkpoint,
+    save_checkpoint,
+)
 from .oracle import CheckOutcome, CheckResult
 from .prune import RANK_INF, analyze_encoded, neutral_tables
 from .stats import FrontierStats
@@ -1126,12 +1147,12 @@ def _accept_set_device(fr: Frontier, idx: int):
     return tail, h, tok, n
 
 
-def _final_states_device(enc: EncodedHistory, fr: Frontier, idx: int) -> list[StreamState]:
-    """States of every valid row sharing the accept row's counts."""
-    tail, h, tok, n = _accept_set_device(fr, idx)
+def _states_of(enc: EncodedHistory, tail, h, tok, n) -> set[StreamState]:
+    """The first ``n`` (a device scalar, one counted fetch) compacted rows'
+    model states."""
     (m,) = _fetch(n)
     tail, h, tok = (x[:m].cpu().tolist() for x in (tail, h, tok))
-    out = {
+    return {
         StreamState(
             tail=int(tail[i]),
             stream_hash=int(h[i]) & _M64,
@@ -1139,7 +1160,27 @@ def _final_states_device(enc: EncodedHistory, fr: Frontier, idx: int) -> list[St
         )
         for i in range(m)
     }
-    return sorted(out)
+
+
+def _final_states_device(enc: EncodedHistory, fr: Frontier, idx: int) -> list[StreamState]:
+    """States of every valid row sharing the accept row's counts."""
+    return sorted(_states_of(enc, *_accept_set_device(fr, idx)))
+
+
+def _frontier_arrays(fr: Frontier) -> dict[str, np.ndarray]:
+    """A frontier as host arrays in the JAX engine's field names and dtypes
+    (counts i32, tail/hi/lo u32, tok i32, valid bool): the inverse of
+    :func:`frontier_from_arrays`, and the layout of a checkpoint."""
+    cols = (fr.counts, fr.tail, shr(fr.hash, 32), fr.hash & _M32, fr.tok, fr.valid)
+    counts, tail, hi, lo, tok, valid = (x.cpu().numpy() for x in cols)
+    return dict(
+        counts=counts.astype(np.int32),
+        tail=tail.astype(np.uint32),
+        hi=hi.astype(np.uint32),
+        lo=lo.astype(np.uint32),
+        tok=tok.astype(np.int32),
+        valid=valid,
+    )
 
 
 def _regrow_device(fr: Frontier, capacity: int) -> Frontier:
@@ -1157,12 +1198,14 @@ def _regrow_device(fr: Frontier, capacity: int) -> Frontier:
 
 
 _UNPORTED = {
-    "checkpoint_path": "checkpoint/resume",
     "mesh": "multi-device sharding",
     "witness_max_frontier": "per-layer witness log",
 }
 
 _STOP_NAMES = ("RUNNING", "ACCEPT", "EMPTY", "CAPACITY")
+
+#: spill slab ranges cut ahead of the one on the device (see _spill_search)
+_SPILL_AHEAD = 2
 
 #: layer budget of one search segment while the frontier is above the
 #: expansion bucket: short, so that :func:`check_device` can downsize soon
@@ -1177,6 +1220,373 @@ def _refuse_unported(**opts) -> None:
                 f"{name}={value!r} needs the {_UNPORTED[name]} tier, which "
                 "s2_verification_tpu_torch does not have yet"
             )
+
+
+# ---------------------------------------------------------------------------
+# The host-RAM spill
+# ---------------------------------------------------------------------------
+
+
+def _snapshot_stats(stats: FrontierStats) -> dict:
+    """The statistics a snapshot keeps: all but ``host_syncs``, which counts
+    one process's synchronisations (the JAX engine's statistics have no
+    such field)."""
+    return {k: v for k, v in dataclasses.asdict(stats).items() if k != "host_syncs"}
+
+
+def _rows_to_host(fr: Frontier) -> np.ndarray:
+    """The valid rows of ``fr`` as the spill's host matrix ``[n, C+4]``
+    int32 — counts, then tail, hash hi, hash lo and tok, u32 words as their
+    int32 bit patterns: the JAX engine's layout.  Compacted on the device
+    first, so only live rows cross; one counted fetch (the row count)."""
+    counts, tail, h, tok, n = _compact_rows_device(fr)
+    (n,) = _fetch(n)
+    cols = torch.cat([counts[:n], torch.stack([tail[:n], shr(h[:n], 32), h[:n] & _M32, tok[:n]], 1)], 1)
+    return torch.where(cols >= 1 << 31, cols - (1 << 32), cols).to(torch.int32).cpu().numpy()
+
+
+def _rows_to_device(mat: np.ndarray, capacity: int, device) -> Frontier:
+    """Host-matrix rows as a ``capacity``-row frontier on ``device``: the
+    upload is a tight power-of-two bucket around the rows (at least 64,
+    at most ``capacity``), regrown on the device."""
+    n, c = mat.shape[0], mat.shape[1] - 4
+    p2 = min(round_pow2(max(n, 1), 64), capacity)
+    buf = np.zeros((p2, c + 4), np.int32)
+    buf[:n] = mat
+    m = torch.from_numpy(buf).to(device).long()
+    u = m & _M32
+    fr = Frontier(
+        counts=m[:, :c].contiguous(),
+        tail=u[:, c].contiguous(),
+        hash=(u[:, c + 1] << 32) | u[:, c + 2],
+        tok=m[:, c + 3].contiguous(),
+        valid=torch.arange(p2, device=device) < n,
+    )
+    return _regrow_device(fr, capacity) if p2 < capacity else fr
+
+
+def _dedup_rows(mat: np.ndarray, _key_bits: int = 64) -> np.ndarray:
+    """Exact row dedup of the spill frontier (the JAX engine's
+    ``_dedup_rows``, the same hashes and sort, so that both engines' host
+    frontiers come out row for row alike).
+
+    One u64-hash argsort puts equal rows side by side; an exact fix-up
+    re-checks the rare rows whose hash run still holds more than one
+    distinct row, so the result is ``np.unique``'s row set.  ``_key_bits``
+    narrows the key in tests to force collisions through the fix-up.
+    """
+    n = len(mat)
+    if n <= 1:
+        return mat
+    u = mat.view(np.uint32)
+    # Two u32 FNV-style lane hashes, folded column by column in place.
+    h1 = np.full(n, 0x811C9DC5, np.uint32)
+    h2 = np.full(n, 0x9747B28C, np.uint32)
+    tmp = np.empty(n, np.uint32)
+    for j in range(mat.shape[1]):
+        col = u[:, j]
+        np.bitwise_xor(h1, col, out=h1)
+        np.multiply(h1, np.uint32(0x01000193), out=h1)
+        np.left_shift(col, np.uint32(1), out=tmp)
+        np.bitwise_or(tmp, np.uint32(1), out=tmp)
+        np.bitwise_xor(h2, tmp, out=h2)
+        np.multiply(h2, np.uint32(0x7FEB352D), out=h2)
+    key = (h1.astype(np.uint64) << np.uint64(32)) | h2
+    if _key_bits < 64:
+        key &= np.uint64((1 << _key_bits) - 1)
+    order = np.argsort(key)  # unstable is fine: the fix-up is order-independent
+    key_s = key[order]
+    mat_s = mat[order]
+    same_key = np.empty(n, bool)
+    same_key[0] = False
+    same_key[1:] = key_s[1:] == key_s[:-1]
+    dup = np.zeros(n, bool)
+    dup[1:] = same_key[1:] & (mat_s[1:] == mat_s[:-1]).all(axis=1)
+    kept = ~dup
+    # A key run holding two or more kept rows is a hash collision, or equal
+    # rows a collision separated; such runs go whole through np.unique (equal
+    # rows always share a run).  With 64-bit keys this almost never fires,
+    # so probe cheaply first.
+    if not np.count_nonzero(kept & same_key):
+        return mat_s[kept]
+    run_id = np.cumsum(~same_key) - 1
+    kept_per_run = np.bincount(run_id[kept], minlength=int(run_id[-1]) + 1)
+    ambiguous = kept & (kept_per_run[run_id] >= 2)
+    plain = mat_s[kept & ~ambiguous]
+    if not ambiguous.any():
+        return plain
+    return np.concatenate([plain, np.unique(mat_s[ambiguous], axis=0)])
+
+
+def _accept_sweep_device(tables: SearchTables, fr: Frontier, accept_counts: torch.Tensor):
+    """Auto-close every row, then compact the states of the rows whose
+    closed counts equal the accept configuration's: one slab's share of the
+    accept set (the accept test runs after auto-close, so the sweep applies
+    the same closure before matching)."""
+    closed = _auto_close(tables, fr)[0]
+    match = fr.valid & (closed == accept_counts[None, :]).all(1)
+    _, tail, h, tok, n = _compact_rows_device(fr._replace(valid=match))
+    return tail, h, tok, n
+
+
+def _spill_accept_states(
+    enc: EncodedHistory, tables: SearchTables, host: np.ndarray, accept_counts, to_device, fill: int
+) -> list[StreamState]:
+    """The accept configuration's candidate states, unioned across every
+    slab of the accept layer and not only the slab that accepted, so that a
+    spill OK reports the in-core path's ``final_states``.  One upload-only
+    sweep of the layer, in the same slabs (auto-close never grows one)."""
+    acc = torch.as_tensor(np.asarray(accept_counts, np.int64), device=tables.is_indef.device)
+    out: set[StreamState] = set()
+    for j in range(0, len(host), fill):
+        out |= _states_of(enc, *_accept_sweep_device(tables, to_device(host[j : j + fill]), acc))
+    return sorted(out)
+
+
+def _spill_search(
+    enc: EncodedHistory,
+    tables: SearchTables,
+    seed: Frontier | np.ndarray,
+    stats: FrontierStats,
+    f_cap: int,
+    cap_layers: int,
+    *,
+    host_cap: int,
+    deep_counts,
+    checkpoint_path: str | None = None,
+    fingerprint: str | None = None,
+    history: History | None = None,
+    witness: bool = False,
+    exact_pack: bool = False,
+    sort_dedup: bool = False,
+    profile: bool = False,
+    profile_t0: float | None = None,
+) -> CheckResult:
+    """Out-of-core exhaustive search (the JAX engine's ``_spill_search``):
+    the frontier in host RAM as the ``[n, C+4]`` int32 matrix of
+    :func:`_rows_to_host`, slabs on the device.
+
+    Each layer streams the host frontier through ``run_search(max_layers=1,
+    allow_prune=False)`` in slabs of ``f_cap // 4`` rows on a slab bucket of
+    ``max(f_cap, 4C)`` rows (so one row's children always fit): auto-close,
+    accept test, one expansion and the in-slab dedup run on the device; the
+    exact cross-slab dedup runs on the host (:func:`_dedup_rows`) between
+    layers.  A slab whose children overflow the bucket is retried in
+    halves, and the layer-wide fill halves with it (the fill resets each
+    layer).  Whenever the deduped frontier fits half the bucket, whole
+    layers run in core again (a hybrid segment) until it overflows — the
+    streaming is paid only at the peak layers.
+
+    Nothing is pruned, so OK and ILLEGAL stay conclusive; UNKNOWN (with
+    ``stats.pruned``) only when the host frontier exceeds ``host_cap``
+    rows, or a layer's raw children ``2 * host_cap``.  On OK the reported
+    ``final_states`` are the accept configuration's states unioned across
+    every slab of the accept layer (:func:`_spill_accept_states`), and with
+    ``witness`` a linearization is recovered from the accept counts.
+
+    One slab is on the device at a time: :func:`run_search` returns only
+    after fetching its scalars, so a second slab in flight would overlap
+    nothing.  A slab that runs the device out of memory
+    (``torch.cuda.OutOfMemoryError``) is freed and requeued at half the
+    fill, which is re-raised at a fill of one row: the slab stays on the
+    same device, smaller — never a move to another device.
+
+    With ``checkpoint_path`` the host matrix is written to
+    ``<path>.spill.npz`` before every streamed layer and hybrid segment (the
+    JAX engine's file, plus a ``stats`` member that the JAX engine does not
+    read: the statistics so far, so that a resumed run reports the whole
+    search's), and removed on a conclusive verdict.
+    """
+    c = enc.num_chains
+    dev = tables.is_indef.device
+    if profile_t0 is None:
+        profile_t0 = time.monotonic()
+
+    def profile_entry(frontier_rows: int, states: int, stop: str) -> None:
+        if profile:
+            stats.timeline.append(
+                {
+                    "layer": stats.layers,
+                    "frontier": frontier_rows,
+                    "states": states,
+                    "auto_closed": stats.auto_closed,
+                    "elapsed_s": round(time.monotonic() - profile_t0, 6),
+                    "stop": stop,
+                    "spill": True,
+                }
+            )
+
+    f_cap = max(f_cap, round_pow2(4 * max(c, 1), 2))
+    spill_ck = f"{checkpoint_path}.spill.npz" if checkpoint_path else None
+
+    def to_device(mat: np.ndarray) -> Frontier:
+        return _rows_to_device(mat, f_cap, dev)
+
+    def run(mat: np.ndarray, max_layers: int) -> RunOut:
+        return run_search(
+            tables, to_device(mat), max_layers, allow_prune=False, exact_pack=exact_pack,
+            sort_dedup=sort_dedup,
+        )
+
+    def unknown() -> CheckResult:
+        stats.pruned = True
+        return CheckResult(CheckOutcome.UNKNOWN)
+
+    def conclude(res: CheckResult) -> CheckResult:
+        """A conclusive verdict spends the spill snapshot."""
+        if spill_ck is not None:
+            with contextlib.suppress(FileNotFoundError):
+                os.remove(spill_ck)
+        return res
+
+    def witness_of(counts) -> list[int] | None:
+        return _recover_witness_bounded(enc, history, counts) if witness and history is not None else None
+
+    # A Frontier seed just overflowed the same bucket in check_device, so an
+    # in-core retry would fail again at once; a resumed host matrix carries
+    # no such knowledge.
+    try_incore = isinstance(seed, np.ndarray)
+    host = seed if isinstance(seed, np.ndarray) else _rows_to_host(seed)
+    deep = None if deep_counts is None else np.asarray(deep_counts).astype(np.int32)
+    deep_sum = -1 if deep is None else int(deep.sum())
+    log.debug("spilling to host: %d rows, slab bucket %d", len(host), f_cap)
+
+    while stats.layers < cap_layers:
+        if spill_ck is not None:
+            tmp = spill_ck + ".tmp.npz"
+            np.savez_compressed(
+                tmp,
+                fingerprint=np.array(fingerprint or ""),
+                host=host,
+                layers=np.int64(stats.layers),
+                deep=deep if deep is not None else np.zeros(0, np.int32),
+                stats=np.frombuffer(json.dumps(_snapshot_stats(stats)).encode(), np.uint8),
+            )
+            os.replace(tmp, spill_ck)
+        if try_incore and len(host) <= f_cap // 2:
+            # Hybrid segment: the frontier fits the bucket with expansion
+            # headroom, so whole layers run in core until it outgrows it.
+            out = run(host, cap_layers - stats.layers)
+            stats.layers += out.layers
+            stats.max_frontier = max(stats.max_frontier, out.max_live)
+            stats.auto_closed += out.auto_closed
+            stats.expanded += out.expanded
+            profile_entry(out.max_live, out.max_live, _STOP_NAMES[out.stop_code])
+            log.debug("spill in-core segment: stop=%s +%d layers", _STOP_NAMES[out.stop_code], out.layers)
+            if out.deep_ops > deep_sum:
+                deep_sum, deep = out.deep_ops, out.deep_counts.cpu().numpy().astype(np.int32)
+            if out.stop_code == STOP_ACCEPT:
+                counts = out.frontier.counts[out.accept_idx].cpu().numpy()
+                return conclude(
+                    CheckResult(
+                        CheckOutcome.OK,
+                        linearization=witness_of(counts),
+                        final_states=_final_states_device(enc, out.frontier, out.accept_idx),
+                    )
+                )
+            if out.stop_code == STOP_EMPTY:
+                return conclude(
+                    CheckResult(
+                        CheckOutcome.ILLEGAL,
+                        deepest=_deepest_ops(enc, deep),
+                        refusals=_device_refusals(enc, history, out.frontier),
+                    )
+                )
+            # A capacity stop (or the layer cap): back to streaming from the
+            # returned pre-expansion frontier, which just proved it cannot
+            # expand in core; the next streamed layer's dedup re-arms the
+            # hybrid.
+            host = _rows_to_host(out.frontier)
+            try_incore = False
+            continue
+        children: list[np.ndarray] = []
+        children_rows = 0
+        fill = max(1, f_cap // 4)
+        # Independent (start, length) row ranges.  A range is cut at the
+        # fill when it is queued for the device, one range ahead of the slab
+        # running: the JAX engine's cut with two slabs in flight, so that
+        # both engines run the same slabs in the same order.
+        work = deque((j, min(fill, len(host) - j)) for j in range(0, len(host), fill))
+        ahead: deque = deque()
+        while work or ahead:
+            while work and len(ahead) < _SPILL_AHEAD:
+                s0, t0 = work.popleft()
+                if t0 > fill:
+                    work.appendleft((s0 + fill, t0 - fill))
+                    t0 = fill
+                ahead.append((s0, t0))
+            s0, t0 = ahead.popleft()
+            out = None
+            with contextlib.suppress(torch.cuda.OutOfMemoryError):
+                out = run(host[s0 : s0 + t0], 1)
+            if out is None:
+                # Out of device memory: the slab's tensors went with the
+                # exception; requeue it and the range cut after it, and
+                # retry at half the fill.
+                if fill == 1:
+                    raise torch.cuda.OutOfMemoryError(
+                        "a one-row spill slab does not fit the device's memory"
+                    )
+                fill = max(1, fill // 2)
+                log.warning("spill slab ran the device out of memory; halving fill -> %d", fill)
+                work.extendleft(reversed([(s0, t0), *ahead]))
+                ahead.clear()
+                continue
+            if out.stop_code == STOP_CAPACITY:
+                if t0 == 1:
+                    # Unreachable: the bucket fits one row's children.
+                    return unknown()
+                half = t0 // 2
+                fill = max(1, min(fill, half))
+                log.debug("slab overflow: retrying %d rows in halves, fill -> %d", t0, fill)
+                work.appendleft((s0 + half, t0 - half))
+                work.appendleft((s0, half))
+                continue
+            stats.auto_closed += out.auto_closed
+            stats.expanded += out.expanded
+            if out.stop_code == STOP_ACCEPT:
+                stats.layers += 1
+                counts = out.frontier.counts[out.accept_idx].cpu().numpy()
+                return conclude(
+                    CheckResult(
+                        CheckOutcome.OK,
+                        linearization=witness_of(counts),
+                        final_states=_spill_accept_states(enc, tables, host, counts, to_device, fill),
+                    )
+                )
+            if out.deep_ops > deep_sum:
+                deep_sum, deep = out.deep_ops, out.deep_counts.cpu().numpy().astype(np.int32)
+            if out.stop_code != STOP_EMPTY:
+                ch = _rows_to_host(out.frontier)
+                children.append(ch)
+                children_rows += len(ch)
+                if children_rows > 2 * host_cap:
+                    # Bound the transient host memory too: a layer's raw
+                    # children can exceed the cap many times before dedup.
+                    log.warning(
+                        "spill children %d exceed 2x spill_host_cap %d; UNKNOWN", children_rows, host_cap
+                    )
+                    return unknown()
+            del out
+        stats.layers += 1
+        if not children:
+            return conclude(
+                CheckResult(
+                    CheckOutcome.ILLEGAL,
+                    deepest=_deepest_ops(enc, deep),
+                    refusals=_host_row_refusals(enc, history, host),
+                )
+            )
+        host = _dedup_rows(np.concatenate(children))
+        del children
+        try_incore = True
+        stats.max_frontier = max(stats.max_frontier, len(host))
+        profile_entry(len(host), len(host), "STREAMED")
+        log.debug("spill layer %d: %d host rows", stats.layers, len(host))
+        if len(host) > host_cap:
+            log.warning("host frontier %d exceeds spill_host_cap %d; UNKNOWN", len(host), host_cap)
+            return unknown()
+    return unknown()
 
 
 def check_device(
@@ -1219,8 +1629,19 @@ def check_device(
     of at most :data:`_BIG_TIER_CHUNK` layers, and drops back to a smaller
     bucket between segments once the live rows fit a quarter of it.  Past
     that cap an exhaustive run is UNKNOWN (``stats.pruned``), or with
-    ``spill=True`` would hand the frontier to the host-RAM spill, which is
-    not ported: it raises ``NotImplementedError`` there.
+    ``spill=True`` hands the frontier to the host-RAM spill
+    (:func:`_spill_search`), conclusive up to ``spill_host_cap`` host rows.
+
+    ``checkpoint_path``: snapshot the frontier to this file (the JAX
+    engine's format, :mod:`.checkpoint`) every ``checkpoint_every`` layers
+    — the segment budget, so with ``speculate_depth`` the dive follows the
+    same cadence — and at each escalation; the spill writes
+    ``<path>.spill.npz`` instead.  A matching spill snapshot is resumed
+    first (it needs ``beam=False, spill=True``), else a matching frontier
+    snapshot; a snapshot of another history, of a beam search for an
+    exhaustive one or the reverse, or an unreadable one raises
+    :class:`.checkpoint.CheckpointError`.  A conclusive verdict removes the
+    snapshot.
 
     ``witness=True``: an OK carries a witness linearization from the
     counts-bounded host re-search (:func:`_recover_witness_bounded`);
@@ -1232,9 +1653,7 @@ def check_device(
     probe table, and needs the packed key (``ValueError`` otherwise).
 
     Accepted with no effect: ``state_slots`` (as in the JAX engine);
-    ``checkpoint_every`` and ``spill_host_cap``, which steer tiers that are
-    not ported (``checkpoint_path`` raises); ``pallas_fold``: the fold is
-    always ``csrc/fold_lanes.cu`` on the card and its plain version on the
+    ``pallas_fold``: the fold is always ``csrc/fold_lanes.cu`` on the card and its plain version on the
     CPU, never the plain version on the card.
 
     ``prune=True`` activates the verdict-exact commutativity prunes
@@ -1256,9 +1675,8 @@ def check_device(
     :class:`.progress.ProgressSink`) is offered one update per segment,
     from scalars the search already fetched.
     """
-    del state_slots, checkpoint_every, spill_host_cap, pallas_fold
+    del state_slots, pallas_fold
     _refuse_unported(
-        checkpoint_path=checkpoint_path,
         mesh=mesh,
         witness_max_frontier=witness_max_frontier,
     )
@@ -1297,7 +1715,70 @@ def check_device(
     # prunes at the bucket instead).
     big_cap = _floor_pow2(device_rows_cap, 2) if device_rows_cap > f_cap and not beam and xp else f_cap
     f = round_pow2(max(min(start_frontier, f_cap), len(enc.init_states)), 2)
-    frontier = init_frontier(enc, f, dev)
+    frontier = res = None
+    fingerprint = None
+
+    def spill_from(seed, deep_counts) -> CheckResult:
+        return _spill_search(
+            enc, tables, seed, stats, f_cap, cap_layers, host_cap=spill_host_cap,
+            deep_counts=deep_counts, checkpoint_path=checkpoint_path, fingerprint=fingerprint,
+            history=history, witness=witness, exact_pack=xp, sort_dedup=sd, profile=profile,
+            profile_t0=t_run0,
+        )
+
+    if checkpoint_path is not None:
+        fingerprint = history_fingerprint(enc)
+        spill_snapshot = f"{checkpoint_path}.spill.npz"
+        if os.path.exists(spill_snapshot):
+            try:
+                with np.load(spill_snapshot, allow_pickle=False) as z:
+                    saved_fp, host, layers, deep0 = str(z["fingerprint"]), z["host"], int(z["layers"]), z["deep"]
+                    # A snapshot of the JAX engine's has no statistics.
+                    saved_stats = json.loads(bytes(z["stats"]).decode()) if "stats" in z else {}
+            except (OSError, ValueError, KeyError, zipfile.BadZipFile) as e:
+                raise CheckpointError(f"cannot read spill checkpoint {spill_snapshot}: {e}") from e
+            if saved_fp != fingerprint:
+                raise CheckpointError(
+                    f"spill checkpoint {spill_snapshot} " + fingerprint_mismatch_reason(saved_fp, fingerprint)
+                )
+            if beam or not spill:
+                raise CheckpointError(
+                    f"spill checkpoint {spill_snapshot} requires an exhaustive spill-enabled run to resume"
+                )
+            for k, v in saved_stats.items():
+                setattr(stats, k, v)
+            stats.layers = layers
+            res = spill_from(host, deep0 if len(deep0) else None)
+        elif os.path.exists(checkpoint_path):
+            ck = load_checkpoint(checkpoint_path)
+            if ck.fingerprint != fingerprint:
+                raise CheckpointError(
+                    f"checkpoint {checkpoint_path} " + fingerprint_mismatch_reason(ck.fingerprint, fingerprint)
+                )
+            if ck.beam != beam:
+                # A pruned beam frontier must never seed an exhaustive pass
+                # (its dead ends would be inconclusive forever), nor the
+                # reverse.
+                raise CheckpointError(
+                    f"checkpoint {checkpoint_path} was written by a "
+                    f"{'beam' if ck.beam else 'exhaustive'} search and cannot "
+                    f"resume a {'beam' if beam else 'exhaustive'} one"
+                )
+            f = ck.f
+            for k, v in ck.stats.items():
+                setattr(stats, k, v)
+            stats.layers = ck.layers_done
+            frontier = frontier_from_arrays(vars(ck), dev)
+
+    def snapshot(fr: Frontier) -> None:
+        save_checkpoint(
+            checkpoint_path,
+            Checkpoint(fingerprint=fingerprint, **_frontier_arrays(fr), f=f, beam=beam,
+                       layers_done=stats.layers, stats=_snapshot_stats(stats)),
+        )
+
+    if frontier is None and res is None:
+        frontier = init_frontier(enc, f, dev)
     log.debug(
         "device search: %d ops over %d chains, frontier=%d (cap %d, device rows %d), %s, %s",
         enc.num_ops,
@@ -1308,9 +1789,11 @@ def check_device(
         "beam" if beam else "exhaustive",
         dev,
     )
-    while True:
+    while res is None:
         allow_prune = beam and f >= f_cap
         layers_budget = cap_layers - stats.layers
+        if checkpoint_path is not None and checkpoint_every > 0:
+            layers_budget = min(layers_budget, checkpoint_every)
         if f > f_cap:
             layers_budget = min(layers_budget, _BIG_TIER_CHUNK)
         out = run_search(
@@ -1398,16 +1881,14 @@ def check_device(
                 f = min(round_pow2(max(out.want * 2, f * 4), 2), big_cap)
                 log.debug("capacity stop: escalating frontier to %d and resuming", f)
                 frontier = _regrow_device(out.frontier, f)
+                if checkpoint_path is not None:
+                    snapshot(frontier)
                 continue
             if not beam and spill:
-                # The JAX engine hands the frontier to its host-RAM spill
-                # here.
-                raise NotImplementedError(
-                    f"spill=True: the exhaustive search outgrew its {big_cap}-row "
-                    f"device bucket ({out.want} unique children); continuing needs "
-                    "the host-RAM spill tier, which s2_verification_tpu_torch does "
-                    "not have yet"
-                )
+                # Out-of-core hand-off: the pre-expansion frontier goes to
+                # host RAM, compacted on the device first.
+                res = spill_from(out.frontier, out.deep_counts.cpu().numpy())
+                break
             stats.pruned = True
             res = CheckResult(CheckOutcome.UNKNOWN)
             break
@@ -1421,11 +1902,16 @@ def check_device(
                 f = max(round_pow2(max(out.live, 1) * 4, 2), f_cap)
                 log.debug("post-peak downsize: frontier bucket -> %d", f)
                 frontier = _regrow_device(frontier, f)
+            if checkpoint_path is not None:
+                snapshot(frontier)
             continue
         # Layer cap hit without a verdict: should be impossible (each layer
         # linearizes at least one op); treat as inconclusive.
         res = CheckResult(CheckOutcome.UNKNOWN)
         break
+    if checkpoint_path is not None and res.outcome != CheckOutcome.UNKNOWN:
+        with contextlib.suppress(FileNotFoundError):
+            os.remove(checkpoint_path)
     stats.host_syncs = SYNCS[0] - syncs0
     if collect_stats:
         res.stats = stats  # type: ignore[attr-defined]
@@ -1468,13 +1954,20 @@ def check_device_auto(
     ``beam_width`` rows, then, if it conceded UNKNOWN, an exhaustive phase
     with an ``exhaustive_cap``-row bucket that keeps growing on the device
     up to ``device_rows_cap`` rows (:func:`default_device_rows_cap` when
-    None), chunked.  Past that the JAX engine goes on in its host-RAM spill
-    (``spill=True``, the default), which raises ``NotImplementedError``
-    here.  ``device_rows_cap``, ``spill`` and ``spill_host_cap`` go to the
-    exhaustive phase only; the other options to both phases."""
+    None), chunked, and past that goes on in the host-RAM spill
+    (``spill=True``, the default).  ``device_rows_cap``, ``spill`` and
+    ``spill_host_cap`` go to the exhaustive phase only; the other options
+    to both phases.
+
+    With ``checkpoint_path`` the beam phase snapshots to ``<path>.beam``
+    and the exhaustive phase to ``<path>`` (a beam snapshot must never seed
+    an exhaustive pass); a conceded beam phase leaves the marker
+    ``<path>.beam.conceded`` holding the history's fingerprint, so that a
+    preempted exhaustive phase does not replay the beam search on restart.
+    A conclusive verdict removes the marker; an UNKNOWN keeps it beside the
+    exhaustive snapshot."""
     del state_slots
     _refuse_unported(
-        checkpoint_path=checkpoint_path,
         mesh=mesh,
         witness_max_frontier=witness_max_frontier,
     )
@@ -1499,18 +1992,53 @@ def check_device_auto(
         speculate_width=speculate_width,
         device=dev,
     )
-    res = check_device(history, max_frontier=beam_width, beam=True, **kw)
-    if res.outcome != CheckOutcome.UNKNOWN:
-        return res
-    return check_device(
+    marker = f"{checkpoint_path}.beam.conceded" if checkpoint_path else None
+    beam_conceded = False
+    if marker is not None:
+        fingerprint = history_fingerprint(encode_history(history))
+        if os.path.exists(marker):
+            try:
+                with open(marker, encoding="utf-8") as fh:
+                    beam_conceded = fh.read().strip() == fingerprint
+            except OSError:
+                beam_conceded = False
+            if not beam_conceded:
+                with contextlib.suppress(FileNotFoundError):
+                    os.remove(marker)
+    if not beam_conceded:
+        res = check_device(
+            history,
+            max_frontier=beam_width,
+            beam=True,
+            checkpoint_path=None if checkpoint_path is None else f"{checkpoint_path}.beam",
+            **kw,
+        )
+        if res.outcome != CheckOutcome.UNKNOWN:
+            if marker is not None:
+                with contextlib.suppress(FileNotFoundError):
+                    os.remove(marker)
+            return res
+        if marker is not None:
+            # The conceded beam phase's snapshot must not linger (it would
+            # clash with the next history under this path).
+            with contextlib.suppress(FileNotFoundError):
+                os.remove(f"{checkpoint_path}.beam")
+            with open(marker, "w", encoding="utf-8") as fh:
+                fh.write(fingerprint)
+    res = check_device(
         history,
         max_frontier=exhaustive_cap,
         beam=False,
+        checkpoint_path=checkpoint_path,
         spill=spill,
         spill_host_cap=spill_host_cap,
         device_rows_cap=device_rows_cap,
         **kw,
     )
+    if marker is not None and res.outcome != CheckOutcome.UNKNOWN:
+        with contextlib.suppress(FileNotFoundError):
+            os.remove(marker)
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -1722,4 +2250,54 @@ def _device_refusals(
         return []
     cm, tm, hm, km = (x[:m].cpu().numpy() for x in (counts_m, tail_m, h_m, tok_m))
     rows = [(cm[i], tm[i], hm[i], km[i]) for i in range(m)]
+    return _refusal_diagnostics(enc, history, rows, max_signatures)
+
+
+def _host_close(enc: EncodedHistory, counts, tail: int, tok: int) -> None:
+    """Host mirror of :func:`_auto_close` for one row: advance ``counts``
+    past every dead candidate (all at once per sweep) until a fixpoint."""
+    is_indef = op_class_masks(enc)["is_indef"]
+    settable = {int(enc.set_token[j]) for j in range(enc.num_ops) if enc.has_set_token[j]}
+    while True:
+        nxt, cand = _host_next_cands(enc, counts)
+        dead = []
+        for c in np.flatnonzero(cand):
+            j = nxt[c]
+            if not is_indef[j]:
+                continue
+            if enc.has_match[j] and tail > int(enc.match_seq[j]):
+                dead.append(c)
+            elif (
+                enc.has_batch_token[j]
+                and int(enc.batch_token[j]) not in settable
+                and tok != int(enc.batch_token[j])
+            ):
+                dead.append(c)
+        if not dead:
+            return
+        for c in dead:
+            counts[c] += 1
+
+
+def _host_row_refusals(
+    enc: EncodedHistory,
+    history: History | None,
+    host: np.ndarray,
+    max_signatures: int = 8,
+) -> list[tuple[list[int], list[int]]]:
+    """Refusal reports from the spill's host frontier (the last streamed
+    layer's input rows, which all died).  The rows are pre-auto-close, so
+    the closure is applied before the diagnosis, as the device engine sees
+    them."""
+    if history is None:
+        return []
+    c = enc.num_chains
+    rows = []
+    for i in range(min(len(host), 2048)):
+        counts = host[i, :c].astype(np.int64)
+        tail = int(host[i, c]) & _M32
+        tok = int(host[i, c + 3])
+        _host_close(enc, counts, tail, tok)
+        h = ((int(host[i, c + 1]) & _M32) << 32) | (int(host[i, c + 2]) & _M32)
+        rows.append((counts, tail, h, tok))
     return _refusal_diagnostics(enc, history, rows, max_signatures)

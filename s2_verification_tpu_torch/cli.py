@@ -12,10 +12,10 @@ utils/events.py) and exits with the verdict, as the JAX package's CLI does:
     0  linearizable (OK) — the witness linearization is logged
     1  not linearizable (ILLEGAL) — the refusal reports are logged
     2  inconclusive (UNKNOWN)
-    64 usage or parse error; also: no CUDA device for ``-device cuda``, or a
-       search tier that this port does not have yet (the JAX package decides
-       such a history; with ``-stats`` the JSON line then says
-       ``"outcome": "unported"`` and names the tier)
+    64 usage or parse error; also: no CUDA device for ``-device cuda``, a
+       ``-checkpoint`` file that cannot resume this search, or a search tier
+       that this port does not have yet (with ``-stats`` the JSON line then
+       says ``"outcome": "unported"`` and names the tier)
 
 Backends: ``device`` (default) runs the GPU frontier search
 (checker/device.py::check_device_auto) on ``-device`` (``cuda`` by default;
@@ -25,8 +25,11 @@ the CPU Wing–Gong reference (checker/oracle.py), bounded by
 JAX package.  ``-device-rows N`` caps the device-resident frontier of the
 device search's exhaustive phase (default 2^23 on the card, 0 on the CPU:
 past its 2^20-row bucket the frontier grows on the device up to N rows,
-expanded in chunks; past N the JAX package spills to host RAM, which this
-port does not have yet, so the search stops with exit 64 there).
+expanded in chunks; past N it spills to host RAM and streams through the
+device layer by layer).  ``-checkpoint PATH`` snapshots the device search
+(``PATH.beam`` for its beam phase, ``PATH`` and ``PATH.spill.npz`` for the
+exhaustive phase, in the JAX package's format) and resumes a matching
+snapshot; the oracle ignores it.
 ``--prune`` and ``--speculate-depth K`` turn on the device
 search's verdict-exact prunes and speculative dive (the oracle ignores
 both); ``-profile OUT.json`` writes the search-shape profile
@@ -43,6 +46,7 @@ import sys
 import time
 
 from . import __version__
+from .checker.checkpoint import CheckpointError
 from .checker.device import DeviceUnavailable, check_device_auto
 from .checker.entries import History, prepare
 from .checker.oracle import CheckOutcome, CheckResult, check
@@ -73,6 +77,11 @@ def _read_events(path: str) -> list[ev.LabeledEvent]:
 
 def _run_backend(args: argparse.Namespace, hist: History) -> CheckResult:
     if args.backend == "oracle":
+        if args.checkpoint is not None:
+            log.warning(
+                "-checkpoint only applies to the device search; the %s backend will not snapshot",
+                args.backend,
+            )
         if args.device_rows is not None:
             log.warning(
                 "-device-rows only applies to the device search; the %s backend ignores it",
@@ -85,6 +94,7 @@ def _run_backend(args: argparse.Namespace, hist: History) -> CheckResult:
         hist,
         collect_stats=args.stats,
         device=args.device,
+        checkpoint_path=args.checkpoint,
         profile=bool(args.profile),
         prune=args.prune,
         speculate_depth=args.speculate_depth,
@@ -110,6 +120,9 @@ def _check_one(args: argparse.Namespace, on_result=None) -> int:
         res = _run_backend(args, checked)
     except DeviceUnavailable as e:
         log.error("%s", e)
+        return USAGE_EXIT
+    except CheckpointError as e:
+        log.error("%s — remove the file or point -checkpoint elsewhere", e)
         return USAGE_EXIT
     except NotImplementedError as e:
         # Not bad input: the search needs a tier this port lacks.  -stats
@@ -299,14 +312,22 @@ def build_parser() -> argparse.ArgumentParser:
         help="oracle time budget in seconds (0 or unset = run to completion)",
     )
     c.add_argument(
+        "-checkpoint",
+        "--checkpoint",
+        default=None,
+        metavar="PATH",
+        help="snapshot file for long device searches (resume + preemption safety)",
+    )
+    c.add_argument(
         "-device-rows",
         "--device-rows",
         type=int,
         default=None,
         help="device-resident frontier cap for the device search's "
-        "exhaustive phase (default 2^23; the chunked tier engages only "
-        "above the 2^20 exhaustive bucket — smaller values, or 0, disable "
-        "it)",
+        "exhaustive phase (default 2^23 on the card, 0 on the CPU; the "
+        "chunked tier engages only above the 2^20 exhaustive bucket — "
+        "smaller values, or 0, disable it); past it the frontier spills "
+        "to host RAM",
     )
     c.add_argument(
         "--prune",

@@ -17,8 +17,8 @@ scan fold, the port with ``device="cpu"`` (the plain PyTorch fold):
   search statistics, final states, witness and the profile timeline
   (buckets, 8-layer segments, the post-peak downsize);
 - the gates of the tier and of the options that need the packed key, the
-  stop past the device-resident cap, and ``check_device_auto``'s
-  ``device_rows_cap`` default.
+  stop past the device-resident cap (UNKNOWN, or the spill's OK), and
+  ``check_device_auto``'s ``device_rows_cap`` default.
 """
 
 import numpy as np
@@ -293,10 +293,12 @@ def test_past_device_rows_cap_unknown_or_spill_refusal():
     rp = pdev.check_device(hp, device="cpu", **kw)
     assert rp.outcome == CheckOutcome.UNKNOWN and rp.stats.pruned
     assert_checks_equal(rj, rp, hp)
-    # The JAX engine hands this frontier to its host-RAM spill and decides
-    # OK (its test_device.py:819); the port stops there, naming the spill.
-    with pytest.raises(NotImplementedError, match="host-RAM spill"):
-        pdev.check_device(hp, device="cpu", spill=True, **kw)
+    # With the spill both engines hand this frontier to host RAM and decide
+    # OK (the JAX package's test_device.py:796-806).
+    rj = jdev.check_device(hj, spill=True, **kw)
+    rp = pdev.check_device(hp, device="cpu", spill=True, **kw)
+    assert rp.outcome == CheckOutcome.OK
+    assert_checks_equal(rj, rp, hp)
 
 
 def _jax_auto_rows_cap(monkeypatch, backend, spill):

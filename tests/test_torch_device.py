@@ -234,36 +234,39 @@ def test_collected_histories_match_jax(name):
     assert_results_equal(rj, rp, hp)
 
 
-def test_exhaustive_overflow_raises_instead_of_unknown():
-    # An in-core search (no device_rows_cap) past its bucket.  The JAX
-    # engine concedes UNKNOWN without its spill and hands the frontier to
-    # the spill with it; the port concedes the same UNKNOWN with
-    # spill=False, and with spill=True raises where the spill would start,
-    # naming the option and the tier.  test_torch_chunked holds the same
-    # stop past a device_rows_cap above the bucket.
+def test_exhaustive_overflow_unknown_or_spill_matches_jax():
+    # An in-core search (no device_rows_cap) past its bucket.  Without the
+    # spill both engines concede the same UNKNOWN; with spill=True both hand
+    # the frontier to the host-RAM spill and decide OK with the same
+    # statistics.  test_torch_chunked holds the same past a device_rows_cap
+    # above the bucket.
     hj, hp = both(jax_adversarial(6, batch=2, seed=3))
-    kw = dict(max_frontier=64, beam=False, collect_stats=True)
-    rj = jdev.check_device(hj, **kw)
-    assert rj.outcome.value == "unknown"  # the JAX engine without its spill
-    assert_results_equal(rj, pdev.check_device(hp, device="cpu", **kw), hp)
-    with pytest.raises(NotImplementedError, match="spill=True.*host-RAM spill"):
-        pdev.check_device(hp, max_frontier=64, beam=False, spill=True, device="cpu")
+    for spill, want in ((False, "unknown"), (True, "ok")):
+        kw = dict(max_frontier=64, beam=False, collect_stats=True, spill=spill)
+        rj = jdev.check_device(hj, **kw)
+        assert rj.outcome.value == want
+        assert_results_equal(rj, pdev.check_device(hp, device="cpu", **kw), hp)
 
 
+#: (option, value, other options set beside it): the options still
+#: unported raise naming themselves, with a checkpoint and the spill on too
 UNPORTED = [
-    ("checkpoint_path", "/nonexistent/ck"),
-    ("mesh", object()),
-    ("witness_max_frontier", 64),
+    ("mesh", object(), {}),
+    ("witness_max_frontier", 64, {}),
+    ("mesh", object(), {"checkpoint_path": "/nonexistent/ck", "spill": True}),
+    ("witness_max_frontier", 64, {"checkpoint_path": "/nonexistent/ck", "spill": True}),
 ]
 
 
-UNPORTED_CALLS = [(e, o, v) for e in ("check_device", "check_device_auto") for o, v in UNPORTED]
+UNPORTED_CALLS = [(e, o, v, x) for e in ("check_device", "check_device_auto") for o, v, x in UNPORTED]
 
 
 @pytest.mark.parametrize(
-    "entry,option,value", UNPORTED_CALLS, ids=[f"{e}-{o}" for e, o, _ in UNPORTED_CALLS]
+    "entry,option,value,extra",
+    UNPORTED_CALLS,
+    ids=[f"{e}-{o}" + ("-with-checkpoint-and-spill" if x else "") for e, o, _, x in UNPORTED_CALLS],
 )
-def test_unported_tiers_raise(entry, option, value):
+def test_unported_tiers_raise(entry, option, value, extra):
     hp = prepare(to_port(jax_adversarial(3, batch=2, seed=0)))
     with pytest.raises(NotImplementedError, match=option):
-        getattr(pdev, entry)(hp, device="cpu", **{option: value})
+        getattr(pdev, entry)(hp, device="cpu", **{option: value}, **extra)

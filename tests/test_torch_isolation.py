@@ -11,6 +11,8 @@ CPU fallback.
 """
 
 import ast
+import importlib
+import json
 import os
 import shutil
 import subprocess
@@ -161,19 +163,39 @@ def test_cli_usage_and_parse_errors_exit_64(tmp_path, monkeypatch):
 
 
 def test_cli_unported_tier_exits_64_and_says_so(tmp_path, capsys, monkeypatch):
-    # Caps small enough that the exhaustive phase outgrows its bucket; on
-    # the CPU the device-resident tier is off by default, and the JAX
-    # package would go on in its host-RAM spill, which is not ported.
+    # A tier the port still lacks (the mesh, which no CLI flag reaches yet)
+    # is a 64 whose -stats line says "unported" and names it.
     real = pdev.check_device_auto
-    monkeypatch.setattr(
-        cli, "check_device_auto",
-        lambda hist, **kw: real(hist, beam_width=32, exhaustive_cap=64, **kw),
-    )
+    monkeypatch.setattr(cli, "check_device_auto", lambda hist, **kw: real(hist, mesh=object(), **kw))
     path = _write(tmp_path, adversarial_events(6, batch=2, seed=3, unsatisfiable=True), "h.jsonl")
     rc = cli.main(["check", f"-file={path}", "-device", "cpu", "-stats"])
     assert rc == 64
     line = capsys.readouterr().out.strip().splitlines()[-1]
-    assert '"outcome": "unported"' in line and "spill" in line
+    assert '"outcome": "unported"' in line and "mesh" in line
+
+
+def test_cli_decides_past_the_bucket_through_the_spill_like_jax(tmp_path, capsys, monkeypatch):
+    # Caps small enough that the exhaustive phase outgrows its bucket; on
+    # the CPU the device-resident tier is off by default, so both CLIs go on
+    # in the host-RAM spill and exit 1 (ILLEGAL) with the same statistics.
+    jcli = importlib.import_module("s2_verification_tpu.cli")
+    jdev = importlib.import_module("s2_verification_tpu.checker.device")
+    path = _write(tmp_path, adversarial_events(6, batch=2, seed=3, unsatisfiable=True), "h.jsonl")
+    lines = {}
+    for main, mod, args in (
+        (jcli.main, jdev, ["-backend=device", "-no-viz"]),
+        (cli.main, cli, ["-device", "cpu"]),
+    ):
+        real = mod.check_device_auto
+        with monkeypatch.context() as m:
+            m.setattr(mod, "check_device_auto",
+                      lambda hist, real=real, **kw: real(hist, beam_width=32, exhaustive_cap=64, **kw))
+            rc = main(["check", f"-file={path}", "-stats", *args])
+        lines[main] = (rc, json.loads(capsys.readouterr().out.strip().splitlines()[-1]))
+    (rc_j, line_j), (rc_p, line_p) = lines[jcli.main], lines[cli.main]
+    assert rc_p == rc_j == 1
+    for f in ("outcome", "layers", "max_frontier", "expanded", "auto_closed", "pruned"):
+        assert line_p[f] == line_j[f], f
 
 
 def test_chip_smoke_fails_without_gpu(tmp_path):

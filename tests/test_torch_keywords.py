@@ -49,12 +49,12 @@ SETTINGS = {
     "mesh": (dict(mesh=object()), True),
     "collect_stats": (dict(collect_stats=False), False),
     "profile": (dict(profile=True), False),
-    "checkpoint_path": (dict(checkpoint_path="ck.npz"), True),
+    "checkpoint_path": (dict(checkpoint_path="ck.npz"), False),
     "checkpoint_every": (dict(checkpoint_every=3), False),
     "witness": (dict(witness=False), False),
     "witness_max_frontier": (dict(witness_max_frontier=64), True),
-    # Past the device bucket the JAX engine hands off to its spill.
-    "spill": (dict(spill=True, max_frontier=64, beam_width=2, exhaustive_cap=64, device_rows_cap=0), True),
+    # Past the device bucket both engines hand off to the spill.
+    "spill": (dict(spill=True, max_frontier=64, beam_width=2, exhaustive_cap=64, device_rows_cap=0), False),
     "spill_host_cap": (dict(spill_host_cap=1000), False),
     "exact_pack": (dict(exact_pack=False), False),
     "sort_dedup": (dict(sort_dedup=True), False),
