@@ -96,7 +96,7 @@ on the first failed phase:
    and through a 2^20-row tier into it, first calls only; (c) adversarial k=10 at a
    2^18-row bucket into the spill, OK with a replaying witness and the
    in-core run's final states; (d) the unsatisfiable k=10 (9,864,101
-   rows at its widest layer) through the CLI's defaults — ``check
+   rows at its widest layer) through the device backend's defaults — ``check
    -backend=device -stats``, no cap flags — which must exit 1 with the JAX
    record's statistics (:data:`SPILL_K10_UNSAT_STATS`), its largest fold
    call bit-exact and timed beside its bound; (e) (b) preempted mid-spill
@@ -104,7 +104,24 @@ on the first failed phase:
    ``checkpoint_every=2`` preempted after its first escalation and
    resumed, each to the uninterrupted run's verdict and statistics with
    the snapshot gone; counts pinned from the JAX engine;
-11. the kernel list, one JSON line of kernel measurements, and as the last
+11. the ``check`` command as a user types it: (a) the per-layer witness
+   log on the card — the four small histories of phase 7 through
+   ``check_device(witness_max_frontier=4096)`` on the card and on the CPU,
+   with equal linearizations that replay, and adversarial k=10, batch=100,
+   seed 0 at a 2^20-row bucket with the log kept to 2^20 rows, OK with the
+   JAX engine's statistics and linearization (:data:`K10_WITNESS_STATS`,
+   :data:`K10_WITNESS_SHA256`), first and warm walls, peak memory, and every
+   fold call bit-exact against the plain fold; (b) the native C++ engine,
+   built from ``csrc/s2check.cpp`` into ``_build/``, with the card's
+   verdicts (from phase 7) on phase 7's five collector histories; (c) the default ``auto`` ladder:
+   the headline through ``check -stats`` with no ``-backend`` (exit 0, no
+   fold launch: decided on the native rung) and adversarial k=10 through
+   ``check -time-budget 2 -stats`` (exit 0, the native rung concedes and
+   the card decides), each with its wall; (d) corpus mode over a directory
+   of the four small histories and the unsatisfiable k=6 (exit 1, one line
+   a file); (e) the HTML visualization of an OK and an ILLEGAL history, the
+   ILLEGAL one naming its refused ops; (f) the phase's seconds;
+12. the kernel list, one JSON line of kernel measurements, and as the last
    line ``{"ok": true, "device": {...}}``.
 
 Fold times are per call, from CUDA events: ``call`` with back-to-back
@@ -208,6 +225,13 @@ SPILL_K10_STATS = {"layers": 7, "max_frontier": 410971, "expanded": 606058, "aut
 #: spill (``onchip_r5/host_baseline/unsat_k10_spill.k10u.json``): ILLEGAL
 #: after sweeping the whole space.
 SPILL_K10_UNSAT_STATS = {"layers": 11, "max_frontier": 9864101, "expanded": 53625344}
+#: The JAX engine's ``check_device`` (XLA:CPU) on adversarial k=10,
+#: batch=100, seed 0 with ``beam=False, max_frontier=2**20,
+#: witness_max_frontier=2**20``: the per-layer witness log on for the whole
+#: search; its statistics, and the sha256 of its linearization written as
+#: comma-separated ``History.ops`` indices.
+K10_WITNESS_STATS = {"layers": 7, "max_frontier": 410971, "expanded": 606058, "auto_closed": 0}
+K10_WITNESS_SHA256 = "ad837407208873feb3760587aa3e0dae08c661b0d0efe630b60a12b915addd97"
 #: Peak frontier of adversarial k=12, batch=100, seed 0 (the JAX engine's
 #: record, ``BASELINE.md``: a count of the search, not of the hardware).
 K12_PEAK = 10_850_401
@@ -807,7 +831,7 @@ def run_spill_phase(dev_mod, fold_cuda, xxh3, fb, prepare, adversarial_events, r
     print(f"{tag}: witness replays; final states == the in-core run's ({len(res.final_states)})", flush=True)
     out["launches_by_path"]["adversarial k=10, 2^18-row bucket, spill (c)"] = first["launches"]
 
-    # (d) The unsatisfiable k=10 through the CLI's defaults: the beam phase
+    # (d) The unsatisfiable k=10 through the device backend's defaults: the beam phase
     # concedes, the exhaustive phase grows through the tier to 2^23 rows
     # and hands off to the spill.  Only the largest fold call by steps is
     # kept.
@@ -957,6 +981,187 @@ def run_spill_phase(dev_mod, fold_cuda, xxh3, fb, prepare, adversarial_events, r
         )
         out["launches_by_path"]["adversarial k=10 tier run resumed from its checkpoint (e)"] = resumed_launches
     return out
+
+def lin_sha256(order) -> str:
+    """sha256 of a linearization written as comma-separated op indices."""
+    return hashlib.sha256(",".join(map(str, order)).encode()).hexdigest()
+
+
+def run_check_phase(dev_mod, fold_cuda, fb, prepare, adversarial_events, cli, ev, recheck_calls,
+                    table_events, table_verdicts, headline_events) -> dict:
+    """Phase 11, the ``check`` command; ``table_events`` are phase 7's five
+    histories, ``table_verdicts`` the card's verdicts on them there.
+    Returns the fold's launches on its paths."""
+    from s2_verification_tpu_torch.checker import native
+
+    small_events = {k: v for k, v in table_events.items() if not k.endswith("x2000")}
+    t_phase = time.monotonic()
+    out: dict = {"launches_by_path": {}}
+    card = fb.card()
+
+    def cli_run(events_by_name, args):
+        """``check`` in process over the histories given (one file, or a
+        corpus directory when there are several); returns ``(rc, stdout
+        lines, {file: (result, history)}, wall, fold launches)``."""
+        seen = {}
+        with tempfile.TemporaryDirectory() as tmp:
+            paths = []
+            for name, events in events_by_name.items():
+                paths.append(os.path.join(tmp, f"{name}.jsonl"))
+                with open(paths[-1], "w", encoding="utf-8") as f:
+                    ev.write_history(events, f)
+            target = paths[0] if len(paths) == 1 else tmp
+            buf = io.StringIO()
+            torch.cuda.synchronize()
+            fold_cuda.reset_launches()
+            t0 = time.monotonic()
+            with contextlib.redirect_stdout(buf):
+                rc = cli.main(["check", f"-file={target}", *args],
+                              on_result=lambda p, res, hist: seen.update({os.path.basename(p): (res, hist)}))
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t0
+            launches = fold_cuda.LAUNCHES["fold_lanes"]
+        return rc, buf.getvalue().strip().splitlines(), seen, wall, launches
+
+    # (a) The witness log on the card.
+    table_launches = 0
+    walls = []
+    for name, events in small_events.items():
+        hist = prepare(events)
+        fold_cuda.reset_launches()
+        t0 = time.monotonic()
+        on_card = dev_mod.check_device(hist, witness_max_frontier=4096, collect_stats=True)
+        torch.cuda.synchronize()
+        t1 = time.monotonic()
+        table_launches += fold_cuda.LAUNCHES["fold_lanes"]
+        on_cpu = dev_mod.check_device(hist, witness_max_frontier=4096, device="cpu")
+        t2 = time.monotonic()
+        if (on_card.outcome.value != "ok" or on_card.linearization != on_cpu.linearization
+                or not replay_ok(hist, on_card.linearization or [])):
+            fail(f"witness log (a), {name}: {on_card.outcome.value} on the card, the linearization differs "
+                 "from the CPU run's or does not replay")
+        walls.append(f"{name} {on_card.stats.layers} layers, {on_card.stats.host_syncs} syncs: card "
+                     f"{t1 - t0:.3f} s, CPU {t2 - t1:.3f} s")
+    print(f"witness log (a): the four small histories of phase 7 through check_device(witness_max_frontier=4096): "
+          f"OK, linearizations == the CPU run's and replay; fold launches {table_launches}; "
+          + "; ".join(walls), flush=True)
+    out["launches_by_path"]["phase 7's four small histories, witness log (11a)"] = table_launches
+
+    k10 = prepare(adversarial_events(10, batch=100, seed=0))
+    kw = dict(beam=False, max_frontier=1 << 20, witness_max_frontier=1 << 20, collect_stats=True)
+    runs = []
+    for i in range(3):
+        with contextlib.ExitStack() as stack:
+            calls = stack.enter_context(fb.recording_folds(dev_mod)) if i == 0 else None
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            fold_cuda.reset_launches()
+            syncs0 = dev_mod.SYNCS[0]
+            t0 = time.monotonic()
+            res = dev_mod.check_device(k10, **kw)
+            torch.cuda.synchronize()
+            runs.append(dict(wall=time.monotonic() - t0, peak=torch.cuda.max_memory_allocated(),
+                             launches=fold_cuda.LAUNCHES["fold_lanes"], syncs=dev_mod.SYNCS[0] - syncs0))
+        got = {k: getattr(res.stats, k) for k in K10_WITNESS_STATS}
+        digest = lin_sha256(res.linearization or [])
+        if res.outcome.value != "ok" or got != K10_WITNESS_STATS or digest != K10_WITNESS_SHA256:
+            fail(f"witness log (a), adversarial k=10: {res.outcome.value}, statistics {got} (the JAX engine's "
+                 f"{K10_WITNESS_STATS}), linearization sha256 {digest} (the JAX engine's {K10_WITNESS_SHA256})")
+        if i == 0:
+            if not replay_ok(k10, res.linearization):
+                fail("witness log (a), adversarial k=10: the linearization does not replay")
+            if len(calls) != runs[0]["launches"] or not calls:
+                fail(f"witness log (a): {len(calls)} fold calls recorded, {runs[0]['launches']} launched")
+            recheck_calls(calls, "witness log k=10")
+            del calls
+    print(
+        f"witness log (a): adversarial k=10 batch=100 seed=0, check_device(beam=False, max_frontier=2^20, "
+        f"witness_max_frontier=2^20): OK, statistics == the JAX engine's {json.dumps(got)}, linearization "
+        f"sha256 == the JAX engine's ({K10_WITNESS_SHA256[:16]}...), replays; fold launches "
+        f"{runs[0]['launches']}, host syncs {runs[0]['syncs']}; first call {runs[0]['wall']:.3f} s "
+        f"(peak memory {runs[0]['peak'] / 2**30:.3f} GiB, fold inputs recorded), warm "
+        + ", ".join(f"{r['wall']:.3f} s ({r['peak'] / 2**30:.3f} GiB)" for r in runs[1:])
+        + f"; card {card}",
+        flush=True,
+    )
+    out["launches_by_path"]["adversarial k=10, 2^20-row bucket, witness log to 2^20 rows (11a)"] = runs[0]["launches"]
+
+    # (b) The native engine, built from the port's own source.
+    if not native.native_available():
+        fail("native (b): the native engine is not available")
+    so = native.BUILD["path"]
+    want_dir = os.path.join(os.path.dirname(os.path.abspath(native.__file__)), os.pardir, "_build")
+    if os.path.realpath(os.path.dirname(so)) != os.path.realpath(want_dir):
+        fail(f"native (b): the library {so} is not under s2_verification_tpu_torch/_build")
+    line = []
+    for name, events in table_events.items():
+        hist = prepare(events)
+        t0 = time.monotonic()
+        res_n = native.check_native(hist)
+        wall_n = time.monotonic() - t0
+        if res_n.outcome.value != table_verdicts[name] or not replay_fast(hist, res_n.linearization or []):
+            fail(f"native (b), {name}: native {res_n.outcome.value}, the card's {table_verdicts[name]} "
+                 "(phase 7), or the native witness does not replay")
+        line.append(f"{name} {res_n.outcome.value} in {wall_n:.4f} s ({res_n.steps} steps)")
+    print(f"native (b): built {os.path.relpath(so)} from csrc/s2check.cpp in {native.BUILD['seconds']:.2f} s; "
+          f"verdicts == the card's in phase 7: " + "; ".join(line), flush=True)
+
+    # (c) The default ladder.
+    with tempfile.TemporaryDirectory() as viz_dir:
+        rc, lines, seen, wall, launches = cli_run({"headline": headline_events}, ["-stats", "-out-dir", viz_dir])
+        stats = json.loads(lines[-1]) if lines else {}
+        res, hist = seen.get("headline.jsonl", (None, None))
+        if rc != 0 or launches != 0 or res is None or not replay_fast(hist, res.linearization or []):
+            fail(f"ladder (c), headline: exit {rc}, {launches} fold launches, or no replaying witness")
+        html = os.listdir(viz_dir)
+    print(f"ladder (c): the headline through `check -stats` (no -backend, the HTML written: {html[0]}): exit 0 "
+          f"OK on the native rung, no fold launch, witness replays; wall {wall:.3f} s "
+          f"(the engine's {stats.get('wall_s')} s); card {card}", flush=True)
+    print(f"cli stats: {json.dumps(stats)}", flush=True)
+    k10_events = adversarial_events(10, batch=100, seed=0)
+    rc, lines, seen, wall, launches = cli_run({"adversarial-k10": k10_events},
+                                              ["-time-budget", "2", "-stats", "-no-viz"])
+    stats = json.loads(lines[-1]) if lines else {}
+    res, hist = seen.get("adversarial-k10.jsonl", (None, None))
+    if rc != 0 or launches == 0 or res is None or not replay_ok(hist, res.linearization or []):
+        fail(f"ladder (c), k=10: exit {rc}, {launches} fold launches, or no replaying witness")
+    print(f"ladder (c): adversarial k=10 through `check -time-budget 2 -stats`: the native rung conceded, the "
+          f"card decided: exit 0 OK, witness replays; fold launches {launches}; wall {wall:.3f} s; card {card}",
+          flush=True)
+    print(f"cli stats: {json.dumps(stats)}", flush=True)
+    out["launches_by_path"]["adversarial k=10 through `check -time-budget 2` (11c)"] = launches
+
+    # (d) Corpus mode.
+    k6u = adversarial_events(6, batch=100, seed=0, unsatisfiable=True)
+    rc, lines, _seen, wall, _ = cli_run({**small_events, "k6-unsat": k6u}, ["-no-viz"])
+    verdicts = sorted(line.rsplit(": ", 1)[-1] for line in lines)
+    if rc != 1 or verdicts != ["ILLEGAL", "OK", "OK", "OK", "OK"]:
+        fail(f"corpus (d): exit {rc}, lines {lines}")
+    print(f"corpus (d): five files in one `check -file=<dir>`: exit 1, {len(lines)} lines "
+          f"({', '.join(verdicts)}); wall {wall:.3f} s", flush=True)
+
+    # (e) The visualization.
+    first = next(iter(small_events))
+    for name, events, want_rc in ((first, small_events[first], 0), ("k6-unsat", k6u, 1)):
+        with tempfile.TemporaryDirectory() as viz_dir:
+            rc, _lines, seen, wall, _ = cli_run({name: events}, ["-out-dir", viz_dir])
+            (page,) = os.listdir(viz_dir)
+            with open(os.path.join(viz_dir, page), encoding="utf-8") as f:
+                text = f.read()
+        res, hist = seen[f"{name}.jsonl"]
+        if rc != want_rc or not text:
+            fail(f"viz (e), {name}: exit {rc}, HTML of {len(text)} bytes")
+        note = ""
+        if want_rc == 1:
+            refused = sorted({hist.ops[i].op_id for _p, r in res.refusals for i in r})
+            if not refused or f"<code>{', '.join(map(str, refused))}</code>" not in text:
+                fail(f"viz (e), {name}: the HTML does not name the refused ops {refused}")
+            note = f", names the refused ops {refused}"
+        print(f"viz (e): {name} through `check -out-dir`: exit {rc}, {page} ({len(text)} bytes{note}); "
+              f"wall {wall:.3f} s", flush=True)
+    out["seconds"] = time.monotonic() - t_phase
+    return out
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1117,7 +1322,7 @@ def main() -> int:
             out = io.StringIO()
             with contextlib.redirect_stdout(out):
                 rc = cli.main(
-                    ["check", f"-file={path}", "-backend=device", "-stats", *extra],
+                    ["check", f"-file={path}", "-backend=device", "-no-viz", "-stats", *extra],
                     on_result=lambda _p, res, hist: captured.update(res=res, hist=hist),
                 )
         stats = json.loads(out.getvalue().strip().splitlines()[-1]) if out.getvalue().strip() else {}
@@ -1281,8 +1486,10 @@ def main() -> int:
         )
         return events, time.monotonic() - t0
 
+    table_events, table_verdicts = {}, {}
     for workflow, clients, ops in TABLE_CONFIGS:
         events, collect_s = collect(workflow, clients, ops, 4242)
+        table_events[f"{workflow}-{clients}x{ops}"] = events
         hist = prepare(events)
         syncs0 = dev_mod.SYNCS[0]
         t0 = time.monotonic()
@@ -1291,6 +1498,7 @@ def main() -> int:
         wall = time.monotonic() - t0
         if res.outcome.value != "ok" or not replay_fast(hist, res.linearization or []):
             fail(f"{workflow} {clients}x{ops}: device {res.outcome}, or the witness does not replay")
+        table_verdicts[f"{workflow}-{clients}x{ops}"] = res.outcome.value
         line = (
             f"collector {workflow} {clients}x{ops} seed 4242: collected in {collect_s:.3f} s, "
             f"{len(events)} events, {len(hist.ops)} checked ops; device OK in {wall:.3f} s, "
@@ -1562,6 +1770,12 @@ def main() -> int:
     print(f"phase 10 (spill and checkpoints): {time.monotonic() - t_phase:.1f} s", flush=True)
     kernels[0]["launches_by_path"].update(spill["launches_by_path"])
     kernels[0]["spill_call"] = spill["spill_call"]
+
+    # -- 11. the check command ---------------------------------------------
+    phase11 = run_check_phase(dev_mod, fold_cuda, fb, prepare, adversarial_events, cli, ev, recheck_calls,
+                              table_events, table_verdicts, events)
+    print(f"phase 11 (the check command): {phase11['seconds']:.1f} s", flush=True)
+    kernels[0]["launches_by_path"].update(phase11["launches_by_path"])
 
     print(f"kernels: {', '.join(k['name'] for k in kernels)}", flush=True)
     print(f"total {time.monotonic() - t_start:.1f} s", flush=True)

@@ -53,12 +53,17 @@ layers.  With ``checkpoint_path`` the search snapshots its frontier (or the
 spill its host matrix) in the JAX engine's file format
 (:mod:`.checkpoint`) and resumes from a matching snapshot.
 
+With ``witness_max_frontier > 0`` the search keeps the JAX engine's
+per-layer witness log while the frontier bucket fits that cap: every
+committed layer records each child row's parent row and ``op*2 + branch``,
+a forced stretch stops after one op, and an OK walks
+the log back from the accept row (:func:`_witness_linearization`).
+
 Soundness under capacity pressure mirrors the JAX engine: an OK is always
 conclusive; a dead end after beam pruning is UNKNOWN and
-:func:`check_device_auto` escalates to the exhaustive phase.  The tiers of
-the JAX engine that are not ported yet (the per-layer witness log, the mesh)
-raise ``NotImplementedError`` naming the tier, never answer UNKNOWN in its
-place.
+:func:`check_device_auto` escalates to the exhaustive phase.  The one tier
+of the JAX engine that is not ported yet, the mesh, raises
+``NotImplementedError`` naming itself, never answers UNKNOWN in its place.
 """
 
 from __future__ import annotations
@@ -88,6 +93,7 @@ from ..models.stream import StreamState, step_set
 from ..ops.fold_cuda import fold_lanes
 from ..ops.step_kernel import DeviceOps, DeviceState, join_u64, step_kernel
 from ..ops.xxh3 import shr
+from ..utils.hashing import fold_record_hashes
 from .entries import History
 from .checkpoint import (
     Checkpoint,
@@ -208,6 +214,11 @@ class RunOut(NamedTuple):
     want: int
     #: valid rows of ``frontier``
     live: int
+    #: with ``log``: the witness log of each committed layer but an
+    #: accept, as host arrays ``(rows, parents, opbrs)`` (the rows that hold
+    #: a child, each child's parent row in the layer before and its
+    #: ``op*2 + branch``); else None
+    wlog: list | None = None
 
 
 STOP_RUNNING, STOP_ACCEPT, STOP_EMPTY, STOP_CAPACITY = 0, 1, 2, 3
@@ -710,12 +721,16 @@ def _expand_layer(
     allow_prune: bool,
     exact_pack: bool = False,
     sort_dedup: bool = False,
+    log: bool = False,
 ):
     """Expand + dedup + compact one layer.  Returns ``(children, pruned,
-    n_unique, expanded)`` with the last three as device scalars.
+    n_unique, expanded, wlog)`` with the middle three as device scalars.
 
     ``sort_dedup`` (with ``exact_pack``) dedups by :func:`_dedup_sort`, a
-    perfect dedup, in place of the probe table."""
+    perfect dedup, in place of the probe table.  With ``log``, ``wlog`` is
+    the layer's witness log ``(parent, opbr)``: each child row's parent row
+    and ``op*2 + branch`` (valid on the children's live prefix); else
+    None."""
     f, c = fr.counts.shape
     e2 = 2 * f * c
     dev = fr.counts.device
@@ -786,7 +801,8 @@ def _expand_layer(
         tok=place(k2),
         valid=valid_next,
     )
-    return children, pruned, n_unique, cand.sum()
+    wlog = (parent_next, place(op2 * 2 + (torch.arange(e2, device=dev) >= e2 // 2).long())) if log else None
+    return children, pruned, n_unique, cand.sum(), wlog
 
 
 def _compact_children(cb: list[torch.Tensor], cursor: int):
@@ -825,9 +841,10 @@ def _expand_layer_chunked(tables: SearchTables, fr: Frontier, *, chunk_rows: int
     One host fetch per chunk (its unique count, which steers the append),
     one for the chunks holding a valid row (the others are skipped: they
     would append nothing), and one per compaction.  Returns ``(children,
-    overflow, n_unique, expanded)``; ``overflow`` is a host bool, and on
-    overflow ``n_unique`` is at least the rows appended, so the jump of
-    :func:`check_device` to a fitting bucket keeps working.
+    overflow, n_unique, expanded, wlog)``; ``overflow`` is a host bool, and
+    on overflow ``n_unique`` is at least the rows appended, so the jump of
+    :func:`check_device` to a fitting bucket keeps working; ``wlog`` is the
+    layer's witness log ``(parent, opbr)`` as in :func:`_expand_layer`.
     """
     f, c = fr.counts.shape
     if chunk_rows <= 0 or chunk_rows >= f or f % chunk_rows:
@@ -884,7 +901,7 @@ def _expand_layer_chunked(tables: SearchTables, fr: Frontier, *, chunk_rows: int
     children = Frontier(counts=counts_next, tail=tail[:f], hash=h[:f], tok=tok[:f], valid=valid_next)
     if overflow:
         n_unique = n_unique.clamp(min=appended)
-    return children, overflow, n_unique, expanded
+    return children, overflow, n_unique, expanded, (parent[:f], opbr[:f])
 
 
 # ---------------------------------------------------------------------------
@@ -948,6 +965,7 @@ def run_search(
     spec_width: int = 0,
     sort_dedup: bool = False,
     chunk_rows: int = 0,
+    log: bool = False,
 ) -> RunOut:
     """Run the frontier search for at most ``max_layers`` layers or to a
     stop (the JAX engine's compiled ``run_search``, as a host loop).
@@ -971,7 +989,20 @@ def run_search(
     valid row, and ``layers`` counts the dive's depth.  A dive that finds
     nothing is discarded wholesale (``spec_rollbacks``) and the exact loop
     runs from the untouched entry frontier.
+
+    ``log=True`` keeps the witness log: a forced stretch stops after one
+    op, so that each committed layer but an accept records its children's
+    parent rows and ``op*2 + branch``, returned on ``RunOut.wlog`` as host
+    arrays.  The expansion layers' log stays on the device, a copy of each
+    one's live prefix, until one transfer at the end of the call; a forced
+    step's one entry is known on the host.  Incompatible with the dive, as
+    in the JAX engine.
     """
+    if spec_depth and log:
+        raise ValueError("speculation drops the witness log: pass spec_depth=0 with log=True")
+    #: per committed layer: a device pair (parents, opbrs) of its live
+    #: prefix, or a host triple for a forced step or an empty layer
+    wlog: list = []
     fr = frontier
     stop = STOP_RUNNING
     layers = accept_idx = auto_closed = expanded = eager_closed = pin_killed = want = 0
@@ -1010,7 +1041,8 @@ def run_search(
         live_idx = _first_true(closed.valid)
         base_row = closed.counts[live_idx]
         nxt1, cand1 = _next_and_cands(tables, base_row)
-        op1 = nxt1[_first_true(cand1)]
+        chain1 = _first_true(cand1)
+        op1 = nxt1[chain1]
         n_live = closed.valid.sum()
         fastable = (n_live == 1) & (cand1.sum() == 1) & ~tables.is_indef[op1]
         (
@@ -1023,6 +1055,7 @@ def run_search(
             eager_sum,
             pin_sum,
             base_ops,
+            op1_h,
         ) = _fetch(
             acc_row.any(),
             fastable,
@@ -1033,33 +1066,45 @@ def run_search(
             eager_n.sum(),
             pin_dead.sum(),
             base_row.sum(),
+            op1,
         )
         pruned = overflow = False
         deep_row = None
         children_are_diag = False
+        layer_log = None
         if accept_any:
             children, n_unique, exp_n, n_steps, children_live = closed, 0, 0, 1, n_live_h
         elif is_fast:
-            children, n_unique, n_steps, deep_row, row_ops = _fast_multi(
-                tables, max_layers - layers, closed, live_idx_h
+            children, n_unique, n_steps, fast_row, row_ops = _fast_multi(
+                tables, 1 if log else max_layers - layers, closed, live_idx_h
             )
             exp_n, children_live, children_are_diag = n_steps, n_live_h, True
+            if log:
+                # One op, one log row; the deepest row stays the pre-step
+                # one, as the JAX engine's one-op fast layer keeps it.
+                layer_log = tuple(np.full(n_unique, v, np.int64) for v in (live_idx_h, live_idx_h, 2 * op1_h))
+            else:
+                deep_row = fast_row
         else:
             if chunk_rows and chunk_rows < fr.capacity:
-                children, overflow, n_unique_t, exp_t = _expand_layer_chunked(
+                children, overflow, n_unique_t, exp_t, layer_wlog = _expand_layer_chunked(
                     tables, closed, chunk_rows=chunk_rows
                 )
                 pruned_t = torch.zeros((), dtype=torch.bool, device=closed.valid.device)
             else:
-                children, pruned_t, n_unique_t, exp_t = _expand_layer(
+                children, pruned_t, n_unique_t, exp_t, layer_wlog = _expand_layer(
                     tables, closed, allow_prune=allow_prune, exact_pack=exact_pack,
-                    sort_dedup=sort_dedup,
+                    sort_dedup=sort_dedup, log=log,
                 )
             pruned, n_unique, exp_n, children_live = _fetch(
                 pruned_t, n_unique_t, exp_t, children.valid.sum()
             )
             pruned = bool(pruned)
             n_steps = 1
+            if log:
+                # The children are a dense prefix: keep an int32 copy of the
+                # log's prefix (not a view, which would pin the whole layer).
+                layer_log = tuple(x[:children_live].to(torch.int32) for x in layer_wlog)
         empty = not accept_any and n_unique == 0
         need_cap = (not allow_prune) and (pruned or overflow)
         if accept_any:
@@ -1077,6 +1122,8 @@ def run_search(
         # A capacity stop abandons this layer (the caller replays it), so
         # only committed layers count.
         if not need_cap:
+            if log and not accept_any:
+                wlog.append(layer_log)
             layers += n_steps
             max_live = max(max_live, children_live)
             expanded += exp_n
@@ -1109,7 +1156,28 @@ def run_search(
         deep_ops=deep_ops,
         want=want,
         live=live,
+        wlog=_fetch_log(wlog) if log else None,
     )
+
+
+def _fetch_log(wlog: list) -> list[tuple[np.ndarray, np.ndarray, np.ndarray]]:
+    """The witness log of one :func:`run_search` call as host triples
+    ``(rows, parents, opbrs)``: the device pieces come over in one transfer
+    (one counted synchronisation, none when every layer was a forced
+    step)."""
+    dev = [x for entry in wlog if isinstance(entry[0], torch.Tensor) for x in entry]
+    if dev:
+        SYNCS[0] += 1
+        flat = torch.cat(dev).cpu().numpy().astype(np.int64)
+    out, at = [], 0
+    for entry in wlog:
+        if isinstance(entry[0], torch.Tensor):
+            n = int(entry[0].shape[0])
+            out.append((np.arange(n), flat[at:at + n], flat[at + n:at + 2 * n]))
+            at += 2 * n
+        else:
+            out.append(entry)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1199,13 +1267,16 @@ def _regrow_device(fr: Frontier, capacity: int) -> Frontier:
 
 _UNPORTED = {
     "mesh": "multi-device sharding",
-    "witness_max_frontier": "per-layer witness log",
 }
 
 _STOP_NAMES = ("RUNNING", "ACCEPT", "EMPTY", "CAPACITY")
 
 #: spill slab ranges cut ahead of the one on the device (see _spill_search)
 _SPILL_AHEAD = 2
+
+#: layer budget of one search segment while the witness log is on: the log
+#: of a segment comes to the host in one transfer at its end
+_WITNESS_CHUNK = 512
 
 #: layer budget of one search segment while the frontier is above the
 #: expansion bucket: short, so that :func:`check_device` can downsize soon
@@ -1643,9 +1714,19 @@ def check_device(
     :class:`.checkpoint.CheckpointError`.  A conclusive verdict removes the
     snapshot.
 
-    ``witness=True``: an OK carries a witness linearization from the
-    counts-bounded host re-search (:func:`_recover_witness_bounded`);
-    ``witness=False`` skips it (``linearization=None``).  Rows dedup on the
+    ``witness=True``: an OK carries a witness linearization, by default
+    from the counts-bounded host re-search (:func:`_recover_witness_bounded`)
+    run once at the accept; ``witness=False`` skips it
+    (``linearization=None``).  ``witness_max_frontier > 0`` keeps the JAX
+    engine's per-layer witness log instead while the frontier bucket is at
+    most that many rows: a forced step takes one op a layer, segments are
+    at most :data:`_WITNESS_CHUNK` layers, the dive stands down, and an OK
+    walks the log back from the accept row (:func:`_witness_linearization`).
+    Each segment's log comes to the host in one transfer and is kept there
+    sparse, one ``(rows, parents, opbrs)`` triple a layer; on the device a
+    segment holds a copy of each layer's live rows (8 bytes a row), not the
+    JAX engine's ``[512, F]`` pair.  A bucket past the cap, or a resumed
+    checkpoint, drops the log and the re-search takes over.  Rows dedup on the
     exact packed counts key whenever :func:`can_exact_pack` holds, else on
     the Zobrist key; ``exact_pack`` forces it on or off (``True`` on a
     history that cannot pack raises ``ValueError``).  ``sort_dedup=True``
@@ -1664,9 +1745,8 @@ def check_device(
     ``speculate_depth > 0`` runs one speculative dive per search segment
     (:func:`_spec_dive`): the best ``speculate_width`` rows expand up to
     ``speculate_depth`` layers, accepting conclusively if a dive row
-    accepts and rolling back wholesale otherwise.  (The JAX engine stands
-    the dive down while its per-layer witness log is live; the port has no
-    such log, so the dive always runs.)
+    accepts and rolling back wholesale otherwise.  It stands down while the
+    witness log is on, as in the JAX engine.
 
     ``profile=True`` (implies ``collect_stats``) appends one entry per
     search segment to ``stats.timeline``: cumulative layers, the segment's
@@ -1676,10 +1756,7 @@ def check_device(
     from scalars the search already fetched.
     """
     del state_slots, pallas_fold
-    _refuse_unported(
-        mesh=mesh,
-        witness_max_frontier=witness_max_frontier,
-    )
+    _refuse_unported(mesh=mesh)
     dev = resolve_device(device)
     collect_stats = collect_stats or profile
     syncs0 = SYNCS[0]
@@ -1717,6 +1794,10 @@ def check_device(
     f = round_pow2(max(min(start_frontier, f_cap), len(enc.init_states)), 2)
     frontier = res = None
     fingerprint = None
+    # Whether the witness log is on; dropped for good past its cap or on a
+    # resume, after which an OK falls back to the re-search.
+    log_on = witness
+    wlogs: list[tuple[np.ndarray, np.ndarray, np.ndarray]] = []
 
     def spill_from(seed, deep_counts) -> CheckResult:
         return _spill_search(
@@ -1768,6 +1849,8 @@ def check_device(
             for k, v in ck.stats.items():
                 setattr(stats, k, v)
             stats.layers = ck.layers_done
+            # The log of the layers before the snapshot is not in it.
+            log_on = log_on and stats.layers == 0
             frontier = frontier_from_arrays(vars(ck), dev)
 
     def snapshot(fr: Frontier) -> None:
@@ -1791,9 +1874,16 @@ def check_device(
     )
     while res is None:
         allow_prune = beam and f >= f_cap
+        if log_on and f > witness_max_frontier:
+            if witness_max_frontier > 0:
+                log.debug("witness log dropped: frontier %d exceeds witness cap %d", f, witness_max_frontier)
+            log_on = False
+            wlogs = []
         layers_budget = cap_layers - stats.layers
         if checkpoint_path is not None and checkpoint_every > 0:
             layers_budget = min(layers_budget, checkpoint_every)
+        if log_on:
+            layers_budget = min(layers_budget, _WITNESS_CHUNK)
         if f > f_cap:
             layers_budget = min(layers_budget, _BIG_TIER_CHUNK)
         out = run_search(
@@ -1802,10 +1892,11 @@ def check_device(
             layers_budget,
             allow_prune=allow_prune,
             exact_pack=xp,
-            spec_depth=int(speculate_depth),
+            spec_depth=0 if log_on else int(speculate_depth),
             spec_width=int(speculate_width) if speculate_depth else 0,
             sort_dedup=sd,
             chunk_rows=f_cap if big_cap > f_cap and f > f_cap else 0,
+            log=log_on,
         )
         code = out.stop_code
         log.debug(
@@ -1825,8 +1916,10 @@ def check_device(
         stats.spec_layers += out.spec_layers
         stats.spec_accepts += out.spec_accepts
         stats.spec_rollbacks += out.spec_rollbacks
-        if speculate_depth:
+        if speculate_depth and not log_on:
             stats.spec_launches += 1
+        if log_on:
+            wlogs.extend(out.wlog)
         if profile:
             stats.timeline.append(
                 {
@@ -1851,13 +1944,14 @@ def check_device(
         if allow_prune:
             stats.pruned = stats.pruned or out.pruned_ever
         if code == STOP_ACCEPT:
-            lin = (
-                _recover_witness_bounded(
-                    enc, history, out.frontier.counts[out.accept_idx].cpu().numpy()
-                )
-                if witness
-                else None
-            )
+            lin = None
+            if log_on:
+                pt = analyze_encoded(enc) if prune else None
+                lin = _witness_linearization(enc, wlogs, out.accept_idx, pt=pt)
+            if lin is None and witness:
+                # No log (off, dropped or inconsistent): re-search below the
+                # accept counts.
+                lin = _recover_witness_bounded(enc, history, out.frontier.counts[out.accept_idx].cpu().numpy())
             res = CheckResult(
                 CheckOutcome.OK,
                 linearization=lin,
@@ -1967,10 +2061,7 @@ def check_device_auto(
     A conclusive verdict removes the marker; an UNKNOWN keeps it beside the
     exhaustive snapshot."""
     del state_slots
-    _refuse_unported(
-        mesh=mesh,
-        witness_max_frontier=witness_max_frontier,
-    )
+    _refuse_unported(mesh=mesh)
     dev = resolve_device(device)
     if device_rows_cap is None:
         device_rows_cap = default_device_rows_cap(dev, spill)
@@ -1986,6 +2077,7 @@ def check_device_auto(
         profile=profile,
         checkpoint_every=checkpoint_every,
         witness=witness,
+        witness_max_frontier=witness_max_frontier,
         progress=progress,
         prune=prune,
         speculate_depth=speculate_depth,
@@ -2253,16 +2345,42 @@ def _device_refusals(
     return _refusal_diagnostics(enc, history, rows, max_signatures)
 
 
-def _host_close(enc: EncodedHistory, counts, tail: int, tok: int) -> None:
+def _host_close(enc: EncodedHistory, counts, tail: int, tok: int, h: int | None = None, pt=None) -> list[int]:
     """Host mirror of :func:`_auto_close` for one row: advance ``counts``
-    past every dead candidate (all at once per sweep) until a fixpoint."""
+    past every dead candidate (all at once per sweep) until a fixpoint, and
+    return the encoded ops closed, in the order closed.
+
+    ``pt`` (a :class:`.prune.PruneTables`) mirrors the eager commit of a
+    pruned search: inert candidates close, and successful filters close
+    where they pass the row's ``tail`` and, when ``h`` (the 64-bit stream
+    hash) is given, its hash.  The witness replay of a ``prune=True``
+    search needs it: its logged path leaves the eagerly committed ops
+    out."""
     is_indef = op_class_masks(enc)["is_indef"]
     settable = {int(enc.set_token[j]) for j in range(enc.num_ops) if enc.has_set_token[j]}
+    closed: list[int] = []
     while True:
         nxt, cand = _host_next_cands(enc, counts)
         dead = []
         for c in np.flatnonzero(cand):
             j = nxt[c]
+            if pt is not None:
+                if pt.inert[j]:
+                    dead.append(c)
+                    continue
+                if (
+                    pt.filter_succ[j]
+                    and (tail & _M32) == int(enc.out_tail[j])
+                    and (
+                        not enc.out_has_hash[j]
+                        or (
+                            h is not None
+                            and (h & _M64) == (int(enc.out_hash_hi[j]) << 32) | int(enc.out_hash_lo[j])
+                        )
+                    )
+                ):
+                    dead.append(c)
+                    continue
             if not is_indef[j]:
                 continue
             if enc.has_match[j] and tail > int(enc.match_seq[j]):
@@ -2274,9 +2392,73 @@ def _host_close(enc: EncodedHistory, counts, tail: int, tok: int) -> None:
             ):
                 dead.append(c)
         if not dead:
-            return
+            return closed
+        for c in dead:
+            closed.append(int(nxt[c]))
         for c in dead:
             counts[c] += 1
+
+
+def _witness_linearization(enc: EncodedHistory, wlogs, accept_idx: int, pt=None) -> list[int] | None:
+    """A linearization from the witness log (the JAX engine's
+    ``_witness_linearization``).
+
+    Walk the per-layer ``(rows, parents, opbrs)`` log back from the accept
+    row to an initial row, then replay forwards, re-running the host
+    auto-close (:func:`_host_close`, with the prune tables ``pt`` of a
+    pruned search) between the logged steps so that closed ops land where
+    the search closed them, and finish with the accept configuration's
+    remaining ops in call order (:func:`_accept_remaining`).  Returns
+    ``History.ops`` indices, or None (with a warning; the caller then
+    re-searches) if the log does not hold together.
+    """
+    path: list[int] = []  # opbr per logged layer, first to last
+    r = accept_idx
+    for rows, parents, opbrs in reversed(wlogs):
+        i = np.searchsorted(rows, r)
+        if i >= len(rows) or rows[i] != r:
+            log.warning("witness log inconsistent at row %d; omitting witness", r)
+            return None
+        path.append(int(opbrs[i]))
+        r = int(parents[i])
+    path.reverse()
+
+    states = sorted(intern_state(enc, s) for s in enc.init_states)
+    if r >= len(states):
+        log.warning("witness walk ended at invalid init row %d", r)
+        return None
+    tail, hi, lo, tok = states[r]
+    h = (hi << 32) | lo
+    counts = np.array(enc.chain_start, np.int64)
+    order: list[int] = []
+
+    def apply_effect(j: int) -> None:
+        nonlocal tail, h, tok
+        if enc.op_type[j] == 0 and not (enc.out_failure[j] and enc.out_definite[j]):
+            row, ln = int(enc.rh_row[j]), int(enc.rh_len[j])
+            h = fold_record_hashes(h, [(int(enc.rh_hi[row, i]) << 32) | int(enc.rh_lo[row, i]) for i in range(ln)])
+            tail = (tail + int(enc.num_records[j])) & _M32
+            if enc.has_set_token[j]:
+                tok = int(enc.set_token[j])
+
+    for opbr in path:
+        j, br = opbr // 2, opbr % 2
+        order.extend(_host_close(enc, counts, tail, tok, h=h, pt=pt))
+        nxt, cand = _host_next_cands(enc, counts)
+        c = int(enc.chain_of[j])
+        if not cand[c] or int(nxt[c]) != j:
+            log.warning("witness replay diverged at op %d; omitting witness", j)
+            return None
+        counts[c] += 1
+        order.append(j)
+        if br == 0:
+            apply_effect(j)
+    order.extend(_host_close(enc, counts, tail, tok, h=h, pt=pt))
+    remaining = _accept_remaining(enc, counts)
+    if remaining is None:
+        return None
+    ki = enc.keep_index()
+    return list(enc.forced_prefix) + [ki[j] for j in order + remaining]
 
 
 def _host_row_refusals(

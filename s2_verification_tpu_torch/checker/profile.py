@@ -1,7 +1,7 @@
 """The search-shape profile of one decided history (the JAX package's
 ``service/scheduler.py::job_profile``; the serving package itself is not
-ported, and no port engine attaches per-shard or native phase records, so
-those keys never appear).  The CLI's ``-profile OUT.json`` writes it."""
+ported, and no port engine attaches per-shard records, so that key never
+appears).  The CLI's ``-profile OUT.json`` writes it."""
 
 from __future__ import annotations
 
@@ -28,8 +28,9 @@ def accel_counters(stats) -> dict:
 
 def job_profile(res: CheckResult) -> dict:
     """Generic result counters, plus the search statistics (and the
-    per-segment timeline of a ``profile=True`` run) where the deciding
-    engine attached them."""
+    per-layer or per-segment timeline of a ``profile=True`` run) where the
+    frontier or device search attached them, and the native engine's phase
+    timings (``phases``) where it decided."""
     out: dict = {"steps": res.steps, "cache_hits": res.cache_hits}
     st = getattr(res, "stats", None)
     if st is not None:
@@ -46,4 +47,7 @@ def job_profile(res: CheckResult) -> dict:
         # Acceleration counters only when the knobs actually fired: a
         # prune-off job's profile stays as it was.
         out.update(accel_counters(st))
+    phases = getattr(res, "profile", None)
+    if isinstance(phases, dict):
+        out["phases"] = phases
     return out

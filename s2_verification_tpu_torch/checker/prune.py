@@ -231,7 +231,7 @@ def order_mask(history) -> np.ndarray:
 
 
 # ---------------------------------------------------------------------------
-# Host plan (the host frontier search; no consumer in the port yet)
+# Host plan (check_frontier)
 # ---------------------------------------------------------------------------
 
 

@@ -1,6 +1,6 @@
-"""Search statistics shared by the port's engines (JAX package:
-``checker/frontier.py::FrontierStats``; the host frontier engine itself is
-not ported)."""
+"""Search statistics shared by the port's engines, the device search and
+the host frontier engine (JAX package: ``checker/frontier.py::FrontierStats``,
+the class both of its engines share)."""
 
 from __future__ import annotations
 
@@ -18,8 +18,9 @@ class FrontierStats:
     expanded: int = 0
     pruned: bool = False
     #: verdict-exact commutativity-prune counters (``prune=True`` runs; see
-    #: checker/prune.py).  ``prune_ranked`` counts the host frontier
-    #: engine's rank-gate drops; that engine is not ported, so it stays 0
+    #: checker/prune.py).  ``prune_ranked`` counts the rank-gate drops of
+    #: the host frontier engine (checker/frontier.py); the device search
+    #: leaves it 0
     prune_commits: int = 0
     prune_dead: int = 0
     prune_ranked: int = 0

@@ -7,48 +7,76 @@ S2 (``collector/``), with the JAX package's flags and defaults, writes
 usage error or an unknown ``--campaign``).
 
 ``check`` decides one JSONL history (the reference collector's format,
-utils/events.py) and exits with the verdict, as the JAX package's CLI does:
+utils/events.py), or a corpus of them, and exits with the verdict, as the
+JAX package's CLI does:
 
     0  linearizable (OK) — the witness linearization is logged
     1  not linearizable (ILLEGAL) — the refusal reports are logged
     2  inconclusive (UNKNOWN)
-    64 usage or parse error; also: no CUDA device for ``-device cuda``, a
-       ``-checkpoint`` file that cannot resume this search, or a search tier
-       that this port does not have yet (with ``-stats`` the JSON line then
-       says ``"outcome": "unported"`` and names the tier)
+    64 usage or parse error; also: no CUDA device where the device search
+       runs on ``-device cuda``, ``-backend=native`` without a buildable
+       native engine, a ``-checkpoint`` file that cannot resume this
+       search, or a search tier that this port does not have yet (with
+       ``-stats`` the JSON line then says ``"outcome": "unported"`` and
+       names the tier)
 
-Backends: ``device`` (default) runs the GPU frontier search
-(checker/device.py::check_device_auto) on ``-device`` (``cuda`` by default;
-``cpu`` runs the same search with the plain PyTorch fold); ``oracle`` runs
-the CPU Wing–Gong reference (checker/oracle.py), bounded by
-``-time-budget``.  The device search ignores ``-time-budget``, as in the
-JAX package.  ``-device-rows N`` caps the device-resident frontier of the
-device search's exhaustive phase (default 2^23 on the card, 0 on the CPU:
-past its 2^20-row bucket the frontier grows on the device up to N rows,
-expanded in chunks; past N it spills to host RAM and streams through the
-device layer by layer).  ``-checkpoint PATH`` snapshots the device search
-(``PATH.beam`` for its beam phase, ``PATH`` and ``PATH.spill.npz`` for the
-exhaustive phase, in the JAX package's format) and resumes a matching
-snapshot; the oracle ignores it.
-``--prune`` and ``--speculate-depth K`` turn on the device
-search's verdict-exact prunes and speculative dive (the oracle ignores
-both); ``-profile OUT.json`` writes the search-shape profile
-(checker/profile.py).  There is no HTML visualization yet.
+Backends, the JAX package's:
+
+- ``oracle``   — the Python Wing–Gong search (checker/oracle.py);
+- ``native``   — the same search in C++ (``csrc/s2check.cpp``, built at
+                 first use; checker/native.py);
+- ``frontier`` — the host BFS frontier engine (checker/frontier.py);
+- ``device``   — the GPU frontier search (checker/device.py's
+                 ``check_device_auto``) on ``-device`` (``cuda`` by
+                 default; ``cpu`` runs it with the plain PyTorch fold);
+- ``auto`` (the default) — the native engine (the Python oracle when it
+                 cannot be built) within a CPU budget of ``-time-budget``
+                 seconds, 10 when unset; when that concedes, the device
+                 search; and when the device search concedes too with no
+                 ``-time-budget`` set, an unbounded CPU run.  ``-time-budget
+                 0`` runs the CPU engine to completion and never starts the
+                 device search.  The device rung never gives way to the CPU
+                 for want of a card: without one it exits 64.
+
+``-time-budget`` bounds the CPU engines (0 or unset: unbounded, except
+under ``auto``); the device search ignores it.  ``-device-rows N`` caps the
+device-resident frontier of the device search's exhaustive phase (default
+2^23 on the card, 0 on the CPU: past its 2^20-row bucket the frontier grows
+on the device up to N rows, expanded in chunks; past N it spills to host
+RAM and streams through the device layer by layer).  ``-checkpoint PATH``
+snapshots the device search (``PATH.beam`` for its beam phase, ``PATH`` and
+``PATH.spill.npz`` for the exhaustive phase, in the JAX package's format)
+and resumes a matching snapshot.  ``--prune`` turns on the verdict-exact
+prunes (device, frontier and native engines) and ``--speculate-depth K``
+the device search's speculative dive; ``-profile OUT.json`` writes the
+search-shape profile (checker/profile.py).  ``-checkpoint`` and
+``-device-rows`` warn where no device search runs.
+
+``-file`` naming a directory or a glob checks every ``*.jsonl`` it holds in
+one process, prints one ``<path>: OK|ILLEGAL|UNKNOWN|ERROR`` line per file
+and exits with the worst verdict (ILLEGAL, then an unreadable file, then
+UNKNOWN); ``-checkpoint`` and ``-profile`` are ignored there.  Each check
+writes an HTML visualization to ``-out-dir`` (``./porcupine-outputs``) as
+``<base>-<unique>.html`` (viz.py), naming the ops refused at the deepest
+configuration (checker/diagnostics.py); ``-no-viz`` skips it.
 """
 
 from __future__ import annotations
 
 import argparse
+import glob
 import json
 import logging
 import os
 import sys
+import tempfile
 import time
 
 from . import __version__
 from .checker.checkpoint import CheckpointError
 from .checker.device import DeviceUnavailable, check_device_auto
 from .checker.entries import History, prepare
+from .checker.native import NativeUnavailable, check_native
 from .checker.oracle import CheckOutcome, CheckResult, check
 from .checker.profile import accel_counters, job_profile
 from .collector.collect import CollectConfig, collect_to_file
@@ -75,35 +103,165 @@ def _read_events(path: str) -> list[ev.LabeledEvent]:
     return ev.read_history(path)
 
 
-def _run_backend(args: argparse.Namespace, hist: History) -> CheckResult:
-    if args.backend == "oracle":
-        if args.checkpoint is not None:
-            log.warning(
-                "-checkpoint only applies to the device search; the %s backend will not snapshot",
-                args.backend,
-            )
-        if args.device_rows is not None:
-            log.warning(
-                "-device-rows only applies to the device search; the %s backend ignores it",
-                args.backend,
-            )
-        budget = args.time_budget
-        return check(hist, time_budget_s=None if budget is None or budget <= 0 else budget)
-    dev_kw = {} if args.device_rows is None else {"device_rows_cap": args.device_rows}
-    return check_device_auto(
-        hist,
-        collect_stats=args.stats,
-        device=args.device,
-        checkpoint_path=args.checkpoint,
-        profile=bool(args.profile),
-        prune=args.prune,
-        speculate_depth=args.speculate_depth,
-        **dev_kw,
+def _cpu_check(hist: History, budget: float | None, profile: bool = False, prune: bool = False) -> CheckResult:
+    """Native engine when buildable, Python oracle otherwise."""
+    try:
+        return check_native(hist, time_budget_s=budget, profile=profile, prune=prune)
+    except NativeUnavailable as e:
+        log.debug("native checker unavailable (%s); using the Python oracle", e)
+        return check(hist, time_budget_s=budget)
+
+
+def _cpu(hist: History, budget: float | None, profile: bool, prune: bool = False) -> CheckResult:
+    # Extra keywords only when asked: test doubles for _cpu_check keep the
+    # plain (hist, budget) signature.
+    kw = {}
+    if profile:
+        kw["profile"] = True
+    if prune:
+        kw["prune"] = True
+    return _cpu_check(hist, budget, **kw)
+
+
+def _run_backend(
+    backend: str,
+    hist: History,
+    time_budget_s: float | None,
+    checkpoint: str | None = None,
+    device_rows: int | None = None,
+    collect_stats: bool = False,
+    profile: bool = False,
+    prune: bool = False,
+    speculate_depth: int = 0,
+    device: str = "cuda",
+) -> CheckResult:
+    # Budget 0 = run to completion, the reference's unbounded default
+    # (CheckEventsVerbose timeout 0, main.go:606).
+    unbounded = time_budget_s is not None and time_budget_s <= 0
+    if unbounded:
+        time_budget_s = None
+    device_only = backend in ("device", "auto") and not (backend == "auto" and unbounded)
+    where = f"{backend} (unbounded CPU)" if backend == "auto" else backend
+    if checkpoint is not None and not device_only:
+        log.warning("-checkpoint only applies to the device search; the %s backend will not snapshot", where)
+    if device_rows is not None and not device_only:
+        log.warning("-device-rows only applies to the device search; the %s backend ignores it", where)
+    if backend == "oracle":
+        return check(hist, time_budget_s=time_budget_s)
+    if backend == "native":
+        return check_native(hist, time_budget_s=time_budget_s, profile=profile, prune=prune)
+    if backend == "frontier":
+        from .checker.frontier import check_frontier_auto
+
+        return check_frontier_auto(hist, collect_stats=collect_stats, profile=profile, prune=prune)
+    dev_kw = {} if device_rows is None else {"device_rows_cap": device_rows}
+    dev_kw.update(
+        collect_stats=collect_stats,
+        device=device,
+        checkpoint_path=checkpoint,
+        profile=profile,
+        prune=prune,
+        speculate_depth=int(speculate_depth),
     )
+    if backend == "device":
+        return check_device_auto(hist, **dev_kw)
+    if backend == "auto":
+        if unbounded:
+            # Never concede a decidable instance: the CPU runs to the end.
+            return _cpu(hist, None, profile, prune)
+        budget = time_budget_s if time_budget_s is not None else 10.0
+        res = _cpu(hist, budget, profile, prune)
+        if res.outcome != CheckOutcome.UNKNOWN:
+            return res
+        log.info("CPU engine hit its %.1fs budget; escalating to the device search", budget)
+        res = check_device_auto(hist, **dev_kw)
+        if res.outcome != CheckOutcome.UNKNOWN or time_budget_s is not None:
+            return res
+        # The device search conceded with no bound set by the user: the
+        # reference is unbounded (CheckEventsVerbose timeout 0,
+        # main.go:606), so close with an unbounded CPU run.
+        log.info("device search inconclusive; falling back to the unbounded CPU engine (no -time-budget was set)")
+        return _cpu(hist, None, profile, prune)
+    raise ValueError(f"unknown backend {backend!r}")
 
 
-def _check_one(args: argparse.Namespace, on_result=None) -> int:
-    file_path = args.file
+def _resolve_corpus(file_arg: str) -> list[str] | None:
+    """Corpus mode: a directory or glob pattern as ``-file`` expands to the
+    sorted list of histories to check in one process.  None for one file
+    (or stdin)."""
+    if file_arg == "-":
+        return None
+    if os.path.isdir(file_arg):
+        pattern = os.path.join(file_arg, "*.jsonl")
+    elif any(ch in file_arg for ch in "*?[") and not os.path.isfile(file_arg):
+        # A file whose name merely holds glob characters stays one file.
+        pattern = file_arg
+    else:
+        return None
+    # Glob matches can include directories.
+    return sorted(p for p in glob.glob(pattern) if os.path.isfile(p))
+
+
+def _cmd_check(args: argparse.Namespace, on_result=None) -> int:
+    corpus = _resolve_corpus(args.file)
+    if corpus is None:
+        return _check_one(args, args.file, on_result)
+    if not corpus:
+        log.error("no histories match %s", args.file)
+        return USAGE_EXIT
+    if args.checkpoint:
+        # One snapshot path cannot serve many histories (the fingerprint
+        # binds it to one).
+        log.warning("-checkpoint is ignored in corpus mode")
+        args.checkpoint = None
+    if args.profile:
+        log.warning("--profile is ignored in corpus mode")
+        args.profile = None
+    seen: set[int] = set()
+    for path in corpus:
+        # An unreadable file does not abort the corpus.
+        rc = _check_one(args, path, on_result)
+        seen.add(rc)
+        print(f"{path}: " + {0: "OK", 1: "ILLEGAL", 2: "UNKNOWN", 64: "ERROR"}.get(rc, str(rc)), flush=True)
+    # Worst verdict wins: ILLEGAL > unreadable file > UNKNOWN > OK.
+    for code in (1, USAGE_EXIT, 2):
+        if code in seen:
+            return code
+    return 0
+
+
+def _umask() -> int:
+    cur = os.umask(0)
+    os.umask(cur)
+    return cur
+
+
+def _write_artifact(args: argparse.Namespace, file_path: str, events, checked: History, res: CheckResult) -> None:
+    """Refusal reports where the engine gave none, then the HTML
+    visualization, as the JAX package's CLI writes them (main.go:608-631)."""
+    if res.outcome in (CheckOutcome.ILLEGAL, CheckOutcome.UNKNOWN) and not res.refusals:
+        # Engines without refusal reports of their own (oracle, native,
+        # frontier) get them re-derived from the deepest prefix, so the
+        # artifact names the culprit ops whichever engine decided.
+        from .checker.diagnostics import deepest_refusals
+
+        report = deepest_refusals(checked, res.deepest or [])
+        if report is not None:
+            res.refusals = [report]
+    from .viz import write_visualization
+
+    full = prepare(events, elide_trivial=False)
+    os.makedirs(args.out_dir, exist_ok=True)
+    base = "stdin" if file_path == "-" else os.path.basename(file_path)
+    fd, path = tempfile.mkstemp(prefix=f"{base}-", suffix=".html", dir=args.out_dir)
+    os.close(fd)
+    # mkstemp creates the file 0600; the artifact is a report, not a secret.
+    os.chmod(path, 0o644 & ~_umask())
+    write_visualization(path, full, res, title=f"s2 linearizability check — {base}", checked=checked)
+    log.info("wrote visualization to %s", path)
+
+
+def _check_one(args: argparse.Namespace, file_path: str, on_result=None) -> int:
     try:
         events = _read_events(file_path)
     except (OSError, ValueError) as e:
@@ -117,7 +275,21 @@ def _check_one(args: argparse.Namespace, on_result=None) -> int:
 
     t0 = time.monotonic()
     try:
-        res = _run_backend(args, checked)
+        res = _run_backend(
+            args.backend,
+            checked,
+            args.time_budget,
+            checkpoint=args.checkpoint,
+            device_rows=args.device_rows,
+            collect_stats=args.stats,
+            profile=bool(args.profile),
+            prune=args.prune,
+            speculate_depth=args.speculate_depth,
+            device=args.device,
+        )
+    except NativeUnavailable as e:
+        log.error("native backend unavailable: %s", e)
+        return USAGE_EXIT
     except DeviceUnavailable as e:
         log.error("%s", e)
         return USAGE_EXIT
@@ -133,12 +305,14 @@ def _check_one(args: argparse.Namespace, on_result=None) -> int:
             print(json.dumps(line), flush=True)
         return USAGE_EXIT
     dt = time.monotonic() - t0
+    if not args.no_viz:
+        _write_artifact(args, file_path, events, checked, res)
     if on_result is not None:
         on_result(file_path, res, checked)
 
     if args.profile:
-        # Search-shape profile: FrontierStats fields + the per-segment
-        # timeline, the JAX CLI's schema.
+        # Search-shape profile: FrontierStats fields + the timeline (+ the
+        # native engine's phases), the JAX CLI's schema.
         prof = job_profile(res)
         prof.update(
             file=file_path,
@@ -154,7 +328,8 @@ def _check_one(args: argparse.Namespace, on_result=None) -> int:
 
     if args.stats:
         # One machine-readable line on stdout: verdict, wall-clock, search
-        # statistics (the JAX CLI's -stats schema plus host_syncs/device).
+        # statistics (the JAX CLI's -stats schema, plus host_syncs/device
+        # where the device search decided).
         line = {
             "file": file_path,
             "outcome": res.outcome.value,
@@ -171,9 +346,9 @@ def _check_one(args: argparse.Namespace, on_result=None) -> int:
                 expanded=st.expanded,
                 auto_closed=st.auto_closed,
                 pruned=st.pruned,
-                host_syncs=st.host_syncs,
-                device=args.device,
             )
+            if args.backend in ("device", "auto"):
+                line.update(host_syncs=st.host_syncs, device=args.device)
             line.update(accel_counters(st))
         if res.steps:
             line["steps"] = res.steps
@@ -294,14 +469,26 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-version", "--version", action="version", version=__version__)
     sub = p.add_subparsers(dest="cmd", required=True, parser_class=_Parser)
     c = sub.add_parser("check", help="check a JSONL history for linearizability")
-    c.add_argument("-file", "--file", required=True, help="history JSONL path, '-' for stdin")
-    c.add_argument("-backend", "--backend", default="device", choices=["device", "oracle"])
+    c.add_argument(
+        "-file",
+        "--file",
+        required=True,
+        help="history JSONL path, '-' for stdin; a directory or (quoted) "
+        "glob checks the whole corpus in one process — exit code is the "
+        "worst outcome (ILLEGAL > unreadable file > UNKNOWN > OK)",
+    )
+    c.add_argument(
+        "-backend",
+        "--backend",
+        default="auto",
+        choices=["oracle", "native", "frontier", "device", "auto"],
+    )
     c.add_argument(
         "-device",
         "--device",
         default="cuda",
         choices=["cuda", "cpu"],
-        help="where the device backend runs (default cuda; cpu runs the "
+        help="where the device search runs (default cuda; cpu runs the "
         "plain PyTorch fold instead of the CUDA kernel)",
     )
     c.add_argument(
@@ -309,8 +496,11 @@ def build_parser() -> argparse.ArgumentParser:
         "--time-budget",
         type=float,
         default=None,
-        help="oracle time budget in seconds (0 or unset = run to completion)",
+        help="CPU-engine time budget in seconds; 0 = run to completion, the "
+        "reference's unbounded default (auto backend default: 10)",
     )
+    c.add_argument("-out-dir", "--out-dir", default="./porcupine-outputs")
+    c.add_argument("-no-viz", "--no-viz", action="store_true", help="skip the HTML artifact")
     c.add_argument(
         "-checkpoint",
         "--checkpoint",
@@ -436,7 +626,7 @@ def main(argv: list[str] | None = None, *, on_result=None) -> int:
     args = build_parser().parse_args(argv)
     if args.cmd == "collect":
         return _cmd_collect(args)
-    return _check_one(args, on_result=on_result)
+    return _cmd_check(args, on_result=on_result)
 
 
 if __name__ == "__main__":

@@ -48,6 +48,8 @@ __all__ = [
     "step_set",
     "input_from_start",
     "output_from_finish",
+    "describe_state",
+    "describe_operation",
 ]
 
 APPEND = 0
@@ -215,3 +217,38 @@ def output_from_finish(finish: ev.Finish) -> StreamOutput:
     if isinstance(finish, ev.CheckTailFailure):
         return StreamOutput(failure=True, definite_failure=True)
     raise TypeError(f"not a finish event: {finish!r}")
+
+
+# --------------------------------------------------------------------------
+# Human-readable descriptions (for the HTML visualization)
+# --------------------------------------------------------------------------
+
+
+def describe_state(state: StreamState) -> str:
+    if state.fencing_token is None:
+        return f"tail[{state.tail}],hash[{state.stream_hash}]"
+    return f"tail[{state.tail}],hash[{state.stream_hash}],token[{state.fencing_token}]"
+
+
+def describe_operation(inp: StreamInput, out: StreamOutput) -> str:
+    if inp.input_type == APPEND:
+        parts = [f"len[{inp.num_records}]"]
+        if inp.set_fencing_token is not None:
+            parts.append(f"set_token[{inp.set_fencing_token}]")
+        if inp.batch_fencing_token is not None:
+            parts.append(f"batch_token[{inp.batch_fencing_token}]")
+        if inp.match_seq_num is not None:
+            parts.append(f"match_seq_num[{inp.match_seq_num}]")
+        if inp.record_hashes:
+            parts.append(f"rh_last[{inp.record_hashes[-1]}]")
+        call = f"append({', '.join(parts)})"
+        if out.failure:
+            status = "definite" if out.definite_failure else "indefinite"
+            return f"{call} -> FAILED[{status}]"
+        return f"{call} -> tail[{out.tail}]"
+    name = "read" if inp.input_type == READ else "check_tail"
+    if out.failure:
+        return f"{name}() -> failed"
+    if out.stream_hash is not None:
+        return f"{name}() -> tail[{out.tail}], hash[{out.stream_hash}]"
+    return f"{name}() -> tail[{out.tail}]"

@@ -250,7 +250,8 @@ def test_cli_stale_checkpoint_exits_64(tmp_path, caplog):
     ck = tmp_path / "run.ckpt"
     (tmp_path / "run.ckpt.beam").write_bytes(b"garbage")  # the beam phase loads <path>.beam first
     with caplog.at_level(logging.ERROR):
-        rc = pcli.main(["check", "-file", str(path), "-device", "cpu", "-checkpoint", str(ck)])
+        rc = pcli.main(["check", "-file", str(path), "-backend=device", "-no-viz", "-device", "cpu",
+                        "-checkpoint", str(ck)])
     assert rc == 64
     assert any("remove the file or point -checkpoint elsewhere" in r.getMessage() for r in caplog.records)
 

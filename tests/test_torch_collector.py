@@ -218,7 +218,7 @@ def test_collect_then_check_on_cpu_matches_jax_engine(tmp_path, capsys):
         "--workflow", "match-seq-num", "--seed", "11",
     )
     assert rc == 0
-    rc = cli.main(["check", f"-file={path}", "-backend=device", "-device", "cpu", "-stats"])
+    rc = cli.main(["check", f"-file={path}", "-backend=device", "-no-viz", "-device", "cpu", "-stats"])
     line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     rj = jdev.check_device_auto(jax_prepare(jev.read_history(path)), collect_stats=True)
     assert rc == 0 and line["outcome"] == rj.outcome.value == "ok"

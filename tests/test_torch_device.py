@@ -248,13 +248,11 @@ def test_exhaustive_overflow_unknown_or_spill_matches_jax():
         assert_results_equal(rj, pdev.check_device(hp, device="cpu", **kw), hp)
 
 
-#: (option, value, other options set beside it): the options still
-#: unported raise naming themselves, with a checkpoint and the spill on too
+#: (option, value, other options set beside it): the option still unported
+#: raises naming itself, with a checkpoint and the spill on too
 UNPORTED = [
     ("mesh", object(), {}),
-    ("witness_max_frontier", 64, {}),
     ("mesh", object(), {"checkpoint_path": "/nonexistent/ck", "spill": True}),
-    ("witness_max_frontier", 64, {"checkpoint_path": "/nonexistent/ck", "spill": True}),
 ]
 
 

@@ -5,7 +5,10 @@ CPU fallback.
   ``xxhash`` and every ``s2_verification_tpu`` module out of
   ``sys.modules``, and so does a small ``collect_history`` run;
 - no port source (nor chip_smoke.py) imports them;
-- the entry points refuse to run when CUDA is asked for and absent;
+- the entry points refuse to run when CUDA is asked for and absent, and
+  so does the CLI's ``auto`` ladder when it escalates (exit 64, never a
+  CPU run in the card's place);
+- the native engine builds from the port's own source alone;
 - the CLI's exit codes (0 / 1 / 64) with ``-device cpu``;
 - chip_smoke.py exits nonzero without a GPU and prints no result.
 """
@@ -25,6 +28,7 @@ import torch
 from s2_verification_tpu_torch import cli
 from s2_verification_tpu_torch.checker import device as pdev
 from s2_verification_tpu_torch.checker.entries import prepare
+from s2_verification_tpu_torch.checker.oracle import CheckOutcome, CheckResult
 from s2_verification_tpu_torch.collector.adversarial import adversarial_events
 from s2_verification_tpu_torch.utils import events as ev
 
@@ -74,12 +78,16 @@ def test_importing_the_port_loads_no_jax():
     mods = _modules()
     for m in (
         "checker.device",
+        "checker.diagnostics",
+        "checker.frontier",
+        "checker.native",
         "checker.prune",
         "checker.progress",
         "checker.profile",
         "collector.collect",
         "collector.campaign",
         "collector.socket_s2",
+        "viz",
     ):
         assert f"s2_verification_tpu_torch.{m}" in mods
     proc = _fresh_interpreter(f"for m in {mods!r}:\n    importlib.import_module(m)\n")
@@ -94,6 +102,28 @@ def test_collecting_loads_no_xxhash_and_no_jax():
         "assert len(events) > 40 and check_events(events).ok\n"
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_native_engine_builds_from_the_port_alone(tmp_path):
+    # A fresh build, in a fresh interpreter: the library comes from the
+    # port's csrc/s2check.cpp, lands in the build directory it is given,
+    # decides a history, and neither JAX nor the JAX package's native
+    # library directory is touched.
+    jax_native = ROOT / "s2_verification_tpu" / "_native"
+    before = sorted((p.name, p.stat().st_mtime_ns) for p in jax_native.iterdir()) if jax_native.exists() else []
+    proc = _fresh_interpreter(
+        "from pathlib import Path\n"
+        "from s2_verification_tpu_torch.checker import native\n"
+        f"native.BUILD_DIR = Path({str(tmp_path)!r})\n"
+        "from s2_verification_tpu_torch.checker.entries import prepare\n"
+        "from s2_verification_tpu_torch.collector.adversarial import adversarial_events\n"
+        "assert native.check_native(prepare(adversarial_events(4, batch=2, seed=0))).ok\n"
+        "assert Path(native.BUILD['path']).parent == native.BUILD_DIR and native.BUILD['seconds'] > 0\n"
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert [p.suffix for p in tmp_path.iterdir()] == [".so"]
+    after = sorted((p.name, p.stat().st_mtime_ns) for p in jax_native.iterdir()) if jax_native.exists() else []
+    assert after == before
 
 
 @pytest.mark.parametrize(
@@ -139,7 +169,7 @@ def test_cli_verdict_exit_codes(tmp_path, capsys, unsat, backend, want):
     path = _write(tmp_path, adversarial_events(5, batch=3, seed=4, unsatisfiable=unsat), "h.jsonl")
     seen = {}
     rc = cli.main(
-        ["check", f"-file={path}", f"-backend={backend}", "-device", "cpu", "-stats"],
+        ["check", f"-file={path}", f"-backend={backend}", "-no-viz", "-device", "cpu", "-stats"],
         on_result=lambda p, res, hist: seen.update(res=res),
     )
     assert rc == want
@@ -155,11 +185,29 @@ def test_cli_usage_and_parse_errors_exit_64(tmp_path, monkeypatch):
     assert cli.main(["check", f"-file={bad}", "-device", "cpu"]) == 64
     assert cli.main(["check", f"-file={tmp_path / 'missing.jsonl'}", "-device", "cpu"]) == 64
     with pytest.raises(SystemExit) as e:
-        cli.main(["check", "-file=x", "-backend=native"])
+        cli.main(["check", "-file=x", "-backend=bogus"])
     assert e.value.code == 64
     path = _write(tmp_path, adversarial_events(3, batch=2, seed=0), "h.jsonl")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    assert cli.main(["check", f"-file={path}"]) == 64  # default -device cuda
+    assert cli.main(["check", f"-file={path}", "-backend=device", "-no-viz"]) == 64  # default -device cuda
+
+
+def test_cli_auto_escalation_without_a_gpu_exits_64(tmp_path, monkeypatch):
+    # The default ladder: the CPU rung concedes, and the device rung, on
+    # the default -device cuda, finds no card — exit 64, never a CPU run in
+    # the card's place.
+    path = _write(tmp_path, adversarial_events(3, batch=2, seed=0), "h.jsonl")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    unbounded = []
+
+    def cpu(hist, budget, **kw):
+        if budget is None:
+            unbounded.append(hist)
+        return CheckResult(CheckOutcome.UNKNOWN)
+
+    monkeypatch.setattr(cli, "_cpu_check", cpu)
+    assert cli.main(["check", f"-file={path}", "-no-viz"]) == 64
+    assert not unbounded
 
 
 def test_cli_unported_tier_exits_64_and_says_so(tmp_path, capsys, monkeypatch):
@@ -168,7 +216,7 @@ def test_cli_unported_tier_exits_64_and_says_so(tmp_path, capsys, monkeypatch):
     real = pdev.check_device_auto
     monkeypatch.setattr(cli, "check_device_auto", lambda hist, **kw: real(hist, mesh=object(), **kw))
     path = _write(tmp_path, adversarial_events(6, batch=2, seed=3, unsatisfiable=True), "h.jsonl")
-    rc = cli.main(["check", f"-file={path}", "-device", "cpu", "-stats"])
+    rc = cli.main(["check", f"-file={path}", "-backend=device", "-no-viz", "-device", "cpu", "-stats"])
     assert rc == 64
     line = capsys.readouterr().out.strip().splitlines()[-1]
     assert '"outcome": "unported"' in line and "mesh" in line
@@ -184,7 +232,7 @@ def test_cli_decides_past_the_bucket_through_the_spill_like_jax(tmp_path, capsys
     lines = {}
     for main, mod, args in (
         (jcli.main, jdev, ["-backend=device", "-no-viz"]),
-        (cli.main, cli, ["-device", "cpu"]),
+        (cli.main, cli, ["-backend=device", "-no-viz", "-device", "cpu"]),
     ):
         real = mod.check_device_auto
         with monkeypatch.context() as m:

@@ -52,7 +52,8 @@ SETTINGS = {
     "checkpoint_path": (dict(checkpoint_path="ck.npz"), False),
     "checkpoint_every": (dict(checkpoint_every=3), False),
     "witness": (dict(witness=False), False),
-    "witness_max_frontier": (dict(witness_max_frontier=64), True),
+    # The log is on until the frontier outgrows 64 rows, then dropped.
+    "witness_max_frontier": (dict(witness_max_frontier=64), False),
     # Past the device bucket both engines hand off to the spill.
     "spill": (dict(spill=True, max_frontier=64, beam_width=2, exhaustive_cap=64, device_rows_cap=0), False),
     "spill_host_cap": (dict(spill_host_cap=1000), False),
@@ -153,7 +154,8 @@ def test_cli_device_rows_matches_jax(tmp_path, capsys, monkeypatch, unsat):
         return real(history, **kw)
 
     monkeypatch.setattr(pdev, "check_device", spy)
-    rc_p = pcli.main(["check", f"-file={path}", "-device", "cpu", "-stats", "-device-rows", "4096"])
+    rc_p = pcli.main(["check", f"-file={path}", "-backend=device", "-no-viz", "-device", "cpu", "-stats",
+                      "-device-rows", "4096"])
     line_p = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert rc_p == rc_j == (1 if unsat else 0)
     for f in ("outcome", "layers", "max_frontier", "expanded", "auto_closed", "pruned", "witness"):
@@ -166,7 +168,7 @@ def test_cli_device_rows_matches_jax(tmp_path, capsys, monkeypatch, unsat):
 def test_cli_oracle_warns_and_ignores_device_rows(tmp_path, capsys, caplog):
     path = _write(tmp_path, jax_adversarial(4, batch=2, seed=1))
     with caplog.at_level(logging.WARNING):
-        rc = pcli.main(["check", f"-file={path}", "-backend=oracle", "-device-rows", "7", "-stats"])
+        rc = pcli.main(["check", f"-file={path}", "-backend=oracle", "-no-viz", "-device-rows", "7", "-stats"])
     assert rc == 0
     assert json.loads(capsys.readouterr().out.strip().splitlines()[-1])["outcome"] == "ok"
     assert any("-device-rows only applies to the device search" in r.getMessage() for r in caplog.records)

@@ -275,7 +275,8 @@ def test_cli_prune_speculate_profile_match_jax(tmp_path, capsys, unsat):
     jp, pp = tmp_path / "jax.json", tmp_path / "port.json"
     rc_j = jcli.main(["check", f"-file={path}", "-backend=device", "-no-viz", f"-profile={jp}", *flags])
     capsys.readouterr()
-    rc_p = pcli.main(["check", f"-file={path}", "-device", "cpu", f"-profile={pp}", *flags])
+    rc_p = pcli.main(["check", f"-file={path}", "-backend=device", "-no-viz", "-device", "cpu", f"-profile={pp}",
+                      *flags])
     line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert rc_p == rc_j == (1 if unsat else 0)
     prof_j, prof_p = json.loads(jp.read_text()), json.loads(pp.read_text())
@@ -297,7 +298,7 @@ def pprune_counters(prof):
 def test_cli_oracle_takes_prune_and_ignores_it(tmp_path, capsys):
     path = _write(tmp_path, jax_adversarial(4, batch=2, seed=1), "h.jsonl")
     prof = tmp_path / "p.json"
-    rc = pcli.main(["check", f"-file={path}", "-backend=oracle", "--prune", f"-profile={prof}", "-stats"])
+    rc = pcli.main(["check", f"-file={path}", "-backend=oracle", "-no-viz", "--prune", f"-profile={prof}", "-stats"])
     assert rc == 0
     line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert line["outcome"] == "ok" and "prune_commits" not in line
