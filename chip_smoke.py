@@ -42,7 +42,7 @@ on the first failed phase:
    -backend=device -stats``, launch counts reset just before and read just
    after, every fold call recorded), which must exit 0 with a witness that
    replays (:func:`replay_fast`) and the search statistics of
-   :data:`HEADLINE_STATS`; three warm ``check_device_auto`` calls; every
+   :data:`HEADLINE_STATS`; one warm ``check_device_auto`` call; every
    recorded fold call again, bit-exact against the plain fold, with their
    total device and per-call time beside the summed bound, and the largest
    by steps measured alone;
@@ -55,7 +55,7 @@ on the first failed phase:
    peak memory; the 5×2000 headline through the CLI with ``--prune
    --speculate-depth 3`` (launch counts reset just before and read just
    after), with the statistics of :data:`PRUNED_HEADLINE_STATS`, its host
-   syncs, first and two warm walls, and the kernels per layer of a
+   syncs, first and warm walls, and the kernels per layer of a
    profiled 100-layer window; every fold call of both, bit-exact against
    the plain fold and timed; then the port's campaign matrix
    (``collector/campaign.py``: five legal fault shapes, four violation
@@ -121,7 +121,20 @@ on the first failed phase:
    of the four small histories and the unsatisfiable k=6 (exit 1, one line
    a file); (e) the HTML visualization of an OK and an ILLEGAL history, the
    ILLEGAL one naming its refused ops; (f) the phase's seconds;
-12. the kernel list, one JSON line of kernel measurements, and as the last
+12. batched lanes (``checker/batched.py`` over ``device.run_search_lanes``):
+   (a) one launch group of 16 lanes of the 5×2000 ``match-seq-num`` shape
+   (phase 7's headline and :data:`BATCH_SEEDS` with :func:`bench_faults`)
+   through ``check_batch_vmap`` on the card, every lane OK, the headline
+   lane's layers equal to its ``run_search`` alone at the lanes' capacity,
+   with the group's first and warm walls, loop iterations, host syncs and
+   fold launches per iteration and peak memory beside the lane alone and
+   phase 7's ``-backend=device`` walls; (b) the campaign matrix (seed 11)
+   in one launch, each decided lane equal to its label and an undecided one
+   only where it pruned; (c) ``check_batch_native`` over the same lanes
+   equal to ``check_native`` lane by lane, and every lane the card decided
+   equal to the native verdict; (d) every fold call of (a)'s first launch
+   and of (b) bit-exact against the plain fold, and the largest measured;
+13. the kernel list, one JSON line of kernel measurements, and as the last
    line ``{"ok": true, "device": {...}}``.
 
 Fold times are per call, from CUDA events: ``call`` with back-to-back
@@ -237,6 +250,15 @@ K10_WITNESS_SHA256 = "ad837407208873feb3760587aa3e0dae08c661b0d0efe630b60a12b915
 K12_PEAK = 10_850_401
 #: the campaign seed every builtin violation provably fires under
 CAMPAIGN_SEED = 11
+#: warm calls of the headline in phases 7 and 8, plain and pruned: one
+#: each, for the script's time limit (phase 12 runs the headline's shape
+#: for about 10,000 layers, twice)
+HEADLINE_WARM_CALLS = 1
+#: phase 12's launch group: lanes of the headline's shape, the headline
+#: first and then one lane a seed of these (16 lanes, the daemon's default
+#: ``--batch-max``)
+BATCH_SHAPE = ("match-seq-num", 5, 2000)
+BATCH_SEEDS = list(range(20260730, 20260745))
 #: ``scripts/table_bench.py:27-33`` without the CPU-intractable 16×2000.
 TABLE_CONFIGS = [
     ("regular", 2, 50),
@@ -1163,6 +1185,193 @@ def run_check_phase(dev_mod, fold_cuda, fb, prepare, adversarial_events, cli, ev
     return out
 
 
+def _collect_lane(job):
+    """One history of ``(workflow, clients, ops)`` at ``seed`` with
+    :func:`bench_faults` (a worker of :func:`collect_lanes`)."""
+    (workflow, clients, ops), seed = job
+    from s2_verification_tpu_torch.collector.collect import CollectConfig, collect_history
+
+    return collect_history(CollectConfig(clients, ops, workflow, seed=seed, faults=bench_faults(clients, ops)))
+
+
+def collect_lanes(shape, seeds, workers=8) -> list:
+    """The histories of ``shape`` at ``seeds``, collected in parallel
+    processes (the collector is pure Python, one core a history); the
+    processes end with the call."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    ctx = multiprocessing.get_context("spawn")
+    with ProcessPoolExecutor(max_workers=min(workers, len(seeds)), mp_context=ctx) as pool:
+        return list(pool.map(_collect_lane, [(shape, s) for s in seeds]))
+
+
+def run_batch_phase(dev_mod, fold_cuda, fb, prepare, recheck_calls, measure, headline_events,
+                    headline_walls, shape=BATCH_SHAPE, seeds=BATCH_SEEDS, device="cuda", workers=8) -> dict:
+    """Phase 12, batched lanes (``checker/batched.py`` over
+    ``device.run_search_lanes``).  ``headline_events`` is phase 7's
+    headline, the group's first lane; ``headline_walls`` its first and warm
+    walls through ``-backend=device`` there, printed beside the group's.
+    Returns the fold's launches on the batched paths and the batched
+    path's largest fold call measured."""
+    from s2_verification_tpu_torch.checker import batched
+    from s2_verification_tpu_torch.checker.native import check_native
+    from s2_verification_tpu_torch.collector.campaign import builtin_campaigns, collect_labeled
+    from s2_verification_tpu_torch.models.encode import encode_batch
+
+    t_phase = time.monotonic()
+    out: dict = {"launches_by_path": {}}
+    card = fb.card()
+
+    def launch(lanes, what, record):
+        """``check_batch_vmap`` of ``lanes`` on the card, with every fold
+        call recorded if ``record``; returns its verdicts, the lanes'
+        RunOuts, wall, fold launches, host syncs, loop iterations, peak
+        memory and recorded calls."""
+        runs = []
+        real = batched._mega_launch
+        batched._mega_launch = lambda *a: runs.append(real(*a)) or runs[-1]
+        try:
+            with fb.recording_folds(dev_mod) if record else contextlib.nullcontext([]) as calls:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                fold_cuda.reset_launches()
+                syncs0, iters0 = dev_mod.SYNCS[0], dev_mod.LANE_ITERS[0]
+                t0 = time.monotonic()
+                verdicts = batched.check_batch_vmap(lanes, device=device)
+                torch.cuda.synchronize()
+                wall = time.monotonic() - t0
+        finally:
+            batched._mega_launch = real
+        got = dict(verdicts=verdicts, runs=runs[0] if runs else [], wall=wall,
+                   launches=fold_cuda.LAUNCHES["fold_lanes"], syncs=dev_mod.SYNCS[0] - syncs0,
+                   iters=dev_mod.LANE_ITERS[0] - iters0, peak=torch.cuda.max_memory_allocated(), calls=calls)
+        if got["launches"] == 0 or (record and len(calls) != got["launches"]):
+            fail(f"{what}: {got['launches']} fold launches, {len(calls)} recorded")
+        return got
+
+    def per_iter(run):
+        return (f"{run['iters']} iterations, {run['syncs']} host syncs ({run['syncs'] / run['iters']:.2f} an "
+                f"iteration), {run['launches']} fold launches ({run['launches'] / run['iters']:.2f} an iteration)")
+
+    # (a) One launch group at full width: the headline and more seeds of
+    # its shape.
+    workflow, clients, ops = shape
+    t0 = time.monotonic()
+    events = [headline_events] + collect_lanes(shape, seeds, workers)
+    hists = [prepare(e) for e in events]
+    lanes = [batched.BatchLane(h, e) for h, e in zip(hists, encode_batch(hists))]
+    enc = lanes[0].enc
+    print(f"batched lanes (a): {len(lanes)} lanes of {workflow} {clients}x{ops} (phase 7's headline and seeds "
+          f"{seeds[0]}-{seeds[-1]}) collected ({workers} processes), prepared and encoded in "
+          f"{time.monotonic() - t0:.1f} s; lane dims "
+          f"N {enc.op_type.shape[0]}, rh {tuple(enc.rh_hi.shape)}, chains {tuple(enc.chain_ops.shape)}; "
+          f"ops left per lane {[lane.enc.total_remaining for lane in lanes]}", flush=True)
+    first = launch(lanes, "the headline-shape launch group", True)
+    bad = [i for i, v in enumerate(first["verdicts"]) if v.result is None or v.result.outcome.value != "ok"]
+    if bad:
+        fail(f"batched lanes (a): lanes {bad} are not OK")
+    layers = [v.layers for v in first["verdicts"]]
+    # (d), for (a): its fold calls, before the warm call, so that no
+    # recorded copy counts in that call's peak memory.
+    group_calls = first.pop("calls")
+    steps = recheck_calls(group_calls, "batched lanes (a)")
+    largest = max(range(len(group_calls)), key=lambda j: (steps[j], -j))
+    out["batched_call"] = measure(group_calls[largest], f"batched lanes (a) call {largest + 1}, the largest by steps")
+    del group_calls
+    warm = launch(lanes, "the headline-shape launch group, warm", False)
+    if [(v.result.outcome, v.layers) for v in warm["verdicts"]] != [(v.result.outcome, v.layers)
+                                                                     for v in first["verdicts"]]:
+        fail("batched lanes (a): the warm launch differs from the first")
+
+    # The headline lane alone through run_search, at the lanes' capacity.
+    max_layers = max(lane.enc.total_remaining for lane in lanes) + 2
+    fold_cuda.reset_launches()
+    syncs0 = dev_mod.SYNCS[0]
+    t0 = time.monotonic()
+    single = dev_mod.run_search(
+        dev_mod.build_tables(enc, device),
+        dev_mod.init_frontier(enc, batched.VMAP_LANE_CAPACITY, device),
+        max_layers,
+        allow_prune=True,
+    )
+    torch.cuda.synchronize()
+    single_wall = time.monotonic() - t0
+    single_syncs, single_launches = dev_mod.SYNCS[0] - syncs0, fold_cuda.LAUNCHES["fold_lanes"]
+    if single.stop_code != dev_mod.STOP_ACCEPT or single.layers != layers[0]:
+        fail(f"batched lanes (a): the headline lane took {layers[0]} layers in the group, "
+             f"{single.layers} alone (stop {single.stop_code})")
+    cli_first, cli_warm = headline_walls
+    print(
+        f"batched lanes (a): check_batch_vmap of {len(lanes)} lanes at capacity {batched.VMAP_LANE_CAPACITY}: "
+        f"every lane OK, layers per lane {layers} (the headline lane {layers[0]}; its pinned count through "
+        f"check_device {HEADLINE_STATS['layers']}); first call {first['wall']:.3f} s ({per_iter(first)}, peak "
+        f"memory {first['peak'] / 2**30:.3f} GiB with its fold inputs recorded), warm {warm['wall']:.3f} s "
+        f"({per_iter(warm)}, peak memory {warm['peak'] / 2**30:.3f} GiB); card {card}",
+        flush=True,
+    )
+    print(
+        f"batched lanes (a): the headline lane alone, run_search at capacity {batched.VMAP_LANE_CAPACITY}: "
+        f"{single.layers} layers (== its lane in the group) in {single_wall:.3f} s, {single_syncs} host syncs "
+        f"({single_syncs / single.layers:.2f} a layer), {single_launches} fold launches; through check "
+        f"-backend=device in phase 7: first {cli_first:.3f} s, warm "
+        + ", ".join(f"{w:.3f}" for w in cli_warm)
+        + f" s; the group's warm wall is {warm['wall'] / single_wall:.2f}x the lane alone for "
+        f"{len(lanes)} lanes ({sum(len(h.ops) for h in hists) / warm['wall']:.0f} ops verified per s, the "
+        f"lane alone {len(hists[0].ops) / single_wall:.0f}); the {sum(layers)} layers of all lanes at the lane "
+        f"alone's {1e3 * single_wall / single.layers:.3f} ms a layer would take {sum(layers) * single_wall / single.layers:.1f} s "
+        f"one lane after another (an extrapolation from the headline lane's rate, not a measurement: the other "
+        f"lanes were not timed alone)",
+        flush=True,
+    )
+
+    # (b) Mixed verdicts in one launch: the campaign matrix.
+    labeled = [(name, *collect_labeled(camp, seed=CAMPAIGN_SEED))
+               for name, camp in sorted(builtin_campaigns().items())]
+    hists_b = [prepare(e) for _, e, _ in labeled]
+    lanes_b = [batched.BatchLane(h, e) for h, e in zip(hists_b, encode_batch(hists_b))]
+    mixed = launch(lanes_b, "the campaign launch group", True)
+    mixed_calls = mixed.pop("calls")
+    live = [i for i, v in enumerate(mixed["verdicts"]) if v.skipped is None and lanes_b[i].enc.total_remaining]
+    pruned = {i: run.pruned_ever for i, run in zip(live, mixed["runs"])}
+    line = []
+    for i, ((name, _e, label), v) in enumerate(zip(labeled, mixed["verdicts"])):
+        want = {"legal": "ok", "illegal": "illegal"}[label["expect"]]
+        got_v = None if v.result is None else v.result.outcome.value
+        if got_v is None and not pruned.get(i):
+            fail(f"batched lanes (b): campaign {name} undecided without pruning")
+        if got_v is not None and got_v != want:
+            fail(f"batched lanes (b): campaign {name} {got_v} against its label {label['expect']}")
+        line.append(f"{name} {got_v or 'escalate'} ({v.layers} layers{', pruned' if pruned.get(i) else ''})")
+    print(f"batched lanes (b): the campaign matrix (seed {CAMPAIGN_SEED}) in one launch of {len(lanes_b)} "
+          f"lanes, {mixed['wall']:.3f} s, {per_iter(mixed)}: decided lanes == their labels: " + "; ".join(line),
+          flush=True)
+
+    # (c) The native engine's batch over the same lanes.
+    t0 = time.monotonic()
+    for what, lns, vm in (("(a)", lanes, first["verdicts"]), ("(b)", lanes_b, mixed["verdicts"])):
+        nat = batched.check_batch_native(lns)
+        for i, (lane, v, w) in enumerate(zip(lns, nat, vm)):
+            alone = check_native(lane.history)
+            if (v.result.outcome, v.result.linearization) != (alone.outcome, alone.linearization):
+                fail(f"batched lanes (c): check_batch_native lane {i} of {what} differs from check_native")
+            if w.result is not None and w.result.outcome != alone.outcome:
+                fail(f"batched lanes (c): check_batch_vmap lane {i} of {what} differs from the native engine")
+    print(f"batched lanes (c): check_batch_native over (a) and (b) == check_native lane by lane, and every "
+          f"lane check_batch_vmap decided == the native engine's verdict ({time.monotonic() - t0:.3f} s)",
+          flush=True)
+
+    # (d), for (b): its fold calls.
+    recheck_calls(mixed_calls, "batched lanes (b)")
+    del mixed_calls
+    out["launches_by_path"][f"{len(lanes)} lanes of {workflow} {clients}x{ops} through check_batch_vmap (12a)"] = (
+        first["launches"])
+    out["launches_by_path"][f"campaign matrix, {len(lanes_b)} lanes through check_batch_vmap (12b)"] = (
+        mixed["launches"])
+    out["seconds"] = time.monotonic() - t_phase
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1255,7 +1464,8 @@ def main() -> int:
         for j, a in enumerate(calls):
             g = groups[-1] if groups else None
             n = int(a[0].numel())
-            if (g and calls[g[0]][3].shape == a[3].shape and torch.equal(calls[g[0]][3], a[3])
+            if (g and (calls[g[0]][3] is a[3] or calls[g[0]][3].shape == a[3].shape
+                       and torch.equal(calls[g[0]][3], a[3]))
                     and group_lanes + n <= max_lanes):
                 g.append(j)
                 group_lanes += n
@@ -1551,14 +1761,14 @@ def main() -> int:
         if count == 0:
             fail(f"the collector path launched {name} no time")
     warm = []
-    for _ in range(3):
+    for _ in range(HEADLINE_WARM_CALLS):
         t0 = time.monotonic()
         res_w = dev_mod.check_device_auto(hist)
         torch.cuda.synchronize()
         warm.append(time.monotonic() - t0)
         if res_w.outcome.value != "ok" or not replay_fast(hist, res_w.linearization or []):
             fail("warm check_device_auto of the headline is not OK with a replaying witness")
-    warm_median = sorted(warm)[1]
+    warm_median = sorted(warm)[len(warm) // 2]
     card_name = fb.card()
     print(
         f"headline check (CLI, in process): exit 0 OK, witness replays; {len(hist.ops)} checked ops; "
@@ -1566,11 +1776,13 @@ def main() -> int:
         f"{stats['expanded']} (== the CPU run); host syncs {syncs}, fold launches "
         f"{collector_launches['fold_lanes']}; first call {first_wall:.3f} s, warm "
         + ", ".join(f"{w:.3f}" for w in warm)
-        + f" s; {len(hist.ops) / warm_median:.0f} ops verified per s (warm median); "
+        + f" s; {len(hist.ops) / warm_median:.0f} ops verified per s "
+        f"({'warm median' if len(warm) > 1 else 'one warm call'}); "
         f"peak memory {peak / 2**30:.3f} GiB; card {card_name}",
         flush=True,
     )
     print(f"cli stats: {json.dumps(stats)}", flush=True)
+    headline_events, headline_walls = events, (first_wall, list(warm))
 
     # Every fold call of the headline again: bit-exact against the plain
     # fold (one plain fold per table over all its calls' lanes), then timed
@@ -1661,7 +1873,7 @@ def main() -> int:
     if head_launches["fold_lanes"] == 0:
         fail("the pruned headline launched fold_lanes no time")
     warm = []
-    for _ in range(2):
+    for _ in range(HEADLINE_WARM_CALLS):
         t0 = time.monotonic()
         res_w = dev_mod.check_device_auto(hist, prune=True, speculate_depth=3)
         torch.cuda.synchronize()
@@ -1688,7 +1900,8 @@ def main() -> int:
         f"replays; statistics == the JAX engine's {json.dumps(got_stats)}; host syncs {syncs} "
         f"(un-pruned: see above), fold launches {head_launches['fold_lanes']}; first call "
         f"{first_wall:.3f} s, warm " + ", ".join(f"{w:.3f}" for w in warm)
-        + f" s; {len(hist.ops) / min(warm):.0f} ops verified per s (best warm); peak memory "
+        + f" s; {len(hist.ops) / min(warm):.0f} ops verified per s "
+        f"({'best warm' if len(warm) > 1 else 'one warm call'}); peak memory "
         f"{peak / 2**30:.3f} GiB; profiled window of 100 layers ({start}-{start + 100}): "
         f"{window['kernels']} kernels ({window['kernels'] / 100:.1f} a layer), {box['syncs']} host "
         f"syncs, {box['wall']:.3f} s, device busy {window['device_busy_ms']:.2f} ms "
@@ -1776,6 +1989,13 @@ def main() -> int:
                               table_events, table_verdicts, events)
     print(f"phase 11 (the check command): {phase11['seconds']:.1f} s", flush=True)
     kernels[0]["launches_by_path"].update(phase11["launches_by_path"])
+
+    # -- 12. batched lanes ---------------------------------------------------
+    phase12 = run_batch_phase(dev_mod, fold_cuda, fb, prepare, recheck_calls, measure,
+                              headline_events, headline_walls)
+    print(f"phase 12 (batched lanes): {phase12['seconds']:.1f} s", flush=True)
+    kernels[0]["launches_by_path"].update(phase12["launches_by_path"])
+    kernels[0]["batched_call"] = {k: phase12["batched_call"][k] for k in ("ms", "device_ms", "plain_ms", "bound_ms")}
 
     print(f"kernels: {', '.join(k['name'] for k in kernels)}", flush=True)
     print(f"total {time.monotonic() - t_start:.1f} s", flush=True)

@@ -119,6 +119,7 @@ __all__ = [
     "frontier_from_arrays",
     "can_exact_pack",
     "run_search",
+    "run_search_lanes",
     "check_device",
     "check_device_auto",
     "default_device_rows_cap",
@@ -247,6 +248,18 @@ def _fetch(*xs) -> list[int]:
     synchronisation)."""
     SYNCS[0] += 1
     return torch.stack([torch.as_tensor(x).to(torch.int64).reshape(()) for x in xs]).tolist()
+
+
+def _fetch_lanes(*xs) -> list[list[int]]:
+    """Bring per-lane vectors to the host in one transfer (one counted
+    synchronisation)."""
+    SYNCS[0] += 1
+    flat = torch.cat([x.reshape(-1).to(torch.int64) for x in xs]).tolist()
+    out, at = [], 0
+    for x in xs:
+        out.append(flat[at:at + x.numel()])
+        at += x.numel()
+    return out
 
 
 def _first_true(mask: torch.Tensor) -> torch.Tensor:
@@ -427,12 +440,22 @@ def init_frontier(enc: EncodedHistory, capacity: int, device) -> Frontier:
 # ---------------------------------------------------------------------------
 
 
-def _next_and_cands(tables: SearchTables, counts: torch.Tensor):
-    """Next-op index per chain and the candidate mask, for rows ``[..., C]``."""
-    ops = tables.ops
+def _chains(counts: torch.Tensor, cbase=None) -> torch.Tensor:
+    """Chain-table rows of the chains of rows ``[..., C]``: ``0..C-1``, or,
+    in a lane-batched search (:func:`run_search_lanes`), offset by each
+    row's lane base ``cbase [...]`` (its lane index times C)."""
     ar = torch.arange(counts.shape[-1], device=counts.device)
-    has_next = counts < ops.chain_len
-    idx = torch.minimum(counts, (ops.chain_len - 1).clamp(min=0))
+    return ar if cbase is None else cbase[..., None] + ar
+
+
+def _next_and_cands(tables: SearchTables, counts: torch.Tensor, cbase=None):
+    """Next-op index per chain and the candidate mask, for rows ``[..., C]``
+    (``cbase``: each row's lane base, see :func:`_chains`)."""
+    ops = tables.ops
+    ar = _chains(counts, cbase)
+    chain_len = ops.chain_len if cbase is None else ops.chain_len[ar]
+    has_next = counts < chain_len
+    idx = torch.minimum(counts, (chain_len - 1).clamp(min=0))
     nxt = torch.where(has_next, ops.chain_ops[ar, idx], 0)
     nret = torch.where(has_next, ops.ret[nxt], _INF_TIME)
     m = nret.min(-1, keepdim=True).values
@@ -447,14 +470,13 @@ def _next_and_cands(tables: SearchTables, counts: torch.Tensor):
     return nxt, cand
 
 
-def _row_tail_pin(tables: SearchTables, counts: torch.Tensor) -> torch.Tensor:
+def _row_tail_pin(tables: SearchTables, counts: torch.Tensor, cbase=None) -> torch.Tensor:
     """Smallest statically-pinned tail among each row's remaining ops."""
-    ar = torch.arange(counts.shape[-1], device=counts.device)
-    return tables.pintail_tab[ar, counts].min(-1).values
+    return tables.pintail_tab[_chains(counts, cbase), counts].min(-1).values
 
 
-def _advance_now(tables: SearchTables, counts, fr: Frontier):
-    nxt, cand = _next_and_cands(tables, counts)
+def _advance_now(tables: SearchTables, counts, fr: Frontier, cbase=None):
+    nxt, cand = _next_and_cands(tables, counts, cbase)
     ops = tables.ops
     tail, tok, h = fr.tail[:, None], fr.tok[:, None], fr.hash[:, None]
     dead = (tables.ac_match[nxt] & (tail > ops.match_seq[nxt])) | (
@@ -469,7 +491,7 @@ def _advance_now(tables: SearchTables, counts, fr: Frontier):
     return (cand & dead) | eager, eager
 
 
-def _auto_close(tables: SearchTables, fr: Frontier):
+def _auto_close(tables: SearchTables, fr: Frontier, cbase=None):
     """Advance every row past candidate ops that are provably identity
     there (the JAX engine's vmapped ``_auto_close_row`` loop).
 
@@ -477,7 +499,8 @@ def _auto_close(tables: SearchTables, fr: Frontier):
     never match again; a fencing token no remaining op sets can never come
     to match either.  A row keeps sweeping while it moves; the sweep
     repeats while any row moved (one synchronisation per sweep).  Returns
-    ``(closed_counts, n_closed [F], n_eager [F])``.
+    ``(closed_counts, n_closed [F], n_eager [F])``; ``cbase`` as in
+    :func:`_chains`.
     """
     counts = fr.counts
     zero = torch.zeros_like(fr.tail)
@@ -485,7 +508,7 @@ def _auto_close(tables: SearchTables, fr: Frontier):
         return counts, zero, zero
     n_eager = zero
     while True:
-        adv, eager = _advance_now(tables, counts, fr)
+        adv, eager = _advance_now(tables, counts, fr, cbase)
         active = fr.valid & adv.any(-1)
         if not _fetch(active.any())[0]:
             break
@@ -494,9 +517,8 @@ def _auto_close(tables: SearchTables, fr: Frontier):
     return counts, (counts - fr.counts).sum(-1), n_eager
 
 
-def _accept_rows(tables: SearchTables, counts, valid) -> torch.Tensor:
-    ar = torch.arange(counts.shape[-1], device=counts.device)
-    return valid & tables.accept_tab[ar, counts].all(-1)
+def _accept_rows(tables: SearchTables, counts, valid, cbase=None) -> torch.Tensor:
+    return valid & tables.accept_tab[_chains(counts, cbase), counts].all(-1)
 
 
 def _fold_step(tables: SearchTables, op_idx, state: DeviceState, lens=None):
@@ -511,57 +533,63 @@ def _fold_step(tables: SearchTables, op_idx, state: DeviceState, lens=None):
     return fold_lanes(seed, row, length, ops.rh).reshape(shape)
 
 
-def _fast_multi(tables: SearchTables, budget: int, fr: Frontier, idx: int):
-    """A run of forced steps on the unique live row ``idx``, inside one
-    layer: keep stepping while the row stays alive, its candidate window
-    stays single-chain and the next op is not an indefinite append.  One
-    synchronisation per op (the JAX engine runs this loop on device).
+def _fast_multi(tables: SearchTables, fr: Frontier, rows: torch.Tensor, run: torch.Tensor, budget: list[int],
+                cbase=None, extra=()):
+    """Runs of forced steps on the lone live rows ``rows [k]``, inside one
+    layer: a row keeps stepping while it stays alive, its candidate window
+    stays single-chain, the next op is not an indefinite append and its
+    layer budget ``budget[i]`` lasts.  The rows where the device mask
+    ``run`` is set step together, one fold call and one synchronisation
+    per op for all of them (the JAX engine runs this loop on device); a
+    row that stops stays as it stopped while the others step on.  In a
+    lane-batched search (:func:`run_search_lanes`) there is one row per
+    lane, ``cbase [k]`` their lanes' bases as in :func:`_chains`.  The
+    device vectors ``extra`` come over with the first step's fetch.
 
-    Returns ``(children, n_unique, n_steps, deep_row, deep_ops)``, with
-    ``deep_ops`` the sum of ``deep_row``: a row that dies mid-stretch keeps
-    its death-point configuration (pre-attempt counts and state) so the
-    refusal diagnostics can name the culprit.
+    Returns the rows' ``(counts, tail, hash, tok)`` (device), the host
+    lists ``(alive, steps, deep_ops)`` (meaningful for the rows that
+    stepped) and ``extra`` as host lists.  A row that dies mid-stretch
+    keeps its death-point configuration (pre-attempt counts and state) so
+    the refusal diagnostics can name the culprit; ``deep_ops`` is the sum
+    of its counts.
     """
     ops = tables.ops
-    c = fr.counts.shape[1]
-    ar = torch.arange(c, device=fr.counts.device)
+    k, c = rows.shape[0], fr.counts.shape[1]
+    dev = fr.counts.device
+    ar = torch.arange(c, device=dev)
 
     def nxt_op(counts):
-        nxt, cand = _next_and_cands(tables, counts)
+        nxt, cand = _next_and_cands(tables, counts, cbase)
         chain = _first_true(cand)
-        return nxt[chain], chain, cand.sum() == 1
+        return nxt.gather(1, chain[:, None])[:, 0], chain, cand.sum(1) == 1
 
-    counts = fr.counts[idx]
-    tail, h, tok = fr.tail[idx], fr.hash[idx], fr.tok[idx]
+    counts, tail, h, tok = fr.counts[rows], fr.tail[rows], fr.hash[rows], fr.tok[rows]
     o, chain, _single = nxt_op(counts)
-    n = 0
+    alive = run
+    steps = torch.zeros(k, dtype=torch.int64, device=dev)
+    extra_h = []
     while True:
         st = DeviceState(tail, h, tok)
-        folded = _fold_step(tables, o.reshape(1), DeviceState(tail, h.reshape(1), tok))
-        sa, va, _sb, _vb = step_kernel(ops, o, st, folded[0])
-        counts = torch.where(va, counts + (ar == chain).long(), counts)
-        tail = torch.where(va, sa.tail, tail)
-        h = torch.where(va, sa.hash, h)
-        tok = torch.where(va, sa.token, tok)
-        n += 1
+        sa, va, _sb, _vb = step_kernel(ops, o, st, _fold_step(tables, o, st))
+        upd = va & run
+        counts = torch.where(upd[:, None], counts + (ar == chain[:, None]).long(), counts)
+        tail = torch.where(upd, sa.tail, tail)
+        h = torch.where(upd, sa.hash, h)
+        tok = torch.where(upd, sa.token, tok)
+        alive = torch.where(run, va, alive)
+        steps = steps + run.long()
         o, chain, single = nxt_op(counts)
-        alive, single_h, indef, deep_ops = _fetch(va, single, tables.is_indef[o], counts.sum())
-        if not (alive and single_h and not indef and n < budget):
-            break
-    # The idx row stays marked valid even when it died: on STOP_EMPTY the
-    # refusal diagnostics read the death-point configuration from it.
-    children = Frontier(
-        counts=fr.counts.clone(),
-        tail=fr.tail.clone(),
-        hash=fr.hash.clone(),
-        tok=fr.tok.clone(),
-        valid=fr.valid,
-    )
-    children.counts[idx] = counts
-    children.tail[idx] = tail
-    children.hash[idx] = h
-    children.tok[idx] = tok
-    return children, int(alive), n, counts, deep_ops
+        run = upd & single & ~tables.is_indef[o]
+        more, alive_h, steps_h, ops_h, *got = _fetch_lanes(run, alive, steps, counts.sum(1), *extra)
+        extra_h, extra = extra_h or got, ()
+        going = False
+        for i in range(k):
+            if more[i] and steps_h[i] >= budget[i]:
+                run[i] = False  # its layer budget is spent (a fill, no upload)
+            elif more[i]:
+                going = True
+        if not going:
+            return (counts, tail, h, tok), (alive_h, steps_h, ops_h), extra_h
 
 
 # ---------------------------------------------------------------------------
@@ -583,10 +611,9 @@ def _mix_hash(cols, seed: int) -> torch.Tensor:
     return h ^ (h >> 16)
 
 
-def _zob_fold(zob: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
+def _zob_fold(zob: torch.Tensor, counts: torch.Tensor, cbase=None) -> torch.Tensor:
     """XOR-fold a Zobrist table over a counts matrix: [F, C] → [F]."""
-    ar = torch.arange(counts.shape[1], device=counts.device)
-    contrib = zob[ar, counts]
+    contrib = zob[_chains(counts, cbase), counts]
     out = contrib[:, 0].clone()
     for ci in range(1, counts.shape[1]):
         out ^= contrib[:, ci]
@@ -625,19 +652,25 @@ def _dedup_sort(invalid: torch.Tensor, ident, values=()):
     return head, sid, perm, tuple(v[perm] for v in values)
 
 
-def _expand_slice(tables: SearchTables, fr: Frontier):
+def _expand_slice(tables: SearchTables, fr: Frontier, cbase=None, nl: int = 1):
     """Candidate sweep, fold, step, and the flattened per-child arrays.
 
     Returns ``(t2, h2, k2, valid2, op2, parent2, chain2, cand)`` where the
     ``*2`` arrays have 2*F*C lanes (slot A then slot B).  The fold runs
     only for candidate lanes (others get length 0): their children are
     invalid, so their folded hashes are never read.
+
+    A frontier of ``nl`` lanes (blocks of F/nl rows, ``cbase`` as in
+    :func:`_chains`) lays its children out lane by lane, each lane's
+    block of 2*F*C/nl lanes in the one-lane order (slot A then slot B);
+    ``parent2`` is the global row.
     """
     f, c = fr.counts.shape
     e = f * c
+    el = e // nl
     dev = fr.counts.device
     ops = tables.ops
-    nxt, cand = _next_and_cands(tables, fr.counts)
+    nxt, cand = _next_and_cands(tables, fr.counts, cbase)
     cand = cand & fr.valid[:, None]
     st = DeviceState(fr.tail[:, None], fr.hash[:, None], fr.tok[:, None])
     folded = _fold_step(tables, nxt, st, lens=torch.where(cand, ops.rh_len[nxt], 0))
@@ -648,26 +681,37 @@ def _expand_slice(tables: SearchTables, fr: Frontier):
     vb = vb & cand
 
     idx2 = torch.arange(2 * e, device=dev)
-    within = idx2 % e
+    within = idx2 % el
     parent2 = within // c
     chain2 = within % c
-    rep = lambda x: x[:, None].expand(f, c).reshape(e)  # noqa: E731
-    t2 = torch.cat([sa.tail.reshape(e), rep(fr.tail)])
-    h2 = torch.cat([sa.hash.reshape(e), rep(fr.hash)])
-    k2 = torch.cat([sa.token.reshape(e), rep(fr.tok)])
-    valid2 = torch.cat([va.reshape(e), vb.reshape(e)])
-    op2 = torch.cat([nxt.reshape(e), nxt.reshape(e)])
+    if nl > 1:
+        parent2 = parent2 + (idx2 // (2 * el)) * (f // nl)
+    rep = lambda x: x[:, None].expand(f, c)  # noqa: E731
+
+    def ab(a, b):
+        return torch.cat([a.reshape(nl, el), b.reshape(nl, el)], 1).reshape(-1)
+
+    t2 = ab(sa.tail, rep(fr.tail))
+    h2 = ab(sa.hash, rep(fr.hash))
+    k2 = ab(sa.token, rep(fr.tok))
+    valid2 = ab(va, vb)
+    op2 = ab(nxt, nxt)
     return t2, h2, k2, valid2, op2, parent2, chain2, cand
 
 
-def _probe_dedup(tables: SearchTables, fr: Frontier, t2, h2, k2, valid2, parent2, chain2, pk2):
+def _probe_dedup(tables: SearchTables, fr: Frontier, t2, h2, k2, valid2, parent2, chain2, pk2,
+                 cbase=None, nl: int = 1):
     """Scatter-min hash-table dedup of a layer's children.  Equal children
     share both lane hashes (over the packed key ``pk2``, or the Zobrist
     counts hash when it is None), so all copies land in one slot; the
     smallest row index wins, copies that exact-compare equal to the winner
     drop, unequal collisions re-probe.  Rows still colliding after the
     probe rounds are kept — a missed merge wastes a row but never changes a
-    verdict.  Returns ``(keep, n_unique)``."""
+    verdict.  Returns the ``keep`` mask.
+
+    Children of ``nl`` lanes (:func:`_expand_slice`'s layout) probe one
+    table of ``nl`` segments, each of the one-lane table's size: a lane's
+    winners and surviving collisions are those of the lane alone."""
     exact_pack = pk2 is not None
     e2 = valid2.shape[0]
     dev = valid2.device
@@ -679,22 +723,26 @@ def _probe_dedup(tables: SearchTables, fr: Frontier, t2, h2, k2, valid2, parent2
         hh2 = _mix_hash([pkl2, pkh2, t2, hi2, lo2, k2], 0x9747B28C)
     else:
         # Zobrist counts hash, updated incrementally per child.
-        pz1 = _zob_fold(tables.zob1, fr.counts)
-        pz2 = _zob_fold(tables.zob2, fr.counts)
+        pz1 = _zob_fold(tables.zob1, fr.counts, cbase)
+        pz2 = _zob_fold(tables.zob2, fr.counts, cbase)
         cnt_pc = fr.counts[parent2, chain2]
-        cz1 = pz1[parent2] ^ tables.zob1[chain2, cnt_pc] ^ tables.zob1[chain2, cnt_pc + 1]
-        cz2 = pz2[parent2] ^ tables.zob2[chain2, cnt_pc] ^ tables.zob2[chain2, cnt_pc + 1]
+        zc2 = chain2 if cbase is None else cbase[parent2] + chain2
+        cz1 = pz1[parent2] ^ tables.zob1[zc2, cnt_pc] ^ tables.zob1[zc2, cnt_pc + 1]
+        cz2 = pz2[parent2] ^ tables.zob2[zc2, cnt_pc] ^ tables.zob2[zc2, cnt_pc + 1]
         hh1 = _mix_hash([cz1, t2, hi2, lo2, k2], 0x811C9DC5)
         hh2 = _mix_hash([cz2, t2, hi2, lo2, k2], 0x9747B28C)
-    tsz = 1 << max(1, (e2 - 1).bit_length())
+    tsz = 1 << max(1, (e2 // nl - 1).bit_length())
     idx = torch.arange(e2, device=dev)
     keep_u = torch.zeros(e2, dtype=torch.bool, device=dev)
     surv = valid2
+    seg = idx // (e2 // nl) * tsz if nl > 1 else None
     if not exact_pack:
         cc_i = fr.counts[parent2] + (chain2[:, None] == ar).long()
     for r in range(3):
         slot = (hh1 + r * (hh2 | 1)) & (tsz - 1)
-        tbl = torch.full((tsz,), e2, dtype=torch.int64, device=dev)
+        if nl > 1:
+            slot = slot + seg
+        tbl = torch.full((nl * tsz,), e2, dtype=torch.int64, device=dev)
         tbl.scatter_reduce_(0, slot, torch.where(surv, idx, e2), "amin", include_self=True)
         win = tbl[slot]
         w = win.clamp(max=e2 - 1)
@@ -710,8 +758,7 @@ def _probe_dedup(tables: SearchTables, fr: Frontier, t2, h2, k2, valid2, parent2
         dup = surv & ~is_win & eq
         keep_u = keep_u | is_win
         surv = surv & ~is_win & ~dup
-    keep = keep_u | surv
-    return keep, keep.sum()
+    return keep_u | surv
 
 
 def _expand_layer(
@@ -722,20 +769,31 @@ def _expand_layer(
     exact_pack: bool = False,
     sort_dedup: bool = False,
     log: bool = False,
+    cbase=None,
+    nl: int = 1,
 ):
     """Expand + dedup + compact one layer.  Returns ``(children, pruned,
-    n_unique, expanded, wlog)`` with the middle three as device scalars.
+    n_unique, expanded, wlog)`` with the middle three as device vectors,
+    one entry per lane.
 
     ``sort_dedup`` (with ``exact_pack``) dedups by :func:`_dedup_sort`, a
     perfect dedup, in place of the probe table.  With ``log``, ``wlog`` is
     the layer's witness log ``(parent, opbr)``: each child row's parent row
     and ``op*2 + branch`` (valid on the children's live prefix); else
-    None."""
-    f, c = fr.counts.shape
-    e2 = 2 * f * c
+    None.
+
+    A frontier of ``nl`` lanes (:func:`run_search_lanes`: blocks of F/nl
+    rows, ``cbase`` as in :func:`_chains`) expands in one piece, one fold
+    call for every lane (:func:`_expand_slice`) and one probe table of
+    per-lane segments (:func:`_probe_dedup`); each lane selects its beam
+    and compacts its children into its own F/nl rows, as it would alone.
+    """
+    f_all, c = fr.counts.shape
+    f = f_all // nl
+    e2 = 2 * f_all * c
     dev = fr.counts.device
     ar = torch.arange(c, device=dev)
-    t2, h2, k2, valid2, op2, parent2, chain2, cand = _expand_slice(tables, fr)
+    t2, h2, k2, valid2, op2, parent2, chain2, cand = _expand_slice(tables, fr, cbase, nl)
     # Exact mixed-radix counts key (when it packs): parent keys from an
     # [F, C] product and sum (mod 2^64), child keys incrementally (+ the
     # stride of the linearized chain); the dedup compare is then one word
@@ -748,43 +806,45 @@ def _expand_layer(
         # lane order.
         head, _sid, sidx, _sv = _dedup_sort(~valid2, (pk2, t2, h2, k2))
         keep = torch.zeros(e2, dtype=torch.bool, device=dev).index_copy_(0, sidx, head)
-        n_unique = head.sum()
     else:
-        keep, n_unique = _probe_dedup(tables, fr, t2, h2, k2, valid2, parent2, chain2, pk2)
+        keep = _probe_dedup(tables, fr, t2, h2, k2, valid2, parent2, chain2, pk2, cbase, nl)
+    # Per-lane views [nl, 2*F*C/nl] from here on.
+    keep = keep.view(nl, -1)
+    n_unique = keep.sum(1)
 
     # Lazy-order rank: total indefinite appends linearized (fewest first).
     lc1 = tables.opens_tab.shape[1] - 1
-    p_opens = tables.opens_tab[ar, fr.counts.clamp(max=lc1)].sum(1)
-    opens2 = (p_opens[parent2] + tables.is_indef[op2].long()).clamp(max=_OPENS_CAP - 1)
+    p_opens = tables.opens_tab[_chains(fr.counts, cbase), fr.counts.clamp(max=lc1)].sum(1)
+    opens2 = (p_opens[parent2] + tables.is_indef[op2].long()).clamp(max=_OPENS_CAP - 1).view(nl, -1)
 
     if allow_prune:
         # Sort-free beam selection: bincount the priority classes, find the
         # threshold class, keep lower classes whole and the threshold class
         # partially (first-come within the layer, deterministic).
-        cnt = torch.zeros(_OPENS_CAP, dtype=torch.int64, device=dev)
-        cnt.index_add_(0, opens2, keep.long())
-        cum = cnt.cumsum(0)
+        cnt = torch.zeros(nl, _OPENS_CAP, dtype=torch.int64, device=dev)
+        cnt.scatter_add_(1, opens2, keep.long())
+        cum = cnt.cumsum(1)
         over = cum > f
-        any_over = over.any()
-        vstar = _first_true(over)
-        below_ct = torch.where(vstar > 0, cum[(vstar - 1).clamp(min=0)], 0)
+        pruned = over.any(1)
+        vstar = _first_true(over)[:, None]
+        below_ct = torch.where(vstar > 0, cum.gather(1, (vstar - 1).clamp(min=0)), 0)
         in_class = keep & (opens2 == vstar)
-        within = in_class.long().cumsum(0)
+        within = in_class.long().cumsum(1)
         sel = in_class & (within <= f - below_ct)
-        final_keep = torch.where(any_over, keep & ((opens2 < vstar) | sel), keep)
-        pruned = any_over
+        final_keep = torch.where(pruned[:, None], keep & ((opens2 < vstar) | sel), keep)
     else:
         final_keep = keep
         pruned = n_unique > f
 
-    # Compaction: the first f kept children, in lane order, to slots 0..;
-    # every other lane writes the spare slot f, which is cut off.
-    pos = final_keep.long().cumsum(0) - 1
+    # Compaction: each lane's first f kept children, in lane order, to its
+    # slots 0..; every other lane writes the spare slot f, which is cut off.
+    pos = final_keep.long().cumsum(1) - 1
     take = final_keep & (pos < f)
     dst = torch.where(take, pos, f)
 
     def place(vals, dtype=torch.int64):
-        return torch.zeros(f + 1, dtype=dtype, device=dev).index_copy_(0, dst, vals)[:f]
+        out = torch.zeros(nl, f + 1, dtype=dtype, device=dev)
+        return out.scatter_(1, dst, vals.view(nl, -1))[:, :f].reshape(-1)
 
     valid_next = place(take, torch.bool)
     parent_next = place(parent2)
@@ -802,7 +862,7 @@ def _expand_layer(
         valid=valid_next,
     )
     wlog = (parent_next, place(op2 * 2 + (torch.arange(e2, device=dev) >= e2 // 2).long())) if log else None
-    return children, pruned, n_unique, cand.sum(), wlog
+    return children, pruned, n_unique, cand.view(nl, -1).sum(1), wlog
 
 
 def _compact_children(cb: list[torch.Tensor], cursor: int):
@@ -1075,16 +1135,22 @@ def run_search(
         if accept_any:
             children, n_unique, exp_n, n_steps, children_live = closed, 0, 0, 1, n_live_h
         elif is_fast:
-            children, n_unique, n_steps, fast_row, row_ops = _fast_multi(
-                tables, 1 if log else max_layers - layers, closed, live_idx_h
+            rows = live_idx.reshape(1)
+            fast_row, (alive_h, steps_h, ops_h), _ = _fast_multi(
+                tables, closed, rows, fastable.reshape(1), [1 if log else max_layers - layers]
             )
+            # The row stays marked valid even when it died: on STOP_EMPTY
+            # the refusal diagnostics read the death-point configuration
+            # from it.
+            children = Frontier(*(x.index_put((rows,), y) for x, y in zip(closed, fast_row)), closed.valid)
+            n_unique, n_steps = alive_h[0], steps_h[0]
             exp_n, children_live, children_are_diag = n_steps, n_live_h, True
             if log:
                 # One op, one log row; the deepest row stays the pre-step
                 # one, as the JAX engine's one-op fast layer keeps it.
                 layer_log = tuple(np.full(n_unique, v, np.int64) for v in (live_idx_h, live_idx_h, 2 * op1_h))
             else:
-                deep_row = fast_row
+                deep_row, row_ops = fast_row[0][0], ops_h[0]
         else:
             if chunk_rows and chunk_rows < fr.capacity:
                 children, overflow, n_unique_t, exp_t, layer_wlog = _expand_layer_chunked(
@@ -1178,6 +1244,189 @@ def _fetch_log(wlog: list) -> list[tuple[np.ndarray, np.ndarray, np.ndarray]]:
         else:
             out.append(entry)
     return out
+
+
+# ---------------------------------------------------------------------------
+# The lane-batched search
+# ---------------------------------------------------------------------------
+
+#: iterations of the lane-batched layer loop (see :func:`run_search_lanes`)
+LANE_ITERS = [0]
+
+
+def _stack_lanes(tables: list[SearchTables], frontiers: list[Frontier]) -> tuple[SearchTables, Frontier]:
+    """One table set and one frontier for B shape-identical lanes: per-op
+    columns concatenated along the op axis (the op indices in ``chain_ops``
+    offset by ``l·N``, the record-hash rows in ``rh_row`` by ``l·R``, the
+    chains in ``chain_of`` by ``l·C``), per-chain tables along the chain
+    axis, ``rh`` into one ``[B·R, W]`` table, and the frontiers row after
+    row (lane ``l`` holds rows ``l·F ..``)."""
+    t0 = tables[0]
+    dims = {(t.ops.op_type.shape, t.ops.rh.shape, t.ops.chain_ops.shape, t.opens_tab.shape) for t in tables}
+    if len(dims) != 1 or len({f.capacity for f in frontiers}) != 1:
+        raise ValueError("lanes must be shape-identical (encode them with encode_batch) and of one capacity")
+    offset = {
+        "chain_ops": t0.ops.op_type.shape[0],
+        "rh_row": t0.ops.rh.shape[0],
+        "chain_of": t0.ops.chain_len.shape[0],
+    }
+
+    def cat(xs, off=0):
+        if off:
+            xs = [torch.where(x >= 0, x + lane * off, x) for lane, x in enumerate(xs)]
+        return torch.cat(xs)
+
+    ops = DeviceOps(*(cat([getattr(t.ops, name) for t in tables], offset.get(name, 0))
+                      for name in DeviceOps._fields))
+    rest = {name: cat([getattr(t, name) for t in tables])
+            for name in SearchTables._fields if name not in ("ops", "can_close")}
+    stacked = SearchTables(ops=ops, can_close=any(t.can_close for t in tables), **rest)
+    return stacked, Frontier(*(torch.cat(xs) for xs in zip(*frontiers)))
+
+
+def run_search_lanes(tables: list[SearchTables], frontiers: list[Frontier], max_layers: int) -> list[RunOut]:
+    """Run B lanes' searches for at most ``max_layers`` layers each in one
+    layer loop (the JAX engine's ``jit(vmap(run_search))`` of
+    ``checker/batched.py::_mega_launch``, with ``allow_prune=True`` and no
+    other option): one :class:`RunOut` per lane, field for field the one
+    :func:`run_search` gives that lane alone.
+
+    The lanes must be shape-identical (:func:`..models.encode.encode_batch`)
+    and of one capacity F.  Their tables are stacked (:func:`_stack_lanes`)
+    and their rows kept in one frontier, lane ``l`` in rows ``l·F ..``; each
+    row's chain lookups go through its lane's base (:func:`_chains`), and
+    op indices are global, so the step kernel and the fold need nothing
+    more.  An iteration runs one layer of every running lane: the
+    auto-close sweep (repeated while a row of any lane moved), the tail pin
+    and the accept test over all rows, one fetch of per-lane vectors, then
+    one expansion (:func:`_expand_layer` over ``nl = B`` lanes) of the rows
+    of the lanes that branch and one forced stretch (:func:`_fast_multi`)
+    for the lanes that step alone, each with its own budget, the others
+    masked out on the device.  A lane that stops (accept, extinction or its
+    layer budget) latches: its result is kept and its rows are marked
+    invalid, so that nothing of it moves again.  Nothing goes from the host
+    to the device inside the loop.
+
+    B copies of one lane cost the host syncs and fold launches of that
+    lane alone.  Lanes that differ cost more an iteration than one lane
+    costs a layer: the forced stretches step one op a sync until the
+    longest of them ends while the expanding lanes wait, and the auto-close
+    sweep repeats while a row of any lane moved (``PERF.md`` §6 has the
+    counts of 16 headline-shape lanes).
+    """
+    b = len(tables)
+    if b == 0:
+        return []
+    st, fr = _stack_lanes(tables, frontiers)
+    f = frontiers[0].capacity
+    c = fr.counts.shape[1]
+    dev = fr.counts.device
+    live0, ops0 = _fetch_lanes(fr.valid.view(b, f).sum(1), fr.counts.view(b, f, c)[:, 0].sum(1))
+    lane = [
+        dict(frontier=frontiers[i], stop_code=STOP_RUNNING, accept_idx=0, layers=0, pruned_ever=False,
+             max_live=live0[i], auto_closed=0, expanded=0, eager_closed=0, pin_killed=0,
+             deep_counts=frontiers[i].counts[0], deep_ops=ops0[i], live=live0[i])
+        for i in range(b)
+    ]
+    run = list(range(b)) if max_layers > 0 else []
+    cb_lane = torch.arange(b, device=dev) * c
+    cb = cb_lane[:, None].expand(b, f).reshape(-1)
+    starts = torch.arange(b, device=dev) * f
+    while run:
+        LANE_ITERS[0] += 1
+        tl = st._replace(can_close=any(tables[i].can_close for i in run))
+        closed_counts, ac_n, eager_n = _auto_close(tl, fr, cb)
+        closed = fr._replace(counts=closed_counts)
+        pin_dead = closed.valid & (closed.tail > _row_tail_pin(tl, closed.counts, cb))
+        closed = closed._replace(valid=closed.valid & ~pin_dead)
+        acc_row = _accept_rows(tl, closed.counts, closed.valid, cb).view(b, f)
+        valid = closed.valid.view(b, f)
+        live_idx = _first_true(valid)
+        base_rows = starts + live_idx
+        base_row = closed.counts[base_rows]
+        nxt1, cand1 = _next_and_cands(tl, base_row, cb_lane)
+        op1 = nxt1.gather(1, _first_true(cand1)[:, None])[:, 0]
+        n_live = valid.sum(1)
+        accepts = acc_row.any(1)
+        fastable = (n_live == 1) & (cand1.sum(1) == 1) & ~tl.is_indef[op1]
+        (acc_any, is_fast, acc_idx_h, n_live_h, ac_h, eager_h, pin_h, base_ops) = _fetch_lanes(
+            accepts, fastable, _first_true(acc_row), n_live,
+            ac_n.view(b, f).sum(1), eager_n.view(b, f).sum(1), pin_dead.view(b, f).sum(1), base_row.sum(1),
+        )
+        fast = [p for p in run if is_fast[p] and not acc_any[p]]
+        grow = [p for p in run if not is_fast[p] and not acc_any[p]]
+        grown = ()
+        if grow:
+            # Only the branching lanes' rows expand (a stopped lane's rows
+            # are invalid already).
+            grow_rows = ~(accepts | fastable)[:, None].expand(b, f).reshape(-1)
+            children, *grown, _ = _expand_layer(
+                tl, closed._replace(valid=closed.valid & grow_rows), allow_prune=True, cbase=cb, nl=b
+            )
+            grown.append(children.valid.view(b, f).sum(1))
+        if fast:
+            # The expansion's vectors ride the first forced step's fetch.
+            (fc, ft, fh, fk), (f_alive, f_steps, f_ops), grown = _fast_multi(
+                tl, closed, base_rows, fastable & ~accepts,
+                [max_layers - s["layers"] for s in lane], cb_lane, grown,
+            )
+        elif grow:
+            grown = _fetch_lanes(*grown)
+        if grow:
+            g_pruned, g_uniq, g_exp, g_live = grown
+        if len(grow) == len(run):
+            nxt = children
+        else:
+            nxt = closed
+            if fast:
+                nxt = Frontier(*(x.index_put((base_rows,), y) for x, y in zip(nxt, (fc, ft, fh, fk))), nxt.valid)
+            if grow:
+                nxt = Frontier(*(torch.where(grow_rows.view((-1,) + (1,) * (x.dim() - 1)), y, x)
+                                 for x, y in zip(nxt, children)))
+        stopped = []
+        for p in run:
+            s = lane[p]
+            pruned = diag = False
+            deep = (base_row[p], base_ops[p])
+            if acc_any[p]:
+                n_unique, exp_n, n_steps, children_live = 0, 0, 1, n_live_h[p]
+            elif is_fast[p]:
+                n_unique, n_steps, children_live, diag = f_alive[p], f_steps[p], n_live_h[p], True
+                exp_n = n_steps
+                deep = (fc[p], f_ops[p])
+            else:
+                pruned, n_unique, exp_n, children_live = bool(g_pruned[p]), g_uniq[p], g_exp[p], g_live[p]
+                n_steps = 1
+            empty = not acc_any[p] and n_unique == 0
+            resume = acc_any[p] or (empty and not diag)
+            s["stop_code"] = STOP_ACCEPT if acc_any[p] else STOP_EMPTY if empty else STOP_RUNNING
+            s["live"] = n_live_h[p] if resume else children_live
+            s["layers"] += n_steps
+            s["max_live"] = max(s["max_live"], children_live)
+            s["expanded"] += exp_n
+            s["deep_counts"], s["deep_ops"] = deep
+            s["auto_closed"] += ac_h[p]
+            s["eager_closed"] += eager_h[p]
+            s["pin_killed"] += pin_h[p]
+            s["pruned_ever"] = s["pruned_ever"] or pruned
+            s["accept_idx"] = acc_idx_h[p]
+            if s["stop_code"] != STOP_RUNNING or s["layers"] >= max_layers:
+                src = closed if resume else nxt
+                s["frontier"] = Frontier(*(x[p * f:(p + 1) * f] for x in src))
+                stopped.append(p)
+        if stopped:
+            # Latch: the stopped lanes' rows leave the search (fills of
+            # their blocks; the kept frontiers above are views of others).
+            valid_next = nxt.valid.clone()
+            for p in stopped:
+                valid_next[p * f:(p + 1) * f] = False
+            nxt = nxt._replace(valid=valid_next)
+            run = [p for p in run if p not in stopped]
+        fr = nxt
+    return [
+        RunOut(spec_layers=0, spec_accepts=0, spec_rollbacks=0, want=0, **s)
+        for s in lane
+    ]
 
 
 # ---------------------------------------------------------------------------

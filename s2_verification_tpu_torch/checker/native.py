@@ -30,7 +30,7 @@ from pathlib import Path
 
 import numpy as np
 
-from ..models.encode import encode_history, intern_state
+from ..models.encode import EncodedHistory, encode_history, intern_state
 from ..models.stream import StreamState
 from .entries import History
 from .oracle import CheckOutcome, CheckResult
@@ -133,11 +133,11 @@ def check_native(
     time_budget_s: float | None = None,
     profile: bool = False,
     prune: bool = False,
+    enc: EncodedHistory | None = None,
 ) -> CheckResult:
     """Decide linearizability with the native engine (the JAX package's
-    ``check_native``; its ``_states_cap``, ``enc`` and ``progress``
-    keywords, which only that package's daemon and tests set, are not
-    ported).
+    ``check_native``; its ``_states_cap`` and ``progress`` keywords, which
+    only that package's daemon and tests set, are not ported).
 
     Verdict semantics match :func:`.oracle.check`, including the
     ``deepest`` linearized set on ILLEGAL/UNKNOWN; ``time_budget_s``
@@ -145,11 +145,19 @@ def check_native(
     {"encode_s", "search_s", "steps", "cache_hits"}``.  ``prune=True`` hands the DFS the verdict-exact precedence tables of
     :mod:`.prune` (the append rank order and the inert mask); verdicts are
     unchanged.
+
+    ``enc`` lets a caller that already encoded ``history`` (the batched
+    lane runner encodes a whole launch group up front, padded by
+    :func:`..models.encode.encode_batch`) skip the second encode; it must
+    be ``encode_history(history)``, padded or not.  ``encode_s`` is then 0.
     """
     lib = _load()
     t_enc0 = _time.monotonic() if profile else 0.0
-    enc = encode_history(history)
-    encode_s = (_time.monotonic() - t_enc0) if profile else 0.0
+    if enc is None:
+        enc = encode_history(history)
+        encode_s = (_time.monotonic() - t_enc0) if profile else 0.0
+    else:
+        encode_s = 0.0
 
     def _attach(res: CheckResult, search_s: float) -> CheckResult:
         if profile:

@@ -240,12 +240,17 @@ def times(fn, reps: int, sm_hz: float) -> tuple[float, float, float]:
 @contextlib.contextmanager
 def recording_folds(dev_mod):
     """Record a clone of the arguments of every ``fold_lanes`` call the
-    search makes through ``dev_mod`` (checker.device) while inside."""
+    search makes through ``dev_mod`` (checker.device) while inside.  A
+    search's table is one tensor that no call changes, so the calls on one
+    table tensor share one clone of it."""
     calls: list[list[torch.Tensor]] = []
+    last = [None, None]  # the last table seen, and its clone
     real = dev_mod.fold_lanes
 
     def recording(seed, row, length, rh):
-        calls.append([t.clone() for t in (seed, row, length, rh)])
+        if last[0] is not rh:
+            last[:] = rh, rh.clone()
+        calls.append([t.clone() for t in (seed, row, length)] + [last[1]])
         return real(seed, row, length, rh)
 
     dev_mod.fold_lanes = recording

@@ -40,8 +40,10 @@ from ..models.stream import APPEND, INIT_STATE, StreamState, step_set
 
 __all__ = [
     "EncodedHistory",
+    "encode_batch",
     "encode_history",
     "intern_state",
+    "pad_encoded",
     "op_class_masks",
     "round_pow2",
     "INF_TIME",
@@ -346,6 +348,88 @@ def encode_history(history: History) -> EncodedHistory:
         forced_prefix=forced,
         n_ops=n,
     )
+
+
+def _pad1(a: np.ndarray, n: int, fill) -> np.ndarray:
+    if a.shape[0] == n:
+        return a
+    out = np.full(n, fill, a.dtype)
+    out[: a.shape[0]] = a
+    return out
+
+
+def _pad2(a: np.ndarray, rows: int, cols: int, fill) -> np.ndarray:
+    if a.shape == (rows, cols):
+        return a
+    out = np.full((rows, cols), fill, a.dtype)
+    out[: a.shape[0], : a.shape[1]] = a
+    return out
+
+
+def pad_encoded(
+    enc: EncodedHistory, n2: int, r: int, w: int, c2: int, lc: int
+) -> EncodedHistory:
+    """Widen an encoding to the given dims with the encoder's inert pads.
+
+    Identical semantics to encoding into the larger buckets directly: pad
+    ops are trivial check-tail definite failures with windows at infinity,
+    pad chains are empty, pad record-hash cells are masked by ``rh_len``.
+    Returns ``enc`` itself when already at the target dims.
+    """
+    if (
+        enc.op_type.shape[0] == n2
+        and enc.rh_hi.shape == (r, w)
+        and enc.chain_ops.shape == (c2, lc)
+    ):
+        return enc
+    return EncodedHistory(
+        op_type=_pad1(enc.op_type, n2, 2),
+        has_set_token=_pad1(enc.has_set_token, n2, False),
+        set_token=_pad1(enc.set_token, n2, 0),
+        has_batch_token=_pad1(enc.has_batch_token, n2, False),
+        batch_token=_pad1(enc.batch_token, n2, 0),
+        has_match=_pad1(enc.has_match, n2, False),
+        match_seq=_pad1(enc.match_seq, n2, 0),
+        num_records=_pad1(enc.num_records, n2, 0),
+        rh_row=_pad1(enc.rh_row, n2, 0),
+        rh_len=_pad1(enc.rh_len, n2, 0),
+        out_failure=_pad1(enc.out_failure, n2, True),
+        out_definite=_pad1(enc.out_definite, n2, True),
+        out_tail=_pad1(enc.out_tail, n2, 0),
+        out_has_hash=_pad1(enc.out_has_hash, n2, False),
+        out_hash_hi=_pad1(enc.out_hash_hi, n2, 0),
+        out_hash_lo=_pad1(enc.out_hash_lo, n2, 0),
+        call=_pad1(enc.call, n2, 0),
+        ret=_pad1(enc.ret, n2, INF_TIME),
+        chain_of=_pad1(enc.chain_of, n2, 0),
+        rh_hi=_pad2(enc.rh_hi, r, w, 0),
+        rh_lo=_pad2(enc.rh_lo, r, w, 0),
+        chain_ops=_pad2(enc.chain_ops, c2, lc, -1),
+        chain_len=_pad1(enc.chain_len, c2, 0),
+        chain_start=_pad1(enc.chain_start, c2, 0),
+        init_states=enc.init_states,
+        token_of_id=enc.token_of_id,
+        forced_prefix=enc.forced_prefix,
+        n_ops=enc.n_ops,
+    )
+
+
+def encode_batch(hists: list[History]) -> list[EncodedHistory]:
+    """Encode histories to **uniform** array dims for lane stacking.
+
+    The forced-prefix peel shrinks N per lane, and the append-row count R
+    and the chain-length bucket Lc differ between histories of one shape.
+    A lane-batched search needs every lane's arrays shape-identical, so
+    each lane is encoded normally and then widened (:func:`pad_encoded`) to
+    the batch's maximum of every (already bucketed) dimension.
+    """
+    encs = [encode_history(h) for h in hists]
+    n2 = max(e.op_type.shape[0] for e in encs)
+    r = max(e.rh_hi.shape[0] for e in encs)
+    w = max(e.rh_hi.shape[1] for e in encs)
+    c2 = max(e.chain_ops.shape[0] for e in encs)
+    lc = max(e.chain_ops.shape[1] for e in encs)
+    return [pad_encoded(e, n2, r, w, c2, lc) for e in encs]
 
 
 def intern_state(enc: EncodedHistory, state: StreamState) -> tuple[int, int, int, int]:

@@ -3,7 +3,8 @@ CPU fallback.
 
 - importing every port module (in a fresh interpreter) leaves ``jax``,
   ``xxhash`` and every ``s2_verification_tpu`` module out of
-  ``sys.modules``, and so does a small ``collect_history`` run;
+  ``sys.modules``, and so do a small ``collect_history`` run and a launch
+  of batched lanes;
 - no port source (nor chip_smoke.py) imports them;
 - the entry points refuse to run when CUDA is asked for and absent, and
   so does the CLI's ``auto`` ladder when it escalates (exit 64, never a
@@ -77,6 +78,7 @@ def _fresh_interpreter(body: str) -> subprocess.CompletedProcess:
 def test_importing_the_port_loads_no_jax():
     mods = _modules()
     for m in (
+        "checker.batched",
         "checker.device",
         "checker.diagnostics",
         "checker.frontier",
@@ -100,6 +102,21 @@ def test_collecting_loads_no_xxhash_and_no_jax():
         "from s2_verification_tpu_torch.checker.oracle import check_events\n"
         "events = collect_history(CollectConfig(3, 20, 'match-seq-num', seed=1))\n"
         "assert len(events) > 40 and check_events(events).ok\n"
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_batched_lanes_load_no_jax():
+    proc = _fresh_interpreter(
+        "from s2_verification_tpu_torch.checker.batched import BatchLane, check_batch_native, check_batch_vmap\n"
+        "from s2_verification_tpu_torch.checker.entries import prepare\n"
+        "from s2_verification_tpu_torch.collector.adversarial import adversarial_events\n"
+        "from s2_verification_tpu_torch.models.encode import encode_batch\n"
+        "hists = [prepare(adversarial_events(4, batch=2, seed=s, unsatisfiable=s == 1)) for s in range(3)]\n"
+        "lanes = [BatchLane(h, e) for h, e in zip(hists, encode_batch(hists))]\n"
+        "got = [v.result.outcome.value for v in check_batch_vmap(lanes, capacity=1024, device='cpu')]\n"
+        "assert got == ['ok', 'illegal', 'ok'], got\n"
+        "assert [v.result.outcome.value for v in check_batch_native(lanes)] == got\n"
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
 

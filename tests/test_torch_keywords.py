@@ -11,8 +11,14 @@ CLI's ``-device-rows``.
 - ``check -device cpu -device-rows N -stats`` exits as the JAX CLI does with
   the same counters, ``N`` reaches the exhaustive phase, and the oracle
   backend warns and ignores it.
+- Every keyword of the JAX ``check_batch_native`` and ``check_batch_vmap``
+  that the port takes gives the JAX engines' lane verdicts and layers
+  (the daemon's ``skip``, ``on_lane``, ``progress``, ``profile`` and
+  ``prune`` come back with the port's daemon); ``check_native(enc=)``
+  takes a padded encoding and answers as the JAX engine does.
 """
 
+import importlib
 import inspect
 import json
 import logging
@@ -21,10 +27,14 @@ import pytest
 
 from s2_verification_tpu import cli as jcli
 from s2_verification_tpu.checker.progress import ProgressSink as JaxSink
+from s2_verification_tpu.models.encode import encode_batch as jax_encode_batch
 from s2_verification_tpu_torch import cli as pcli
+from s2_verification_tpu_torch.checker import batched as pbatched
 from s2_verification_tpu_torch.checker import device as pdev
+from s2_verification_tpu_torch.checker import native as pnative
 from s2_verification_tpu_torch.checker.oracle import CheckOutcome
 from s2_verification_tpu_torch.checker.progress import ProgressSink as PortSink
+from s2_verification_tpu_torch.models.encode import encode_batch
 
 from test_torch_device import assert_results_equal, both, jax_adversarial, jdev
 from test_torch_encode import jax_text
@@ -172,3 +182,52 @@ def test_cli_oracle_warns_and_ignores_device_rows(tmp_path, capsys, caplog):
     assert rc == 0
     assert json.loads(capsys.readouterr().out.strip().splitlines()[-1])["outcome"] == "ok"
     assert any("-device-rows only applies to the device search" in r.getMessage() for r in caplog.records)
+
+
+# -- the batched engines and check_native(enc=) -------------------------------
+
+jbatched = importlib.import_module("s2_verification_tpu.checker.batched")
+jnative = importlib.import_module("s2_verification_tpu.checker.native")
+
+#: a setting of each JAX keyword of the two batched engines that the port
+#: takes
+BATCH_SETTINGS = {"capacity": 4}
+BATCH_ENTRIES = ("check_batch_native", "check_batch_vmap")
+BATCH_CASES = [
+    (e, k) for e in BATCH_ENTRIES for k in inspect.signature(getattr(jbatched, e)).parameters if k in BATCH_SETTINGS
+]
+
+
+def _batch_histories():
+    return [
+        both(jax_adversarial(4, batch=3, seed=s, unsatisfiable=s == 2)) for s in range(3)
+    ] + [both(jax_adversarial(5, batch=2, seed=4))]
+
+
+@pytest.mark.parametrize("entry,keyword", BATCH_CASES, ids=[f"{e}-{k}" for e, k in BATCH_CASES])
+def test_batched_engines_take_the_jax_keywords(entry, keyword):
+    assert keyword in inspect.signature(getattr(pbatched, entry)).parameters
+    pairs = _batch_histories()
+    out = {}
+    for who, mod, hists, enc_batch in (
+        ("jax", jbatched, [j for j, _ in pairs], jax_encode_batch),
+        ("port", pbatched, [p for _, p in pairs], encode_batch),
+    ):
+        lanes = [mod.BatchLane(h, e) for h, e in zip(hists, enc_batch(hists))]
+        kw = {keyword: BATCH_SETTINGS[keyword]}
+        if who == "port" and entry == "check_batch_vmap":
+            kw["device"] = "cpu"
+        verdicts = getattr(mod, entry)(lanes, **kw)
+        out[who] = [(v.engine, v.result and v.result.outcome.value, v.layers, v.skipped) for v in verdicts]
+    assert out["port"] == out["jax"]
+
+
+def test_check_native_takes_enc_like_jax():
+    assert "enc" in inspect.signature(pnative.check_native).parameters
+    for hj, hp in _batch_histories():
+        jenc, penc = jax_encode_batch([hj, hj])[0], encode_batch([hp, hp])[0]
+        rj = jnative.check_native(hj, enc=jenc, prune=True)
+        rp = pnative.check_native(hp, enc=penc, prune=True)
+        assert (rp.outcome.value, rp.linearization, rp.deepest, rp.steps) == (
+            rj.outcome.value, rj.linearization, rj.deepest, rj.steps
+        )
