@@ -134,7 +134,22 @@ on the first failed phase:
    equal to ``check_native`` lane by lane, and every lane the card decided
    equal to the native verdict; (d) every fold call of (a)'s first launch
    and of (b) bit-exact against the plain fold, and the largest measured;
-13. the kernel list, one JSON line of kernel measurements, and as the last
+13. the frontier sharded over a mesh (``parallel/distributed.py``,
+   ``device.place_frontier``, ``check_device(mesh=)``): (a) adversarial
+   k=10, batch=100, seed 0, beam off, in a 2^19-row bucket (410,971 rows at
+   its peak) unsharded, over 2 and 4 shards on one card and, where there
+   are several cards, one shard a card — each OK with the JAX engine's
+   statistics (:data:`TIER_K10_STATS`), final frontier arrays and witness
+   equal to the unsharded run's, first and warm walls, host syncs and fold
+   launches a layer, bytes moved between shards, ``stats.shards`` and peak
+   memory; (b) the same history in a 2^18-row bucket through the spill over
+   2 shards, preempted after two segments (:func:`preempting`) and resumed
+   over 4: OK with the same statistics, both snapshots spent; (c) a process
+   group of one NCCL rank holding 2 shards: ``run_search`` SPMD on
+   adversarial k=4, batch=3, seed 5, ACCEPT after the one-process run's
+   layers with its frontier; (d) every fold call of (a)–(c) bit-exact
+   against the plain fold;
+14. the kernel list, one JSON line of kernel measurements, and as the last
    line ``{"ok": true, "device": {...}}``.
 
 Fold times are per call, from CUDA events: ``call`` with back-to-back
@@ -156,6 +171,7 @@ import hashlib
 import io
 import json
 import os
+import socket
 import sys
 import tempfile
 import threading
@@ -248,6 +264,11 @@ K10_WITNESS_SHA256 = "ad837407208873feb3760587aa3e0dae08c661b0d0efe630b60a12b915
 #: Peak frontier of adversarial k=12, batch=100, seed 0 (the JAX engine's
 #: record, ``BASELINE.md``: a count of the search, not of the hardware).
 K12_PEAK = 10_850_401
+#: phase 13: the shard counts on one card, the in-bucket run's bucket (the
+#: main path's k=10 peaks at 410,971 rows) and the sharded spill's
+MESH_SHARDS = (2, 4)
+MESH_BUCKET = 1 << 19
+MESH_SPILL_BUCKET = 1 << 18
 #: the campaign seed every builtin violation provably fires under
 CAMPAIGN_SEED = 11
 #: warm calls of the headline in phases 7 and 8, plain and pruned: one
@@ -1372,6 +1393,232 @@ def run_batch_phase(dev_mod, fold_cuda, fb, prepare, recheck_calls, measure, hea
     return out
 
 
+@contextlib.contextmanager
+def counting_exchange(distributed):
+    """Count what the mesh moves while inside: the bytes of the rows
+    ``FrontierMesh.exchange`` sends from one shard to another, and the
+    bytes of the vectors ``FrontierMesh.gather`` stacks."""
+    box = {"row_bytes": 0, "exchanges": 0, "gather_bytes": 0, "gathers": 0}
+    cls = distributed.FrontierMesh
+    real = cls.exchange, cls.gather
+
+    def exchange(self, pieces, sizes):
+        box["exchanges"] += 1
+        box["row_bytes"] += sum(p.numel() * p.element_size() for i, row in enumerate(pieces)
+                                for d, p in enumerate(row) if d != self.first + i)
+        return real[0](self, pieces, sizes)
+
+    def gather(self, vecs):
+        box["gathers"] += 1
+        box["gather_bytes"] += sum(v.numel() * v.element_size() for v in vecs)
+        return real[1](self, vecs)
+
+    cls.exchange, cls.gather = exchange, gather
+    try:
+        yield box
+    finally:
+        cls.exchange, cls.gather = real
+
+
+@contextlib.contextmanager
+def last_frontier(dev_mod):
+    """Keep the frontier of the last ``run_search`` call made through
+    ``dev_mod`` while inside (``box["frontier"]``)."""
+    box: dict = {}
+    real = dev_mod.run_search
+
+    def run(*a, **kw):
+        out = real(*a, **kw)
+        box["frontier"] = out.frontier
+        return out
+
+    dev_mod.run_search = run
+    try:
+        yield box
+    finally:
+        dev_mod.run_search = real
+
+
+def run_mesh_phase(dev_mod, distributed, fold_cuda, fb, prepare, adversarial_events, recheck_calls, events,
+                   device="cuda", bucket=MESH_BUCKET, spill_bucket=MESH_SPILL_BUCKET, shards=MESH_SHARDS,
+                   want_stats=TIER_K10_STATS, spill_stats=SPILL_K10_STATS) -> dict:
+    """Phase 13, the frontier sharded over a mesh (``parallel/distributed.py``,
+    ``device.place_frontier``, ``check_device(mesh=)``).  ``events`` is the
+    main path's adversarial k=10; ``want_stats`` its statistics beam off in
+    core, ``spill_stats`` through the spill.
+    Returns the fold's launches on the mesh paths and the phase's seconds."""
+    from s2_verification_tpu_torch.checker.checkpoint import load_checkpoint
+    from s2_verification_tpu_torch.models.encode import encode_history
+
+    t_phase = time.monotonic()
+    out: dict = {"launches_by_path": {}}
+    card = fb.card()
+    hist = prepare(events)
+
+    def gib(b):
+        return f"{b / 2**30:.3f} GiB"
+
+    # (a) The main path's history beam off in one bucket: unsharded, over
+    # meshes of several shards on one card and, where there are more, one
+    # shard a card; first call (fold inputs recorded) and warm.
+    meshes = [("unsharded", None)] + [
+        (f"{n} shards on {device}", distributed.frontier_mesh(devices=[device] * n)) for n in shards
+    ]
+    if device == "cuda" and torch.cuda.device_count() > 1:
+        every = distributed.frontier_mesh()
+        meshes.append((f"{every.size} shards, one a card", every))
+    kw = dict(max_frontier=bucket, beam=False, collect_stats=True, profile=True)
+    ref = None
+    for label, mesh in meshes:
+        opts = dict(kw, mesh=mesh) if mesh is not None else dict(kw, device=device)
+        runs = []
+        for record in (True, False):
+            with contextlib.ExitStack() as stack:
+                calls = stack.enter_context(fb.recording_folds(dev_mod)) if record else None
+                moved = stack.enter_context(counting_exchange(distributed))
+                last = stack.enter_context(last_frontier(dev_mod))
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                fold_cuda.reset_launches()
+                syncs0 = dev_mod.SYNCS[0]
+                t0 = time.monotonic()
+                res = dev_mod.check_device(hist, **opts)
+                torch.cuda.synchronize()
+                runs.append(dict(res=res, wall=time.monotonic() - t0, syncs=dev_mod.SYNCS[0] - syncs0,
+                                 launches=fold_cuda.LAUNCHES["fold_lanes"], peak=torch.cuda.max_memory_allocated(),
+                                 moved=dict(moved), calls=calls,
+                                 frontier=dev_mod.gather_frontier(last["frontier"])))
+        first, warm = runs
+        res = first["res"]
+        tag = f"mesh (a): adversarial k=10, batch=100, seed 0, beam off, {bucket}-row bucket, {label}"
+        got = {k: getattr(res.stats, k) for k in want_stats}
+        for r in runs:
+            if (r["res"].outcome.value != "ok" or {k: getattr(r["res"].stats, k) for k in want_stats} != want_stats
+                    or not replay_ok(hist, r["res"].linearization or [])):
+                fail(f"{tag}: {r['res'].outcome.value} with statistics {got} (want {want_stats}), "
+                     "or the witness does not replay")
+        if len(first["calls"]) != first["launches"] or first["launches"] == 0:
+            fail(f"{tag}: {first['launches']} fold launches, {len(first['calls'])} recorded")
+        if ref is None:
+            ref = first
+        for r in runs:
+            same = all(torch.equal(a.cpu(), b.cpu()) for a, b in zip(r["frontier"], ref["frontier"]))
+            if not same or r["res"].linearization != ref["res"].linearization:
+                fail(f"{tag}: the final frontier arrays or the witness differ from the unsharded run's")
+        layers = res.stats.layers
+        mv = first["moved"]
+        sh = res.stats.shards
+        print(
+            f"{tag}: OK, statistics {json.dumps(got)} == the unsharded run's and the JAX engine's; final "
+            f"frontier arrays ({ref['frontier'].capacity} rows) and witness == the unsharded run's, witness "
+            f"replays; first {first['wall']:.3f} s (fold inputs recorded), warm {warm['wall']:.3f} s; host "
+            f"syncs {first['syncs']} ({first['syncs'] / layers:.1f} a layer), fold launches {first['launches']} "
+            f"({first['launches'] / layers:.1f} a layer); rows between shards {mv['row_bytes']} bytes "
+            f"({mv['row_bytes'] / layers:.0f} a layer) in {mv['exchanges']} exchanges, {mv['gathers']} "
+            f"gathers of {mv['gather_bytes']} bytes; shards: peak occupancy {[e['peak_occupancy'] for e in sh]}, "
+            f"skew {[e['skew'] for e in sh]}, fetch wall {[e['collective_wall_s'] for e in sh]} s; peak memory "
+            f"{gib(first['peak'])} first, {gib(warm['peak'])} warm; card {card}",
+            flush=True,
+        )
+        recheck_calls(first.pop("calls"), tag)
+        out["launches_by_path"][f"adversarial k=10, beam off, {bucket}-row bucket, {label} (13a)"] = (
+            first["launches"])
+        if ref is not first:
+            del first["frontier"]
+    ref_lin = ref["res"].linearization
+    del ref
+
+    # (b) The sharded spill with a re-grant: two shards, preempted after two
+    # segments, resumed over four.
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = os.path.join(tmp, "k10.ck")
+        kw_b = dict(max_frontier=spill_bucket, beam=False, spill=True, collect_stats=True, checkpoint_path=ck)
+        segs = {"n": 0}
+
+        def after_two(_max_layers, _last):
+            segs["n"] += 1
+            return segs["n"] == 3
+
+        tag = f"mesh (b): adversarial k=10, {spill_bucket}-row bucket and the spill, 2 shards, resumed over 4"
+        with fb.recording_folds(dev_mod) as calls:
+            fold_cuda.reset_launches()
+            try:
+                with preempting(dev_mod, after_two):
+                    dev_mod.check_device(hist, mesh=distributed.frontier_mesh(devices=[device] * 2), **kw_b)
+            except KeyboardInterrupt:
+                pass
+            else:
+                fail(f"{tag}: not preempted")
+            first_launches = fold_cuda.LAUNCHES["fold_lanes"]
+            snaps = [os.path.basename(p) for p in (ck, ck + ".spill.npz") if os.path.exists(p)]
+            if not snaps:
+                fail(f"{tag}: no snapshot after the preemption")
+            saved = load_checkpoint(ck) if os.path.exists(ck) else None
+            fold_cuda.reset_launches()
+            t0 = time.monotonic()
+            res = dev_mod.check_device(hist, mesh=distributed.frontier_mesh(devices=[device] * 4), **kw_b)
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t0
+            resumed_launches = fold_cuda.LAUNCHES["fold_lanes"]
+        got = {k: getattr(res.stats, k) for k in spill_stats}
+        left = [p for p in (ck, ck + ".spill.npz") if os.path.exists(p)]
+        if (res.outcome.value != "ok" or got != spill_stats or left or not replay_ok(hist, res.linearization or [])
+                or len(res.linearization) != len(ref_lin)):
+            fail(f"{tag}: {res.outcome.value} with {got} (want {spill_stats}), snapshots left {left}, or the "
+                 "witness does not replay at the unsharded run's length")
+        print(
+            f"{tag}: preempted after 2 segments ({snaps}"
+            + (f": {saved.f}-row bucket, layer {saved.layers_done}" if saved else "")
+            + f"), resumed over 4 shards in {wall:.3f} s: OK, statistics == the uninterrupted run's "
+            f"{json.dumps(got)}, witness replays at the unsharded run's length ({len(ref_lin)} ops), both "
+            f"snapshots spent; shards {[e['peak_occupancy'] for e in res.stats.shards]}; fold launches "
+            f"{first_launches} + {resumed_launches}; card {card}",
+            flush=True,
+        )
+        recheck_calls(calls, tag)
+        del calls
+    out["launches_by_path"]["adversarial k=10, 2^18-row bucket and the spill, 2 shards resumed over 4 (13b)"] = (
+        first_launches + resumed_launches)
+
+    # (c) SPMD: one process group of one rank that holds two shards.
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    distributed.init_distributed(f"127.0.0.1:{port}", 1, 0, local_device_count=2)
+    try:
+        supported = distributed.multiprocess_supported()
+        mesh = distributed.frontier_mesh()
+        enc = encode_history(prepare(adversarial_events(4, batch=3, seed=5)))
+        tables = dev_mod.build_tables(enc, device)
+        cap = enc.total_remaining + 2
+        want = dev_mod.run_search(tables, dev_mod.init_frontier(enc, 256, device), cap, allow_prune=False)
+        with fb.recording_folds(dev_mod) as calls:
+            fold_cuda.reset_launches()
+            got = dev_mod.run_search(tables, dev_mod.place_frontier(dev_mod.init_frontier(enc, 256, device), mesh),
+                                     cap, allow_prune=False)
+            launches = fold_cuda.LAUNCHES["fold_lanes"]
+        import torch.distributed as dist
+
+        backend = dist.get_backend()
+        same = all(torch.equal(a, b) for a, b in zip(dev_mod.gather_frontier(got.frontier), want.frontier))
+        if (got.stop_code != dev_mod.STOP_ACCEPT or (got.layers, got.max_live, got.expanded)
+                != (want.layers, want.max_live, want.expanded) or not same):
+            fail(f"mesh (c): the SPMD run stopped {got.stop_code} after {got.layers} layers (one process: "
+                 f"{want.layers}), or its frontier differs")
+        print(f"mesh (c): {backend} process group of 1 rank holding {mesh.local} shards on {mesh.local_devices[0]} "
+              f"(multiprocess_supported {supported}): run_search SPMD on adversarial k=4, batch=3, seed 5, "
+              f"256-row bucket: ACCEPT after {got.layers} layers == the one-process run's, frontier == its; "
+              f"fold launches {launches}", flush=True)
+        recheck_calls(calls, "mesh (c)")
+    finally:
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
+    out["launches_by_path"]["adversarial k=4, run_search SPMD, 1 rank of 2 shards (13c)"] = launches
+    out["seconds"] = time.monotonic() - t_phase
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1385,6 +1632,7 @@ def main() -> int:
     from s2_verification_tpu_torch.checker.oracle import check
     from s2_verification_tpu_torch.collector.adversarial import adversarial_events
     from s2_verification_tpu_torch.ops import fold_cuda, xxh3
+    from s2_verification_tpu_torch.parallel import distributed
     from s2_verification_tpu_torch.utils import events as ev
 
     t_start = time.monotonic()
@@ -1996,6 +2244,12 @@ def main() -> int:
     print(f"phase 12 (batched lanes): {phase12['seconds']:.1f} s", flush=True)
     kernels[0]["launches_by_path"].update(phase12["launches_by_path"])
     kernels[0]["batched_call"] = {k: phase12["batched_call"][k] for k in ("ms", "device_ms", "plain_ms", "bound_ms")}
+
+    # -- 13. the mesh --------------------------------------------------------
+    phase13 = run_mesh_phase(dev_mod, distributed, fold_cuda, fb, prepare, adversarial_events, recheck_calls,
+                             main_events)
+    print(f"phase 13 (the mesh): {phase13['seconds']:.1f} s", flush=True)
+    kernels[0]["launches_by_path"].update(phase13["launches_by_path"])
 
     print(f"kernels: {', '.join(k['name'] for k in kernels)}", flush=True)
     print(f"total {time.monotonic() - t_start:.1f} s", flush=True)

@@ -59,11 +59,16 @@ committed layer records each child row's parent row and ``op*2 + branch``,
 a forced stretch stops after one op, and an OK walks
 the log back from the accept row (:func:`_witness_linearization`).
 
+With ``mesh`` (:mod:`..parallel.distributed`) the frontier axis is
+sharded over several shards (:func:`place_frontier`), on one device or
+several, and :func:`run_search` runs each layer's per-row work on the
+shards' devices and its cross-row work — the dedup, beam selection and
+compaction — through one routing helper (:func:`_route`), so that the
+sharded search computes the unsharded one's frontiers row for row.
+
 Soundness under capacity pressure mirrors the JAX engine: an OK is always
 conclusive; a dead end after beam pruning is UNKNOWN and
-:func:`check_device_auto` escalates to the exhaustive phase.  The one tier
-of the JAX engine that is not ported yet, the mesh, raises
-``NotImplementedError`` naming itself, never answers UNKNOWN in its place.
+:func:`check_device_auto` escalates to the exhaustive phase.
 """
 
 from __future__ import annotations
@@ -110,6 +115,7 @@ from .stats import FrontierStats
 __all__ = [
     "SearchTables",
     "Frontier",
+    "ShardedFrontier",
     "RunOut",
     "DeviceUnavailable",
     "resolve_device",
@@ -117,6 +123,9 @@ __all__ = [
     "tables_from_arrays",
     "init_frontier",
     "frontier_from_arrays",
+    "place_frontier",
+    "gather_frontier",
+    "shard_tables",
     "can_exact_pack",
     "run_search",
     "run_search_lanes",
@@ -189,10 +198,23 @@ class Frontier(NamedTuple):
         return int(self.valid.shape[0])
 
 
+class ShardedFrontier(NamedTuple):
+    """A frontier placed on a mesh (:func:`place_frontier`): ``blocks`` are
+    this process's shards in shard order, each a :class:`Frontier` of
+    ``F / mesh.size`` consecutive rows on its shard's device."""
+
+    blocks: tuple
+    mesh: object
+
+    @property
+    def capacity(self) -> int:
+        return self.blocks[0].capacity * self.mesh.size
+
+
 class RunOut(NamedTuple):
     """Result of one :func:`run_search` call (scalars already on the host)."""
 
-    frontier: Frontier  # accepting/resume frontier (closed) or children
+    frontier: Frontier  # accepting/resume frontier (closed) or children (a ShardedFrontier over a mesh)
     stop_code: int  # 0 running, 1 accept, 2 empty, 3 capacity
     accept_idx: int
     layers: int
@@ -433,6 +455,90 @@ def init_frontier(enc: EncodedHistory, capacity: int, device) -> Frontier:
     return frontier_from_arrays(
         dict(counts=counts, tail=tail, hi=hi, lo=lo, tok=tok, valid=valid), device
     )
+
+
+def place_frontier(frontier: Frontier, mesh) -> ShardedFrontier:
+    """Shard the frontier axis evenly over ``mesh`` (the JAX engine's
+    ``P("fr")``): shard ``s`` holds rows ``s·F/n ..`` on its device.  Under
+    a process group every process passes the whole frontier and keeps its
+    own shards.  The search tables are replicated by :func:`run_search`,
+    once per distinct device."""
+    n, f = mesh.size, frontier.capacity
+    if f % n:
+        raise ValueError(f"a {f}-row frontier does not shard evenly over {n} shards")
+    fs = f // n
+    return ShardedFrontier(
+        tuple(
+            Frontier(*(x[s * fs : (s + 1) * fs].to(d) for x in frontier))
+            for s, d in enumerate(mesh.local_devices, mesh.first)
+        ),
+        mesh,
+    )
+
+
+def gather_frontier(fr: Frontier | ShardedFrontier) -> Frontier:
+    """A placed frontier's shards as one :class:`Frontier` on the first
+    shard's device (a :class:`Frontier` passes through): the host-side
+    consumers the JAX engine's ``check_device`` materializes too — escalation, checkpoints,
+    the spill's host matrix, the accept row, final states and refusals.
+    The layer loop never calls it.  Raises ``NotImplementedError`` for a
+    multi-process mesh, whose other shards this process does not hold."""
+    if not isinstance(fr, ShardedFrontier):
+        return fr
+    if fr.mesh.world > 1:
+        raise NotImplementedError(
+            "gathering a frontier placed over a multi-process mesh: run run_search SPMD "
+            "and read its scalars, as in the JAX package"
+        )
+    dev = fr.mesh.devices[0]
+    return Frontier(*(torch.cat([x.to(dev) for x in xs]) for xs in zip(*fr.blocks)))
+
+
+def _fetch_matrix(x: torch.Tensor) -> list[list[int]]:
+    """Bring a small 2-D tensor to the host (one counted synchronisation)."""
+    SYNCS[0] += 1
+    return x.to(torch.int64).tolist()
+
+
+def _shard_occupancy(frontier: ShardedFrontier, mesh):
+    """Per-shard live-row counts of a placed frontier, and the wall of
+    their one fetch: the segment's cross-shard sync barrier, whose time is
+    the collective/straggler cost the per-shard statistics report."""
+    t0 = time.monotonic()
+    per = _fetch_matrix(mesh.gather([b.valid.sum().reshape(1) for b in frontier.blocks]))
+    return np.asarray([r[0] for r in per], dtype=np.int64), time.monotonic() - t0
+
+
+def _note_shard_stats(stats: FrontierStats, mesh, live_per_shard, sync_s: float) -> None:
+    """Fold one segment's per-shard occupancy into ``stats.shards`` (the
+    JAX engine's entries, keyed by the shard's device string).
+
+    A checkpoint resumed onto a *different* device set carries the old
+    mesh's shard summary; the summary describes the current mesh, so a
+    device-set mismatch starts it fresh.
+    """
+    devs = [str(d) for d in mesh.devices]
+    if len(stats.shards) != len(devs) or any(e.get("device") != d for e, d in zip(stats.shards, devs)):
+        stats.shards = [
+            {
+                "shard": i,
+                "device": d,
+                "peak_occupancy": 0,
+                "occupancy_sum": 0,
+                "segments": 0,
+                "collective_wall_s": 0.0,
+                "skew": 1.0,
+            }
+            for i, d in enumerate(devs)
+        ]
+    for e, n in zip(stats.shards, live_per_shard):
+        e["peak_occupancy"] = max(e["peak_occupancy"], int(n))
+        e["occupancy_sum"] += int(n)
+        e["segments"] += 1
+        e["collective_wall_s"] = round(e["collective_wall_s"] + sync_s, 6)
+    mean_peak = sum(e["peak_occupancy"] for e in stats.shards) / len(devs)
+    for e in stats.shards:
+        e["skew"] = round(e["peak_occupancy"] / mean_peak, 4) if mean_peak else 1.0
 
 
 # ---------------------------------------------------------------------------
@@ -699,6 +805,38 @@ def _expand_slice(tables: SearchTables, fr: Frontier, cbase=None, nl: int = 1):
     return t2, h2, k2, valid2, op2, parent2, chain2, cand
 
 
+def _child_counts(fr: Frontier, parent2, chain2) -> torch.Tensor:
+    """The children's counts rows: the parent's, plus one on the chain
+    linearized."""
+    ar = torch.arange(fr.counts.shape[1], device=fr.counts.device)
+    return fr.counts[parent2] + (chain2[:, None] == ar).long()
+
+
+def _child_hashes(tables: SearchTables, fr: Frontier, t2, h2, k2, parent2, chain2, pk2, cbase=None):
+    """The two u32 lane hashes of each child's identity, over the packed
+    key ``pk2``, or the Zobrist counts hash (updated incrementally from the
+    parent's) when it is None; ``cbase`` as in :func:`_chains`."""
+    hi2, lo2 = shr(h2, 32), h2 & _M32
+    if pk2 is not None:
+        pkh2, pkl2 = shr(pk2, 32), pk2 & _M32
+        return (
+            _mix_hash([pkh2, pkl2, t2, hi2, lo2, k2], 0x811C9DC5),
+            _mix_hash([pkl2, pkh2, t2, hi2, lo2, k2], 0x9747B28C),
+        )
+    pz1 = _zob_fold(tables.zob1, fr.counts, cbase)
+    pz2 = _zob_fold(tables.zob2, fr.counts, cbase)
+    cnt_pc = fr.counts[parent2, chain2]
+    zc2 = chain2 if cbase is None else cbase[parent2] + chain2
+    cz1 = pz1[parent2] ^ tables.zob1[zc2, cnt_pc] ^ tables.zob1[zc2, cnt_pc + 1]
+    cz2 = pz2[parent2] ^ tables.zob2[zc2, cnt_pc] ^ tables.zob2[zc2, cnt_pc + 1]
+    return _mix_hash([cz1, t2, hi2, lo2, k2], 0x811C9DC5), _mix_hash([cz2, t2, hi2, lo2, k2], 0x9747B28C)
+
+
+def _probe_table_size(e2: int) -> int:
+    """Slots of the probe table over ``e2`` children."""
+    return 1 << max(1, (e2 - 1).bit_length())
+
+
 def _probe_dedup(tables: SearchTables, fr: Frontier, t2, h2, k2, valid2, parent2, chain2, pk2,
                  cbase=None, nl: int = 1):
     """Scatter-min hash-table dedup of a layer's children.  Equal children
@@ -715,29 +853,14 @@ def _probe_dedup(tables: SearchTables, fr: Frontier, t2, h2, k2, valid2, parent2
     exact_pack = pk2 is not None
     e2 = valid2.shape[0]
     dev = valid2.device
-    ar = torch.arange(fr.counts.shape[1], device=dev)
-    hi2, lo2 = shr(h2, 32), h2 & _M32
-    if exact_pack:
-        pkh2, pkl2 = shr(pk2, 32), pk2 & _M32
-        hh1 = _mix_hash([pkh2, pkl2, t2, hi2, lo2, k2], 0x811C9DC5)
-        hh2 = _mix_hash([pkl2, pkh2, t2, hi2, lo2, k2], 0x9747B28C)
-    else:
-        # Zobrist counts hash, updated incrementally per child.
-        pz1 = _zob_fold(tables.zob1, fr.counts, cbase)
-        pz2 = _zob_fold(tables.zob2, fr.counts, cbase)
-        cnt_pc = fr.counts[parent2, chain2]
-        zc2 = chain2 if cbase is None else cbase[parent2] + chain2
-        cz1 = pz1[parent2] ^ tables.zob1[zc2, cnt_pc] ^ tables.zob1[zc2, cnt_pc + 1]
-        cz2 = pz2[parent2] ^ tables.zob2[zc2, cnt_pc] ^ tables.zob2[zc2, cnt_pc + 1]
-        hh1 = _mix_hash([cz1, t2, hi2, lo2, k2], 0x811C9DC5)
-        hh2 = _mix_hash([cz2, t2, hi2, lo2, k2], 0x9747B28C)
-    tsz = 1 << max(1, (e2 // nl - 1).bit_length())
+    hh1, hh2 = _child_hashes(tables, fr, t2, h2, k2, parent2, chain2, pk2, cbase)
+    tsz = _probe_table_size(e2 // nl)
     idx = torch.arange(e2, device=dev)
     keep_u = torch.zeros(e2, dtype=torch.bool, device=dev)
     surv = valid2
     seg = idx // (e2 // nl) * tsz if nl > 1 else None
     if not exact_pack:
-        cc_i = fr.counts[parent2] + (chain2[:, None] == ar).long()
+        cc_i = _child_counts(fr, parent2, chain2)
     for r in range(3):
         slot = (hh1 + r * (hh2 | 1)) & (tsz - 1)
         if nl > 1:
@@ -752,13 +875,20 @@ def _probe_dedup(tables: SearchTables, fr: Frontier, t2, h2, k2, valid2, parent2
         if exact_pack:
             cnt_eq = pk2 == pk2[w]
         else:
-            cc_w = fr.counts[parent2[w]] + (chain2[w][:, None] == ar).long()
-            cnt_eq = (cc_i == cc_w).all(1)
+            cnt_eq = (cc_i == cc_i[w]).all(1)
         eq = (t2 == t2[w]) & (h2 == h2[w]) & (k2 == k2[w]) & cnt_eq
         dup = surv & ~is_win & eq
         keep_u = keep_u | is_win
         surv = surv & ~is_win & ~dup
     return keep_u | surv
+
+
+def _child_opens(tables: SearchTables, fr: Frontier, parent2, op2, cbase=None) -> torch.Tensor:
+    """Each child's lazy-order rank, the beam priority class: indefinite
+    appends linearized in all (fewest first), clamped to the class range."""
+    lc1 = tables.opens_tab.shape[1] - 1
+    p_opens = tables.opens_tab[_chains(fr.counts, cbase), fr.counts.clamp(max=lc1)].sum(1)
+    return (p_opens[parent2] + tables.is_indef[op2].long()).clamp(max=_OPENS_CAP - 1)
 
 
 def _expand_layer(
@@ -812,10 +942,7 @@ def _expand_layer(
     keep = keep.view(nl, -1)
     n_unique = keep.sum(1)
 
-    # Lazy-order rank: total indefinite appends linearized (fewest first).
-    lc1 = tables.opens_tab.shape[1] - 1
-    p_opens = tables.opens_tab[_chains(fr.counts, cbase), fr.counts.clamp(max=lc1)].sum(1)
-    opens2 = (p_opens[parent2] + tables.is_indef[op2].long()).clamp(max=_OPENS_CAP - 1).view(nl, -1)
+    opens2 = _child_opens(tables, fr, parent2, op2, cbase).view(nl, -1)
 
     if allow_prune:
         # Sort-free beam selection: bincount the priority classes, find the
@@ -975,30 +1102,18 @@ def _close_and_pin(tables: SearchTables, fr: Frontier) -> Frontier:
     return fr._replace(counts=counts, valid=fr.valid & ~(fr.tail > _row_tail_pin(tables, counts)))
 
 
-def _spec_dive(
-    tables: SearchTables, fr: Frontier, depth: int, width: int, exact_pack: bool, sort_dedup: bool
-):
-    """One speculative beam dive (the JAX engine's ``_spec_dive``).
-
-    Copies the ``width`` best rows off the closed, pinned entry frontier —
-    ordered by the lazy beam priority, fewest linearized indefinite appends
-    first, dead rows last, by a stable sort — and expands them up to
-    ``depth`` layers, checking for an accept after each.  Every dive row is
-    a real reachable configuration (each layer step-validates its states),
-    so an accepting row is conclusive.  An entry frontier that already
-    accepts is the exact loop's business: the dive stands down.
-
-    Returns ``(found, k, beam, idx, ops)``: whether the dive found an
-    accept (its row ``idx`` of ``beam``, which has ``ops`` ops committed),
-    and the dive layers it ran.
-    """
-    c = fr.counts.shape[1]
-    ar = torch.arange(c, device=fr.counts.device)
-    entry = _close_and_pin(tables, fr)
+def _dive_keys(tables: SearchTables, entry: Frontier) -> torch.Tensor:
+    """The dive's row order key over a closed, pinned frontier: the lazy
+    beam priority, fewest linearized indefinite appends first, dead rows
+    last."""
+    ar = torch.arange(entry.counts.shape[1], device=entry.counts.device)
     opens = tables.opens_tab[ar, entry.counts].sum(1)
-    key = torch.where(entry.valid, opens.clamp(max=_OPENS_CAP), 2 * _OPENS_CAP)
-    order = torch.argsort(key, stable=True)[:width]
-    beam = Frontier(*(x[order] for x in entry))
+    return torch.where(entry.valid, opens.clamp(max=_OPENS_CAP), 2 * _OPENS_CAP)
+
+
+def _dive(tables: SearchTables, beam: Frontier, depth: int, exact_pack: bool, sort_dedup: bool):
+    """Expand the dive rows ``beam`` up to ``depth`` layers, checking for an
+    accept after each; returns as :func:`_spec_dive` does."""
     acc = _accept_rows(tables, beam.counts, beam.valid)
     entry_acc, alive, idx = _fetch(acc.any(), beam.valid.any(), _first_true(acc))
     done, k, ops = entry_acc, 0, 0
@@ -1012,6 +1127,27 @@ def _spec_dive(
         i = _first_true(acc)
         done, alive, idx, ops = _fetch(acc.any(), beam.valid.any(), i, beam.counts[i].sum())
     return bool(done and not entry_acc), k, beam, idx, ops
+
+
+def _spec_dive(
+    tables: SearchTables, fr: Frontier, depth: int, width: int, exact_pack: bool, sort_dedup: bool
+):
+    """One speculative beam dive (the JAX engine's ``_spec_dive``).
+
+    Copies the ``width`` best rows off the closed, pinned entry frontier —
+    ordered by :func:`_dive_keys`, by a stable sort — and expands them up
+    to ``depth`` layers, checking for an accept after each.  Every dive row
+    is a real reachable configuration (each layer step-validates its
+    states), so an accepting row is conclusive.  An entry frontier that
+    already accepts is the exact loop's business: the dive stands down.
+
+    Returns ``(found, k, beam, idx, ops)``: whether the dive found an
+    accept (its row ``idx`` of ``beam``, which has ``ops`` ops committed),
+    and the dive layers it ran.
+    """
+    entry = _close_and_pin(tables, fr)
+    order = torch.argsort(_dive_keys(tables, entry), stable=True)[:width]
+    return _dive(tables, Frontier(*(x[order] for x in entry)), depth, exact_pack, sort_dedup)
 
 
 def run_search(
@@ -1060,6 +1196,13 @@ def run_search(
     """
     if spec_depth and log:
         raise ValueError("speculation drops the witness log: pass spec_depth=0 with log=True")
+    if isinstance(frontier, ShardedFrontier):
+        if chunk_rows and chunk_rows < frontier.capacity:
+            raise ValueError("chunk_rows: the chunked tier does not run over a mesh, whose shards hold the rows")
+        return _run_search_sharded(
+            tables, frontier, max_layers, allow_prune=allow_prune, exact_pack=exact_pack, spec_depth=spec_depth,
+            spec_width=spec_width, sort_dedup=sort_dedup, log=log,
+        )
     #: per committed layer: a device pair (parents, opbrs) of its live
     #: prefix, or a host triple for a forced step or an empty layer
     wlog: list = []
@@ -1430,6 +1573,487 @@ def run_search_lanes(tables: list[SearchTables], frontiers: list[Frontier], max_
 
 
 # ---------------------------------------------------------------------------
+# The sharded search: a frontier placed on a mesh
+# ---------------------------------------------------------------------------
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _ints_on(vals, dev) -> torch.Tensor:
+    """Host ints as an int64 vector on ``dev``, written by fills: no
+    host-to-device copy, which on a card would wait for its queue."""
+    out = torch.empty(len(vals), dtype=torch.int64, device=dev)
+    for i, v in enumerate(vals):
+        out[i] = int(v)
+    return out
+
+
+def _tables_to(t: SearchTables, dev) -> SearchTables:
+    rest = {k: getattr(t, k).to(dev) for k in SearchTables._fields if k not in ("ops", "can_close")}
+    return SearchTables(ops=DeviceOps(*(x.to(dev) for x in t.ops)), can_close=t.can_close, **rest)
+
+
+def shard_tables(tables: SearchTables, mesh) -> tuple:
+    """One table set per shard this process holds, copied once per
+    distinct device (shards that share a device share the tables)."""
+    by_dev: dict = {}
+    for d in mesh.local_devices:
+        if d not in by_dev:
+            by_dev[d] = _tables_to(tables, d)
+    return tuple(by_dev[d] for d in mesh.local_devices)
+
+
+def _route(mesh, dests: list, make_rows, sizes=None):
+    """The one routing helper of the sharded layer: send items between
+    shards.
+
+    ``dests[i]`` is the destination shard of each item of local shard
+    ``i`` (``mesh.size``: not sent); ``make_rows(i, idx)`` builds the int64
+    rows ``[len(idx), W]`` of local shard ``i``'s items ``idx``, called once
+    for the items that go.  ``sizes[s][d]``, the items shard ``s`` sends to
+    shard ``d``, is passed when the caller already knows it, else it is
+    gathered (one counted fetch for all shards).  Returns ``(received,
+    plan)``: ``received[j]`` the rows local shard ``j`` got, from shard 0
+    first and each shard's in its own order, and the plan by which
+    :func:`_reply` answers them."""
+    n = mesh.size
+    orders = [torch.sort(d, stable=True).indices for d in dests]
+    if sizes is None:
+        # A scatter-add, not ``bincount``, which sizes its output from a
+        # fetch of the largest value on a card.
+        counts = [torch.zeros(n + 1, dtype=torch.int64, device=d.device).scatter_add_(0, d, torch.ones_like(d))
+                  for d in dests]
+        sizes = _fetch_matrix(mesh.gather([x[:n] for x in counts]))
+    pieces = []
+    for i, order in enumerate(orders):
+        row = sizes[mesh.first + i]
+        pieces.append(list(make_rows(i, order[: sum(row)]).split(row)))
+    got = mesh.exchange(pieces, sizes)
+    return [torch.cat(g) for g in got], (orders, sizes)
+
+
+def _reply(mesh, plan, replies: list) -> list:
+    """Send ``replies[j]`` (rows aligned with :func:`_route`'s
+    ``received[j]``) back to where the items came from.  Returns, per local
+    shard, rows aligned with its items (zeros for the items not sent)."""
+    orders, sizes = plan
+    n, first = mesh.size, mesh.first
+    back = [[sizes[s][d] for s in range(n)] for d in range(n)]
+    got = mesh.exchange([list(r.split(back[first + j])) for j, r in enumerate(replies)], back)
+    out = []
+    for order, g in zip(orders, got):
+        rows = torch.cat(g)
+        full = torch.zeros((order.shape[0],) + tuple(rows.shape[1:]), dtype=rows.dtype, device=rows.device)
+        out.append(full.index_copy_(0, order[: rows.shape[0]], rows))
+    return out
+
+
+def _close_pin_shards(tables: tuple, blocks: list, dev0) -> list:
+    """Auto-close and tail-pin a process's shards, as :func:`_auto_close`
+    and the pin of :func:`run_search` do one frontier: each row sweeps to
+    its own fixpoint, so shards sweep together while a row of any of them
+    moves, one fetch a sweep for all.  Returns per shard ``(closed,
+    n_closed, n_eager, pin_dead)``."""
+    counts = [b.counts for b in blocks]
+    n_eager = [torch.zeros_like(b.tail) for b in blocks]
+    while tables[0].can_close:
+        steps = [_advance_now(t, cn, b) for t, cn, b in zip(tables, counts, blocks)]
+        active = [b.valid & adv.any(-1) for b, (adv, _) in zip(blocks, steps)]
+        if not _fetch(torch.stack([a.any().to(dev0) for a in active]).any())[0]:
+            break
+        for i, ((adv, eager), a) in enumerate(zip(steps, active)):
+            counts[i] = counts[i] + (adv & a[:, None]).long()
+            n_eager[i] = n_eager[i] + (eager & a[:, None]).sum(-1)
+    out = []
+    for t, b, cn, ne in zip(tables, blocks, counts, n_eager):
+        pin = b.valid & (b.tail > _row_tail_pin(t, cn))
+        out.append((b._replace(counts=cn, valid=b.valid & ~pin), (cn - b.counts).sum(-1), ne, pin))
+    return out
+
+
+def _probe_dedup_sharded(mesh, tables, blocks, kids, e2: int) -> list:
+    """:func:`_probe_dedup` over the shards' children: the table of ``e2``
+    global children is split into ``mesh.size`` slot ranges, and in each
+    round every surviving child goes to the shard that owns its slot with
+    its global index and identity; the owner runs the scatter-min and the
+    exact compare against the slot's winner, and the verdicts go back.  The
+    winners and the collisions kept are the unsharded table's."""
+    n, first = mesh.size, mesh.first
+    tsz = _probe_table_size(e2)
+    hh, ident = [], []
+    for t, b, k in zip(tables, blocks, kids):
+        hh.append(_child_hashes(t, b, k["t2"], k["h2"], k["k2"], k["parent2"], k["chain2"], k["pk2"]))
+        cnt = k["pk2"][:, None] if k["pk2"] is not None else _child_counts(b, k["parent2"], k["chain2"])
+        ident.append(torch.cat([k["g"][:, None], torch.stack([k["t2"], k["h2"], k["k2"]], 1), cnt], 1))
+    keep = [torch.zeros_like(k["valid2"]) for k in kids]
+    surv = [k["valid2"] for k in kids]
+    for r in range(3):
+        slots = [(h1 + r * (h2 | 1)) & (tsz - 1) for h1, h2 in hh]
+        dests = [torch.where(sv, sl * n // tsz, n) for sv, sl in zip(surv, slots)]
+        recv, plan = _route(mesh, dests, lambda i, idx: torch.cat([slots[i][idx, None], ident[i][idx]], 1))
+        flags = []
+        for j, rows in enumerate(recv):
+            lo = _cdiv((first + j) * tsz, n)
+            size = _cdiv((first + j + 1) * tsz, n) - lo
+            slot, g, rid = rows[:, 0] - lo, rows[:, 1], rows[:, 2:]
+            win = torch.full((size,), e2, dtype=torch.int64, device=rows.device)
+            win.scatter_reduce_(0, slot, g, "amin", include_self=True)
+            is_win = g == win[slot]
+            at = torch.zeros(size + 1, dtype=torch.int64, device=rows.device).scatter_(
+                0, torch.where(is_win, slot, size), torch.arange(rows.shape[0], device=rows.device)
+            )
+            dup = ~is_win & (rid == rid[at[slot]]).all(1)
+            flags.append((is_win.long() | (dup.long() << 1))[:, None])
+        for i, fl in enumerate(_reply(mesh, plan, flags)):
+            is_win = surv[i] & (fl[:, 0] & 1).bool()
+            dup = surv[i] & (fl[:, 0] & 2).bool()
+            keep[i] = keep[i] | is_win
+            surv[i] = surv[i] & ~is_win & ~dup
+    return [kp | sv for kp, sv in zip(keep, surv)]
+
+
+def _sort_dedup_sharded(mesh, tables, blocks, kids) -> list:
+    """Sort dedup (packed key) over the shards' children: each valid child
+    goes to the shard a hash of its identity picks, which sorts what it
+    got by :func:`_dedup_sort` in global-index order and keeps the head of
+    each identity run — the smallest global index, as unsharded."""
+    n = mesh.size
+    dests, ident = [], []
+    for t, b, k in zip(tables, blocks, kids):
+        hh1, _ = _child_hashes(t, b, k["t2"], k["h2"], k["k2"], k["parent2"], k["chain2"], k["pk2"])
+        dests.append(torch.where(k["valid2"], hh1 % n, n))
+        ident.append(torch.stack([k["g"], k["pk2"], k["t2"], k["h2"], k["k2"]], 1))
+    recv, plan = _route(mesh, dests, lambda i, idx: ident[i][idx])
+    flags = []
+    for rows in recv:
+        keep = torch.zeros(rows.shape[0], 1, dtype=torch.int64, device=rows.device)
+        if rows.shape[0]:
+            by_g = torch.sort(rows[:, 0]).indices
+            r = rows[by_g]
+            head, _sid, sidx, _ = _dedup_sort(torch.zeros_like(r[:, 0], dtype=torch.bool), tuple(r[:, 1:].unbind(1)))
+            keep.index_copy_(0, by_g[sidx], head.long()[:, None])
+        flags.append(keep)
+    return [fl[:, 0].bool() for fl in _reply(mesh, plan, flags)]
+
+
+def _expand_layer_sharded(
+    tables: tuple,
+    blocks: list,
+    mesh,
+    *,
+    allow_prune: bool,
+    exact_pack: bool = False,
+    sort_dedup: bool = False,
+    log: bool = False,
+):
+    """:func:`_expand_layer` over a placed frontier, equal to it row for
+    row.
+
+    The per-row work runs on each shard's device: candidates, one fold
+    call per shard, the step, the children's keys and hashes.  Each child
+    carries its index in the unsharded layout (``branch·F·C + row·C +
+    chain``), so a shard's children are two contiguous blocks of the global
+    order.  The cross-row work goes through :func:`_route`: the dedup
+    (:func:`_probe_dedup_sharded`, three fetches, or
+    :func:`_sort_dedup_sharded`, one), then one fetch of every (branch,
+    shard) block's priority-class histogram, from which the host works out
+    the beam threshold, each block's kept rows and their global slots; each
+    kept child then goes to the shard that owns its slot with its counts
+    row, state, global parent and (with ``log``) ``op*2 + branch``.
+
+    Returns ``(children, pruned, n_unique, expanded, live, wlog)``: the
+    children's blocks, host ints, and with ``log`` each shard's
+    ``(parent, opbr)``."""
+    n, first = mesh.size, mesh.first
+    fs, c = blocks[0].counts.shape
+    f, e = fs * n, fs * c
+    kids = []
+    for i, (t, b) in enumerate(zip(tables, blocks)):
+        t2, h2, k2, valid2, op2, parent2, chain2, cand = _expand_slice(t, b)
+        loc = torch.arange(2 * e, device=valid2.device)
+        kids.append(dict(
+            t2=t2, h2=h2, k2=k2, valid2=valid2, op2=op2, parent2=parent2, chain2=chain2, cand=cand,
+            g=loc + (first + i) * e + (loc >= e).long() * (f * c - e),
+            pk2=(b.counts * t.pack).sum(1)[parent2] + t.pack[chain2] if exact_pack else None,
+        ))
+    if exact_pack and sort_dedup:
+        keep = _sort_dedup_sharded(mesh, tables, blocks, kids)
+    else:
+        keep = _probe_dedup_sharded(mesh, tables, blocks, kids, 2 * f * c)
+    opens = [_child_opens(t, b, k["parent2"], k["op2"]).view(2, -1) for t, b, k in zip(tables, blocks, kids)]
+    hist = [
+        torch.zeros(2, _OPENS_CAP, dtype=torch.int64, device=o.device).scatter_add_(1, o, kp.view(2, -1).long())
+        for o, kp in zip(opens, keep)
+    ]
+    h = np.asarray(_fetch_matrix(mesh.gather([torch.cat([x.reshape(-1), k["cand"].sum().reshape(1)])
+                                               for x, k in zip(hist, kids)])))
+    # (branch, shard) blocks in the global child order: block b*n + s.
+    cnt = h[:, :-1].reshape(n, 2, _OPENS_CAP).transpose(1, 0, 2).reshape(2 * n, _OPENS_CAP)
+    n_unique = int(cnt.sum())
+    kept = cnt.sum(1)
+    vstar, thr = 0, None
+    if allow_prune:
+        cum = np.cumsum(cnt.sum(0))
+        pruned = bool((cum > f).any())
+        if pruned:
+            # The threshold class's first f - below children in global
+            # order: block b keeps those within its share of that budget.
+            vstar = int(np.argmax(cum > f))
+            below = int(cum[vstar - 1]) if vstar else 0
+            inc = cnt[:, vstar]
+            thr = f - below - (np.cumsum(inc) - inc)
+            kept = cnt[:, :vstar].sum(1) + np.clip(thr, 0, inc)
+    else:
+        pruned = n_unique > f
+    start = np.cumsum(kept) - kept
+    sizes = [[0] * n for _ in range(n)]
+    for blk in range(2 * n):
+        a0, a1 = int(start[blk]), min(int(start[blk] + kept[blk]), f)
+        for d in range(n):
+            sizes[blk % n][d] += max(0, min(a1, (d + 1) * fs) - max(a0, d * fs))
+    dests, slots = [], []
+    for i, (kp, o) in enumerate(zip(keep, opens)):
+        s = first + i
+        pos = []
+        for br, (kb, ob) in enumerate(zip(kp.view(2, -1), o)):
+            blk = br * n + s
+            if thr is not None:
+                in_class = kb & (ob == vstar)
+                kb = kb & ((ob < vstar) | (in_class & (in_class.long().cumsum(0) <= int(thr[blk]))))
+            p = kb.long().cumsum(0) - 1 + int(start[blk])
+            pos.append(torch.where(kb & (p < f), p, -1))
+        pos = torch.cat(pos)
+        dests.append(torch.where(pos >= 0, pos // fs, n))
+        slots.append(pos % fs)
+
+    def make_rows(i, idx):
+        k, b = kids[i], blocks[i]
+        p = k["parent2"][idx]
+        cols = [slots[i][idx, None], _child_counts(b, p, k["chain2"][idx]),
+                torch.stack([k["t2"][idx], k["h2"][idx], k["k2"][idx], p + (first + i) * fs], 1)]
+        if log:
+            cols.append((k["op2"][idx] * 2 + (idx >= e).long())[:, None])
+        return torch.cat(cols, 1)
+
+    recv, _plan = _route(mesh, dests, make_rows, sizes)
+    children, wlog = [], []
+    for rows in recv:
+        dev, at = rows.device, rows[:, 0]
+
+        def put(col):
+            return torch.zeros(fs, dtype=torch.int64, device=dev).index_copy_(0, at, col)
+
+        counts = torch.zeros(fs, c, dtype=torch.int64, device=dev).index_copy_(0, at, rows[:, 1 : 1 + c])
+        valid = torch.zeros(fs, dtype=torch.bool, device=dev).index_fill_(0, at, True)
+        children.append(Frontier(counts, put(rows[:, 1 + c]), put(rows[:, 2 + c]), put(rows[:, 3 + c]), valid))
+        if log:
+            wlog.append((put(rows[:, 4 + c]), put(rows[:, 5 + c])))
+    live = min(int(kept.sum()), f)
+    return children, pruned, n_unique, int(h[:, -1].sum()), live, (wlog if log else None)
+
+
+def _spec_dive_sharded(tables, blocks, mesh, depth, width, exact_pack, sort_dedup):
+    """:func:`_spec_dive` over a placed frontier: the order keys of every
+    shard (``F`` integers) are gathered and stably sorted, the ``width``
+    best rows go to shard 0, whose device dives them alone.  Returns
+    ``(found, k, acc_blocks, counts)``: on an accept, ``acc_blocks`` is the
+    entry frontier with every row invalid but global row 0, the accepting
+    row, and ``counts`` its counts."""
+    n, first = mesh.size, mesh.first
+    fs, c = blocks[0].counts.shape
+    dev0 = mesh.local_devices[0]
+    entry = [x[0] for x in _close_pin_shards(tables, blocks, dev0)]
+    keys = mesh.gather([_dive_keys(t, e) for t, e in zip(tables, entry)]).reshape(-1)
+    order = torch.sort(keys, stable=True).indices[:width]
+    rank = torch.full((n * fs,), -1, dtype=torch.int64, device=keys.device)
+    rank.index_copy_(0, order, torch.arange(width, device=keys.device))
+    ranks = [rank[s * fs : (s + 1) * fs].to(e.valid.device) for s, e in enumerate(entry, first)]
+
+    def make_rows(i, idx):
+        e = entry[i]
+        return torch.cat([ranks[i][idx, None], e.counts[idx],
+                          torch.stack([e.tail[idx], e.hash[idx], e.tok[idx], e.valid[idx].long()], 1)], 1)
+
+    recv, _ = _route(mesh, [torch.where(r >= 0, 0, n) for r in ranks], make_rows)
+    vecs = [torch.zeros(3 + c, dtype=torch.int64, device=b.valid.device) for b in blocks]
+    acc_blocks = None
+    if first == 0:
+        rows, dev = recv[0], recv[0].device
+
+        def put(col):
+            return torch.zeros(width, dtype=torch.int64, device=dev).index_copy_(0, rows[:, 0], col)
+
+        beam = Frontier(
+            torch.zeros(width, c, dtype=torch.int64, device=dev).index_copy_(0, rows[:, 0], rows[:, 1 : 1 + c]),
+            put(rows[:, 1 + c]), put(rows[:, 2 + c]), put(rows[:, 3 + c]), put(rows[:, 4 + c]).bool(),
+        )
+        found, k, beam, idx, ops = _dive(tables[0], beam, depth, exact_pack, sort_dedup)
+        vecs[0] = torch.cat([_ints_on((found, k, ops), dev), beam.counts[idx]])
+        if found:
+            acc_blocks = [Frontier(*(x.clone() for x in b)) for b in blocks]
+            for x, y in zip(acc_blocks[0], beam):
+                x[0] = y[idx]
+    found, k, _ops, *counts = _fetch_matrix(mesh.gather(vecs))[0]
+    if found:
+        if acc_blocks is None:
+            acc_blocks = [Frontier(*(x.clone() for x in b)) for b in blocks]
+        for i, b in enumerate(acc_blocks):
+            b.valid.zero_()
+            if first + i == 0:
+                b.valid[0] = True
+    return bool(found), k, acc_blocks, counts
+
+
+def _run_search_sharded(
+    tables, frontier: ShardedFrontier, max_layers: int, *, allow_prune: bool, exact_pack: bool,
+    spec_depth: int, spec_width: int, sort_dedup: bool, log: bool,
+) -> RunOut:
+    """:func:`run_search` over a placed frontier: the same loop, with each
+    layer's per-row work on the shards' devices and every fetch one for
+    all shards (:meth:`FrontierMesh.gather`).  A layer fetches once for its
+    head (accept, the lone-row test, the counters, the deepest row's
+    counts), once per auto-close sweep, and, when it expands, once for the
+    beam histogram plus the dedup's routes (three probe rounds, or one
+    sort); a forced stretch runs on the shard that holds its row and shares
+    its result in one more fetch.  Under a process group every process runs
+    this loop over its own shards and reads only what every process holds.
+    Returns a :class:`RunOut` whose ``frontier`` is placed on the same mesh
+    and whose other fields are the unsharded search's."""
+    mesh = frontier.mesh
+    if log and mesh.world > 1:
+        raise NotImplementedError(
+            "log=True over a multi-process mesh: the witness log is read on one host; "
+            "check_device runs in one process, as in the JAX package"
+        )
+    tables = shard_tables(tables, mesh) if isinstance(tables, SearchTables) else tuple(tables)
+    n, first = mesh.size, mesh.first
+    fs, c = frontier.blocks[0].counts.shape
+    dev0 = mesh.local_devices[0]
+    blocks = list(frontier.blocks)
+    wlog: list = []
+    stop = STOP_RUNNING
+    layers = accept_idx = auto_closed = expanded = eager_closed = pin_killed = want = 0
+    spec_layers = spec_accepts = spec_rollbacks = 0
+    pruned_ever = False
+    h0 = _fetch_matrix(mesh.gather([torch.cat([b.valid.sum().reshape(1), b.counts[0]]) for b in blocks]))
+    max_live = live = sum(r[0] for r in h0)
+    deep = h0[0][1:]
+    if spec_depth > 0 and spec_width > 0:
+        found, spec_layers, acc_blocks, dive_counts = _spec_dive_sharded(
+            tables, blocks, mesh, spec_depth, min(spec_width, fs * n), exact_pack, sort_dedup
+        )
+        if found:
+            blocks, stop, layers, live, spec_accepts, deep = acc_blocks, STOP_ACCEPT, spec_layers, 1, 1, dive_counts
+        elif spec_layers > 0:
+            spec_rollbacks = 1
+    while stop == STOP_RUNNING and layers < max_layers:
+        heads = _close_pin_shards(tables, blocks, dev0)
+        closed = [x[0] for x in heads]
+        vecs = []
+        for t, (cl, ac_n, eager_n, pin_dead) in zip(tables, heads):
+            acc = _accept_rows(t, cl.counts, cl.valid)
+            li = _first_true(cl.valid)
+            base = cl.counts[li]
+            nxt1, cand1 = _next_and_cands(t, base)
+            op1 = nxt1[_first_true(cand1)]
+            head = (acc.any(), _first_true(acc), cl.valid.any(), li, cl.valid.sum(), ac_n.sum(), eager_n.sum(),
+                    pin_dead.sum(), cand1.sum(), t.is_indef[op1], op1)
+            vecs.append(torch.cat([torch.stack([x.long() for x in head]), base]))
+        hv = _fetch_matrix(mesh.gather(vecs))
+        acc_sh = next((s for s in range(n) if hv[s][0]), None)
+        live_sh = next((s for s in range(n) if hv[s][2]), 0)
+        hb = hv[live_sh]
+        live_idx, op1_h, base_counts = live_sh * fs + hb[3], hb[10], hb[11:]
+        n_live = sum(r[4] for r in hv)
+        accept_any = acc_sh is not None
+        fastable = n_live == 1 and hb[8] == 1 and not hb[9]
+        pruned = False
+        deep_row = None
+        children_are_diag = False
+        layer_log = None
+        if accept_any:
+            children, n_unique, exp_n, n_steps, children_live = closed, 0, 0, 1, n_live
+        elif fastable:
+            hs, li = divmod(live_idx, fs)
+            children = list(closed)
+            fast = [torch.zeros(3 + c, dtype=torch.int64, device=b.valid.device) for b in closed]
+            if first <= hs < first + len(closed):
+                i = hs - first
+                cl, dev = closed[i], closed[i].valid.device
+                rows = torch.full((1,), li, dtype=torch.int64, device=dev)
+                fast_row, (alive_h, steps_h, ops_h), _ = _fast_multi(
+                    tables[i], cl, rows, torch.ones(1, dtype=torch.bool, device=dev),
+                    [1 if log else max_layers - layers],
+                )
+                children[i] = Frontier(*(x.index_put((rows,), y) for x, y in zip(cl, fast_row)), cl.valid)
+                fast[i] = torch.cat([_ints_on((alive_h[0], steps_h[0], ops_h[0]), dev), fast_row[0][0]])
+            n_unique, n_steps, _ops, *row = _fetch_matrix(mesh.gather(fast))[hs]
+            exp_n, children_live, children_are_diag = n_steps, n_live, True
+            if log:
+                layer_log = tuple(np.full(n_unique, v, np.int64) for v in (live_idx, live_idx, 2 * op1_h))
+            else:
+                deep_row = row
+        else:
+            children, pruned, n_unique, exp_n, children_live, lw = _expand_layer_sharded(
+                tables, closed, mesh, allow_prune=allow_prune, exact_pack=exact_pack, sort_dedup=sort_dedup, log=log
+            )
+            n_steps = 1
+            if log:
+                layer_log = tuple(
+                    torch.cat([x[: max(0, min(fs, children_live - s * fs))].to(torch.int32).to(dev0)
+                               for s, x in enumerate(xs)])
+                    for xs in zip(*lw)
+                )
+        empty = not accept_any and n_unique == 0
+        need_cap = (not allow_prune) and pruned
+        if accept_any:
+            stop = STOP_ACCEPT
+        elif empty:
+            stop = STOP_EMPTY
+        elif need_cap:
+            stop = STOP_CAPACITY
+        resume = accept_any or need_cap or (empty and not children_are_diag)
+        blocks = closed if resume else children
+        live = n_live if resume else children_live
+        if not need_cap:
+            if log and not accept_any:
+                wlog.append(layer_log)
+            layers += n_steps
+            max_live = max(max_live, children_live)
+            expanded += exp_n
+            deep = base_counts if deep_row is None else deep_row
+        else:
+            want = n_unique
+        auto_closed += sum(r[5] for r in hv)
+        eager_closed += sum(r[6] for r in hv)
+        pin_killed += sum(r[7] for r in hv)
+        pruned_ever = pruned_ever or pruned
+        accept_idx = acc_sh * fs + hv[acc_sh][1] if accept_any else 0
+    return RunOut(
+        frontier=ShardedFrontier(tuple(blocks), mesh),
+        stop_code=stop,
+        accept_idx=accept_idx,
+        layers=layers,
+        pruned_ever=pruned_ever,
+        max_live=max_live,
+        auto_closed=auto_closed,
+        expanded=expanded,
+        eager_closed=eager_closed,
+        pin_killed=pin_killed,
+        spec_layers=spec_layers,
+        spec_accepts=spec_accepts,
+        spec_rollbacks=spec_rollbacks,
+        deep_counts=_ints_on(deep, dev0),
+        deep_ops=sum(deep),
+        want=want,
+        live=live,
+        wlog=_fetch_log(wlog) if log else None,
+    )
+
+
+# ---------------------------------------------------------------------------
 # Host side: the bucket-escalation loop
 # ---------------------------------------------------------------------------
 
@@ -1514,10 +2138,6 @@ def _regrow_device(fr: Frontier, capacity: int) -> Frontier:
     return Frontier(*(g(x) for x in fr))
 
 
-_UNPORTED = {
-    "mesh": "multi-device sharding",
-}
-
 _STOP_NAMES = ("RUNNING", "ACCEPT", "EMPTY", "CAPACITY")
 
 #: spill slab ranges cut ahead of the one on the device (see _spill_search)
@@ -1531,15 +2151,6 @@ _WITNESS_CHUNK = 512
 #: expansion bucket: short, so that :func:`check_device` can downsize soon
 #: after the peak (it can only do so between segments)
 _BIG_TIER_CHUNK = 8
-
-
-def _refuse_unported(**opts) -> None:
-    for name, value in opts.items():
-        if value:
-            raise NotImplementedError(
-                f"{name}={value!r} needs the {_UNPORTED[name]} tier, which "
-                "s2_verification_tpu_torch does not have yet"
-            )
 
 
 # ---------------------------------------------------------------------------
@@ -1656,10 +2267,17 @@ def _spill_accept_states(
     slab of the accept layer and not only the slab that accepted, so that a
     spill OK reports the in-core path's ``final_states``.  One upload-only
     sweep of the layer, in the same slabs (auto-close never grows one)."""
-    acc = torch.as_tensor(np.asarray(accept_counts, np.int64), device=tables.is_indef.device)
+    acc = np.asarray(accept_counts, np.int64)
     out: set[StreamState] = set()
     for j in range(0, len(host), fill):
-        out |= _states_of(enc, *_accept_sweep_device(tables, to_device(host[j : j + fill]), acc))
+        slab = to_device(host[j : j + fill])
+        if isinstance(slab, ShardedFrontier):
+            # Each shard sweeps its own rows, with its device's tables.
+            pairs = zip(shard_tables(tables, slab.mesh), slab.blocks)
+        else:
+            pairs = [(tables, slab)]
+        for t, fr in pairs:
+            out |= _states_of(enc, *_accept_sweep_device(t, fr, torch.as_tensor(acc, device=fr.valid.device)))
     return sorted(out)
 
 
@@ -1681,6 +2299,7 @@ def _spill_search(
     sort_dedup: bool = False,
     profile: bool = False,
     profile_t0: float | None = None,
+    mesh=None,
 ) -> CheckResult:
     """Out-of-core exhaustive search (the JAX engine's ``_spill_search``):
     the frontier in host RAM as the ``[n, C+4]`` int32 matrix of
@@ -1709,7 +2328,9 @@ def _spill_search(
     nothing.  A slab that runs the device out of memory
     (``torch.cuda.OutOfMemoryError``) is freed and requeued at half the
     fill, which is re-raised at a fill of one row: the slab stays on the
-    same device, smaller — never a move to another device.
+    same device, smaller — never a move to another device.  With ``mesh``
+    every slab is placed on it (:func:`place_frontier`) and searched
+    sharded, with the tables of ``shard_tables``.
 
     With ``checkpoint_path`` the host matrix is written to
     ``<path>.spill.npz`` before every streamed layer and hybrid segment (the
@@ -1739,12 +2360,15 @@ def _spill_search(
     f_cap = max(f_cap, round_pow2(4 * max(c, 1), 2))
     spill_ck = f"{checkpoint_path}.spill.npz" if checkpoint_path else None
 
-    def to_device(mat: np.ndarray) -> Frontier:
-        return _rows_to_device(mat, f_cap, dev)
+    run_tables = tables if mesh is None else shard_tables(tables, mesh)
+
+    def to_device(mat: np.ndarray) -> Frontier | ShardedFrontier:
+        fr = _rows_to_device(mat, f_cap, dev)
+        return fr if mesh is None else place_frontier(fr, mesh)
 
     def run(mat: np.ndarray, max_layers: int) -> RunOut:
         return run_search(
-            tables, to_device(mat), max_layers, allow_prune=False, exact_pack=exact_pack,
+            run_tables, to_device(mat), max_layers, allow_prune=False, exact_pack=exact_pack,
             sort_dedup=sort_dedup,
         )
 
@@ -1796,12 +2420,13 @@ def _spill_search(
             if out.deep_ops > deep_sum:
                 deep_sum, deep = out.deep_ops, out.deep_counts.cpu().numpy().astype(np.int32)
             if out.stop_code == STOP_ACCEPT:
-                counts = out.frontier.counts[out.accept_idx].cpu().numpy()
+                whole = gather_frontier(out.frontier)
+                counts = whole.counts[out.accept_idx].cpu().numpy()
                 return conclude(
                     CheckResult(
                         CheckOutcome.OK,
                         linearization=witness_of(counts),
-                        final_states=_final_states_device(enc, out.frontier, out.accept_idx),
+                        final_states=_final_states_device(enc, whole, out.accept_idx),
                     )
                 )
             if out.stop_code == STOP_EMPTY:
@@ -1809,14 +2434,14 @@ def _spill_search(
                     CheckResult(
                         CheckOutcome.ILLEGAL,
                         deepest=_deepest_ops(enc, deep),
-                        refusals=_device_refusals(enc, history, out.frontier),
+                        refusals=_device_refusals(enc, history, gather_frontier(out.frontier)),
                     )
                 )
             # A capacity stop (or the layer cap): back to streaming from the
             # returned pre-expansion frontier, which just proved it cannot
             # expand in core; the next streamed layer's dedup re-arms the
             # hybrid.
-            host = _rows_to_host(out.frontier)
+            host = _rows_to_host(gather_frontier(out.frontier))
             try_incore = False
             continue
         children: list[np.ndarray] = []
@@ -1866,7 +2491,7 @@ def _spill_search(
             stats.expanded += out.expanded
             if out.stop_code == STOP_ACCEPT:
                 stats.layers += 1
-                counts = out.frontier.counts[out.accept_idx].cpu().numpy()
+                counts = gather_frontier(out.frontier).counts[out.accept_idx].cpu().numpy()
                 return conclude(
                     CheckResult(
                         CheckOutcome.OK,
@@ -1877,7 +2502,7 @@ def _spill_search(
             if out.deep_ops > deep_sum:
                 deep_sum, deep = out.deep_ops, out.deep_counts.cpu().numpy().astype(np.int32)
             if out.stop_code != STOP_EMPTY:
-                ch = _rows_to_host(out.frontier)
+                ch = _rows_to_host(gather_frontier(out.frontier))
                 children.append(ch)
                 children_rows += len(ch)
                 if children_rows > 2 * host_cap:
@@ -1982,6 +2607,17 @@ def check_device(
     dedups by a lexicographic sort (:func:`_dedup_sort`) in place of the
     probe table, and needs the packed key (``ValueError`` otherwise).
 
+    ``mesh`` (a :class:`..parallel.distributed.FrontierMesh` of one
+    process) shards the frontier over the mesh's shards, searched by the
+    sharded :func:`run_search`: the same frontiers and statistics as
+    unsharded, plus ``stats.shards`` (per-shard peak and summed live rows,
+    segments, fetch wall and skew, as in the JAX engine) and, in each
+    profile entry, the segment's live rows per shard (``shards``) and the
+    wall of their fetch (``sync_s``).  The smallest bucket is one row per
+    shard, and the device-resident tier is off: the aggregate memory comes
+    from the mesh.  The search runs on the mesh's devices; ``device``, if
+    given, must name their type.
+
     Accepted with no effect: ``state_slots`` (as in the JAX engine);
     ``pallas_fold``: the fold is always ``csrc/fold_lanes.cu`` on the card and its plain version on the
     CPU, never the plain version on the card.
@@ -2005,7 +2641,15 @@ def check_device(
     from scalars the search already fetched.
     """
     del state_slots, pallas_fold
-    _refuse_unported(mesh=mesh)
+    if mesh is not None:
+        if mesh.world > 1:
+            raise NotImplementedError(
+                "check_device over a multi-process mesh: check_device materializes whole frontiers "
+                "on one host; run run_search SPMD, as in the JAX package"
+            )
+        if device is not None and torch.device(device).type != mesh.devices[0].type:
+            raise ValueError(f"device={device!r} is not the mesh's ({mesh.devices[0]})")
+        device = mesh.devices[0]
     dev = resolve_device(device)
     collect_stats = collect_stats or profile
     syncs0 = SYNCS[0]
@@ -2028,6 +2672,7 @@ def check_device(
             res.stats = stats  # type: ignore[attr-defined]
         return res
     tables = build_tables(enc, dev, prune=prune)
+    run_tables = tables if mesh is None else shard_tables(tables, mesh)
     xp = can_exact_pack(enc) if exact_pack is None else bool(exact_pack)
     if sort_dedup and not xp:
         raise ValueError(
@@ -2038,9 +2683,16 @@ def check_device(
     cap_layers = int(enc.total_remaining) + 2
     f_cap = _floor_pow2(max_frontier, 2)
     # The device-resident tier: exhaustive, packed key only (a beam run
-    # prunes at the bucket instead).
-    big_cap = _floor_pow2(device_rows_cap, 2) if device_rows_cap > f_cap and not beam and xp else f_cap
+    # prunes at the bucket instead).  Not under a mesh: the shards already
+    # divide the frontier, and the aggregate memory comes from the mesh.
+    big_cap = (
+        _floor_pow2(device_rows_cap, 2) if device_rows_cap > f_cap and not beam and xp and mesh is None else f_cap
+    )
     f = round_pow2(max(min(start_frontier, f_cap), len(enc.init_states)), 2)
+    if mesh is not None:
+        # Even sharding needs the frontier axis divisible by the shard
+        # count; the smallest bucket under a mesh is one row per shard.
+        f = max(f, round_pow2(mesh.size, 2))
     frontier = res = None
     fingerprint = None
     # Whether the witness log is on; dropped for good past its cap or on a
@@ -2053,8 +2705,11 @@ def check_device(
             enc, tables, seed, stats, f_cap, cap_layers, host_cap=spill_host_cap,
             deep_counts=deep_counts, checkpoint_path=checkpoint_path, fingerprint=fingerprint,
             history=history, witness=witness, exact_pack=xp, sort_dedup=sd, profile=profile,
-            profile_t0=t_run0,
+            profile_t0=t_run0, mesh=mesh,
         )
+
+    def place(fr: Frontier) -> Frontier | ShardedFrontier:
+        return fr if mesh is None else place_frontier(fr, mesh)
 
     if checkpoint_path is not None:
         fingerprint = history_fingerprint(enc)
@@ -2101,16 +2756,23 @@ def check_device(
             # The log of the layers before the snapshot is not in it.
             log_on = log_on and stats.layers == 0
             frontier = frontier_from_arrays(vars(ck), dev)
+            if mesh is not None and f < mesh.size:
+                # Resumed onto a wider mesh than the snapshot's bucket:
+                # grow to one row per shard so that it shards evenly.
+                f = round_pow2(mesh.size, 2)
+                frontier = _regrow_device(frontier, f)
 
-    def snapshot(fr: Frontier) -> None:
+    def snapshot(fr: Frontier | ShardedFrontier) -> None:
         save_checkpoint(
             checkpoint_path,
-            Checkpoint(fingerprint=fingerprint, **_frontier_arrays(fr), f=f, beam=beam,
+            Checkpoint(fingerprint=fingerprint, **_frontier_arrays(gather_frontier(fr)), f=f, beam=beam,
                        layers_done=stats.layers, stats=_snapshot_stats(stats)),
         )
 
     if frontier is None and res is None:
         frontier = init_frontier(enc, f, dev)
+    if frontier is not None:
+        frontier = place(frontier)
     log.debug(
         "device search: %d ops over %d chains, frontier=%d (cap %d, device rows %d), %s, %s",
         enc.num_ops,
@@ -2136,7 +2798,7 @@ def check_device(
         if f > f_cap:
             layers_budget = min(layers_budget, _BIG_TIER_CHUNK)
         out = run_search(
-            tables,
+            run_tables,
             frontier,
             layers_budget,
             allow_prune=allow_prune,
@@ -2169,18 +2831,24 @@ def check_device(
             stats.spec_launches += 1
         if log_on:
             wlogs.extend(out.wlog)
+        seg_shards = None
+        if mesh is not None and collect_stats:
+            seg_shards, sync_s = _shard_occupancy(out.frontier, mesh)
+            _note_shard_stats(stats, mesh, seg_shards, sync_s)
         if profile:
-            stats.timeline.append(
-                {
-                    "layer": stats.layers,
-                    "frontier": out.max_live,
-                    "states": out.live,
-                    "auto_closed": out.auto_closed,
-                    "elapsed_s": round(time.monotonic() - t_run0, 6),
-                    "stop": _STOP_NAMES[code],
-                    "bucket": f,
-                }
-            )
+            entry = {
+                "layer": stats.layers,
+                "frontier": out.max_live,
+                "states": out.live,
+                "auto_closed": out.auto_closed,
+                "elapsed_s": round(time.monotonic() - t_run0, 6),
+                "stop": _STOP_NAMES[code],
+                "bucket": f,
+            }
+            if seg_shards is not None:
+                entry["shards"] = [int(x) for x in seg_shards]
+                entry["sync_s"] = round(sync_s, 6)
+            stats.timeline.append(entry)
         if progress is not None:
             progress.update(
                 ops_committed=out.deep_ops,
@@ -2193,6 +2861,7 @@ def check_device(
         if allow_prune:
             stats.pruned = stats.pruned or out.pruned_ever
         if code == STOP_ACCEPT:
+            whole = gather_frontier(out.frontier)
             lin = None
             if log_on:
                 pt = analyze_encoded(enc) if prune else None
@@ -2200,11 +2869,11 @@ def check_device(
             if lin is None and witness:
                 # No log (off, dropped or inconsistent): re-search below the
                 # accept counts.
-                lin = _recover_witness_bounded(enc, history, out.frontier.counts[out.accept_idx].cpu().numpy())
+                lin = _recover_witness_bounded(enc, history, whole.counts[out.accept_idx].cpu().numpy())
             res = CheckResult(
                 CheckOutcome.OK,
                 linearization=lin,
-                final_states=_final_states_device(enc, out.frontier, out.accept_idx),
+                final_states=_final_states_device(enc, whole, out.accept_idx),
             )
             break
         if code == STOP_EMPTY:
@@ -2212,7 +2881,7 @@ def check_device(
             res = CheckResult(
                 outcome,
                 deepest=_deepest_ops(enc, out.deep_counts.cpu().numpy()),
-                refusals=_device_refusals(enc, history, out.frontier),
+                refusals=_device_refusals(enc, history, gather_frontier(out.frontier)),
             )
             break
         if code == STOP_CAPACITY:
@@ -2223,14 +2892,14 @@ def check_device(
                 # f_cap the frontier grows on the device, chunked.
                 f = min(round_pow2(max(out.want * 2, f * 4), 2), big_cap)
                 log.debug("capacity stop: escalating frontier to %d and resuming", f)
-                frontier = _regrow_device(out.frontier, f)
+                frontier = place(_regrow_device(gather_frontier(out.frontier), f))
                 if checkpoint_path is not None:
                     snapshot(frontier)
                 continue
             if not beam and spill:
                 # Out-of-core hand-off: the pre-expansion frontier goes to
                 # host RAM, compacted on the device first.
-                res = spill_from(out.frontier, out.deep_counts.cpu().numpy())
+                res = spill_from(gather_frontier(out.frontier), out.deep_counts.cpu().numpy())
                 break
             stats.pruned = True
             res = CheckResult(CheckOutcome.UNKNOWN)
@@ -2244,7 +2913,7 @@ def check_device(
                 # layers stop paying full-width chunked sorts.
                 f = max(round_pow2(max(out.live, 1) * 4, 2), f_cap)
                 log.debug("post-peak downsize: frontier bucket -> %d", f)
-                frontier = _regrow_device(frontier, f)
+                frontier = place(_regrow_device(gather_frontier(frontier), f))
             if checkpoint_path is not None:
                 snapshot(frontier)
             continue
@@ -2310,7 +2979,8 @@ def check_device_auto(
     A conclusive verdict removes the marker; an UNKNOWN keeps it beside the
     exhaustive snapshot."""
     del state_slots
-    _refuse_unported(mesh=mesh)
+    if mesh is not None:
+        device = mesh.devices[0] if device is None else device
     dev = resolve_device(device)
     if device_rows_cap is None:
         device_rows_cap = default_device_rows_cap(dev, spill)
@@ -2332,6 +3002,7 @@ def check_device_auto(
         speculate_depth=speculate_depth,
         speculate_width=speculate_width,
         device=dev,
+        mesh=mesh,
     )
     marker = f"{checkpoint_path}.beam.conceded" if checkpoint_path else None
     beam_conceded = False

@@ -11,9 +11,10 @@ renders offline, matching the reference's single-artifact behavior.
 
 The port's copy of the JAX package's ``viz.py``, byte for byte the same
 HTML for the same history and result (``tests/test_torch_viz.py``).  Of
-its panels below the timeline it keeps the frontier timeline; the mesh
-shard and supervised-child panels, which render nothing without a mesh or
-a serving daemon, are not ported with them.
+its panels below the timeline it keeps the frontier timeline and the mesh
+shard panel (a sharded search's ``stats.shards``); the supervised-child
+panel, which renders nothing without a serving daemon, waits for the
+port's daemon.
 """
 
 from __future__ import annotations
@@ -219,6 +220,57 @@ def _frontier_panel(result: CheckResult) -> str:
         + f'<div class="fnote">{html.escape(note)} &mdash; bar width is '
         f"log-scaled frontier size; purple = out-of-core spill layer, "
         f"amber = auto-closes fired</div></div>"
+    )
+
+
+def _shard_panel(result: CheckResult) -> str:
+    """Mesh-shard panel: one row per device shard of a sharded search,
+    bar width scaled by peak live occupancy against the busiest shard
+    (from ``FrontierStats.shards``).  Returns "" for unsharded runs."""
+    st = getattr(result, "stats", None)
+    shards = getattr(st, "shards", None) if st is not None else None
+    if not shards:
+        return ""
+    peak = max(int(s.get("peak_occupancy") or 0) for s in shards) or 1
+    rows = []
+    for s in shards:
+        occ = int(s.get("peak_occupancy") or 0)
+        width = 100.0 * occ / peak
+        segs = max(int(s.get("segments") or 0), 1)
+        skew = float(s.get("skew") or 1.0)
+        classes = ["fbar"]
+        if skew > 1.25:
+            classes.append("closed")  # amber: shard running hot vs mean
+        tip_parts = [
+            f"shard {s.get('shard')} — {s.get('device')}",
+            f"peak live rows: {occ}",
+            f"mean live rows: {(s.get('occupancy_sum') or 0) / segs:.1f}",
+            f"segments: {s.get('segments')}",
+            f"collective wall: {s.get('collective_wall_s')}s",
+            f"skew vs mesh mean: {skew}",
+        ]
+        tip = html.escape("\n".join(tip_parts), quote=True).replace(
+            "\n", "&#10;"
+        )
+        rows.append(
+            f'<div class="flayer">'
+            f'<div class="flayer-label">S{s.get("shard")} · {occ}</div>'
+            f'<div class="flayer-track">'
+            f'<div class="{" ".join(classes)}" style="width:{width:.2f}%" '
+            f'data-tip="{tip}"></div></div></div>'
+        )
+    coll = max(float(s.get("collective_wall_s") or 0.0) for s in shards)
+    note = (
+        f"{len(shards)} shards, peak occupancy {peak}, "
+        f"max skew {max(float(s.get('skew') or 1.0) for s in shards)}, "
+        f"collective wall {coll}s"
+    )
+    return (
+        '<div class="frontier"><h2>mesh shards</h2>'
+        + "".join(rows)
+        + f'<div class="fnote">{html.escape(note)} &mdash; bar width is '
+        f"peak live frontier rows per shard; amber = shard &gt;1.25&times; "
+        f"the mesh mean (skew)</div></div>"
     )
 
 
@@ -455,6 +507,9 @@ def render_html(
             )
             pieces.append(f'<div class="final">per client:{rows}</div>')
     panel = _frontier_panel(result)
+    if panel:
+        pieces.append(panel)
+    panel = _shard_panel(result)
     if panel:
         pieces.append(panel)
     body = "\n".join(pieces)

@@ -246,25 +246,3 @@ def test_exhaustive_overflow_unknown_or_spill_matches_jax():
         rj = jdev.check_device(hj, **kw)
         assert rj.outcome.value == want
         assert_results_equal(rj, pdev.check_device(hp, device="cpu", **kw), hp)
-
-
-#: (option, value, other options set beside it): the option still unported
-#: raises naming itself, with a checkpoint and the spill on too
-UNPORTED = [
-    ("mesh", object(), {}),
-    ("mesh", object(), {"checkpoint_path": "/nonexistent/ck", "spill": True}),
-]
-
-
-UNPORTED_CALLS = [(e, o, v, x) for e in ("check_device", "check_device_auto") for o, v, x in UNPORTED]
-
-
-@pytest.mark.parametrize(
-    "entry,option,value,extra",
-    UNPORTED_CALLS,
-    ids=[f"{e}-{o}" + ("-with-checkpoint-and-spill" if x else "") for e, o, _, x in UNPORTED_CALLS],
-)
-def test_unported_tiers_raise(entry, option, value, extra):
-    hp = prepare(to_port(jax_adversarial(3, batch=2, seed=0)))
-    with pytest.raises(NotImplementedError, match=option):
-        getattr(pdev, entry)(hp, device="cpu", **{option: value}, **extra)

@@ -3,8 +3,8 @@ CPU fallback.
 
 - importing every port module (in a fresh interpreter) leaves ``jax``,
   ``xxhash`` and every ``s2_verification_tpu`` module out of
-  ``sys.modules``, and so do a small ``collect_history`` run and a launch
-  of batched lanes;
+  ``sys.modules``, and so do a small ``collect_history`` run, a launch
+  of batched lanes and a search sharded over a mesh;
 - no port source (nor chip_smoke.py) imports them;
 - the entry points refuse to run when CUDA is asked for and absent, and
   so does the CLI's ``auto`` ladder when it escalates (exit 64, never a
@@ -87,6 +87,8 @@ def test_importing_the_port_loads_no_jax():
         "checker.progress",
         "checker.profile",
         "collector.collect",
+        "parallel",
+        "parallel.distributed",
         "collector.campaign",
         "collector.socket_s2",
         "viz",
@@ -102,6 +104,19 @@ def test_collecting_loads_no_xxhash_and_no_jax():
         "from s2_verification_tpu_torch.checker.oracle import check_events\n"
         "events = collect_history(CollectConfig(3, 20, 'match-seq-num', seed=1))\n"
         "assert len(events) > 40 and check_events(events).ok\n"
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_mesh_search_loads_no_jax():
+    proc = _fresh_interpreter(
+        "from s2_verification_tpu_torch.checker.device import check_device\n"
+        "from s2_verification_tpu_torch.checker.entries import prepare\n"
+        "from s2_verification_tpu_torch.collector.adversarial import adversarial_events\n"
+        "from s2_verification_tpu_torch.parallel import frontier_mesh\n"
+        "res = check_device(prepare(adversarial_events(4, batch=2, seed=1)), beam=False, collect_stats=True,\n"
+        "                   mesh=frontier_mesh(devices=['cpu'] * 4))\n"
+        "assert res.outcome.value == 'ok' and len(res.stats.shards) == 4, res\n"
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
@@ -228,15 +243,18 @@ def test_cli_auto_escalation_without_a_gpu_exits_64(tmp_path, monkeypatch):
 
 
 def test_cli_unported_tier_exits_64_and_says_so(tmp_path, capsys, monkeypatch):
-    # A tier the port still lacks (the mesh, which no CLI flag reaches yet)
-    # is a 64 whose -stats line says "unported" and names it.
-    real = pdev.check_device_auto
-    monkeypatch.setattr(cli, "check_device_auto", lambda hist, **kw: real(hist, mesh=object(), **kw))
+    # A search that needs a tier the port lacks is a 64 whose -stats line
+    # says "unported" and names it.  Every tier of the JAX engine is ported,
+    # so a stub of the device search stands in for one that is not.
+    def unported(hist, **kw):
+        raise NotImplementedError("the stub tier is not in s2_verification_tpu_torch")
+
+    monkeypatch.setattr(cli, "check_device_auto", unported)
     path = _write(tmp_path, adversarial_events(6, batch=2, seed=3, unsatisfiable=True), "h.jsonl")
     rc = cli.main(["check", f"-file={path}", "-backend=device", "-no-viz", "-device", "cpu", "-stats"])
     assert rc == 64
     line = capsys.readouterr().out.strip().splitlines()[-1]
-    assert '"outcome": "unported"' in line and "mesh" in line
+    assert '"outcome": "unported"' in line and "stub tier" in line
 
 
 def test_cli_decides_past_the_bucket_through_the_spill_like_jax(tmp_path, capsys, monkeypatch):

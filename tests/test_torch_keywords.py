@@ -2,10 +2,11 @@
 CLI's ``-device-rows``.
 
 - Every keyword of the JAX ``check_device`` and ``check_device_auto``
-  either gives the JAX engine's result on the CPU (outcome, search
-  statistics, witness, final states, refusals) or raises
-  ``NotImplementedError`` naming itself; ``witness=False`` answers OK
-  without a linearization.
+  gives the JAX engine's result on the CPU (outcome, search statistics,
+  witness, final states, refusals); ``witness=False`` answers OK without a
+  linearization, and ``mesh`` (four CPU shards against the JAX engine's
+  four-device mesh) answers as unsharded, with the JAX engine's per-shard
+  peaks.
 - A progress sink adds no host synchronisation, and its heartbeats equal
   the JAX engine's through the chunked tier too.
 - ``check -device cpu -device-rows N -stats`` exits as the JAX CLI does with
@@ -23,7 +24,10 @@ import inspect
 import json
 import logging
 
+import jax
+import numpy as np
 import pytest
+from jax.sharding import Mesh
 
 from s2_verification_tpu import cli as jcli
 from s2_verification_tpu.checker.progress import ProgressSink as JaxSink
@@ -35,6 +39,7 @@ from s2_verification_tpu_torch.checker import native as pnative
 from s2_verification_tpu_torch.checker.oracle import CheckOutcome
 from s2_verification_tpu_torch.checker.progress import ProgressSink as PortSink
 from s2_verification_tpu_torch.models.encode import encode_batch
+from s2_verification_tpu_torch.parallel import frontier_mesh
 
 from test_torch_device import assert_results_equal, both, jax_adversarial, jdev
 from test_torch_encode import jax_text
@@ -45,36 +50,37 @@ STAT_FIELDS = (
     "prune_dead", "spec_launches", "spec_layers", "spec_accepts", "spec_rollbacks",
 )
 
-#: A setting of each JAX keyword (with whatever it needs beside it) and
-#: whether the port must raise ``NotImplementedError`` naming it.  The
+#: A setting of each JAX keyword (with whatever it needs beside it).  The
 #: baseline is an exhaustive search of a small adversarial history whose
 #: frontier (peak 161 rows) outgrows a 64-row bucket.
 SETTINGS = {
-    "max_frontier": (dict(max_frontier=256), False),
-    "exhaustive_cap": (dict(exhaustive_cap=256), False),
-    "beam_width": (dict(beam_width=32), False),
-    "state_slots": (dict(state_slots=4), False),
-    "beam": (dict(beam=True, max_frontier=64), False),
-    "start_frontier": (dict(start_frontier=64), False),
-    "mesh": (dict(mesh=object()), True),
-    "collect_stats": (dict(collect_stats=False), False),
-    "profile": (dict(profile=True), False),
-    "checkpoint_path": (dict(checkpoint_path="ck.npz"), False),
-    "checkpoint_every": (dict(checkpoint_every=3), False),
-    "witness": (dict(witness=False), False),
+    "max_frontier": dict(max_frontier=256),
+    "exhaustive_cap": dict(exhaustive_cap=256),
+    "beam_width": dict(beam_width=32),
+    "state_slots": dict(state_slots=4),
+    "beam": dict(beam=True, max_frontier=64),
+    "start_frontier": dict(start_frontier=64),
+    # Four shards: the JAX engine's four-device CPU mesh, the port's four
+    # CPU shards.
+    "mesh": dict(mesh=4),
+    "collect_stats": dict(collect_stats=False),
+    "profile": dict(profile=True),
+    "checkpoint_path": dict(checkpoint_path="ck.npz"),
+    "checkpoint_every": dict(checkpoint_every=3),
+    "witness": dict(witness=False),
     # The log is on until the frontier outgrows 64 rows, then dropped.
-    "witness_max_frontier": (dict(witness_max_frontier=64), False),
+    "witness_max_frontier": dict(witness_max_frontier=64),
     # Past the device bucket both engines hand off to the spill.
-    "spill": (dict(spill=True, max_frontier=64, beam_width=2, exhaustive_cap=64, device_rows_cap=0), False),
-    "spill_host_cap": (dict(spill_host_cap=1000), False),
-    "exact_pack": (dict(exact_pack=False), False),
-    "sort_dedup": (dict(sort_dedup=True), False),
-    "device_rows_cap": (dict(device_rows_cap=4096, max_frontier=64, exhaustive_cap=64), False),
-    "pallas_fold": (dict(pallas_fold=True), False),
-    "progress": (dict(progress="sink"), False),
-    "prune": (dict(prune=True), False),
-    "speculate_depth": (dict(speculate_depth=2, prune=True), False),
-    "speculate_width": (dict(speculate_width=8, speculate_depth=2), False),
+    "spill": dict(spill=True, max_frontier=64, beam_width=2, exhaustive_cap=64, device_rows_cap=0),
+    "spill_host_cap": dict(spill_host_cap=1000),
+    "exact_pack": dict(exact_pack=False),
+    "sort_dedup": dict(sort_dedup=True),
+    "device_rows_cap": dict(device_rows_cap=4096, max_frontier=64, exhaustive_cap=64),
+    "pallas_fold": dict(pallas_fold=True),
+    "progress": dict(progress="sink"),
+    "prune": dict(prune=True),
+    "speculate_depth": dict(speculate_depth=2, prune=True),
+    "speculate_width": dict(speculate_width=8, speculate_depth=2),
 }
 
 ENTRIES = {
@@ -92,12 +98,14 @@ KEYWORD_CASES = [(e, k) for e in ENTRIES for k in _keywords(e)]
 
 def _kw(entry, keyword, who):
     kw = dict(ENTRIES[entry])
-    extra, _ = SETTINGS[keyword]
-    kw.update(extra)
+    kw.update(SETTINGS[keyword])
     names = _keywords(entry)
     kw = {k: v for k, v in kw.items() if k in names}
     if kw.get("progress") == "sink":
         kw["progress"] = (JaxSink if who == "jax" else PortSink)(lambda r: None, time_fn=Clock(step=1.0))
+    if "mesh" in kw:
+        n = kw["mesh"]
+        kw["mesh"] = Mesh(np.asarray(jax.devices()[:n]), ("fr",)) if who == "jax" else frontier_mesh(devices=["cpu"] * n)
     return kw
 
 
@@ -107,10 +115,6 @@ def test_jax_keywords_work_or_name_themselves(tmp_path, monkeypatch, entry, keyw
     assert set(_keywords(entry)) <= set(inspect.signature(getattr(pdev, entry)).parameters)
     hj, hp = both(jax_adversarial(5, batch=4, seed=1))
     port = getattr(pdev, entry)
-    if SETTINGS[keyword][1]:
-        with pytest.raises(NotImplementedError, match=keyword):
-            port(hp, device="cpu", **_kw(entry, keyword, "port"))
-        return
     rj = getattr(jdev, entry)(hj, **_kw(entry, keyword, "jax"))
     rp = port(hp, device="cpu", **_kw(entry, keyword, "port"))
     assert rp.outcome == CheckOutcome.OK
@@ -123,6 +127,10 @@ def test_jax_keywords_work_or_name_themselves(tmp_path, monkeypatch, entry, keyw
     assert_results_equal(rj, rp, hp)
     for f in STAT_FIELDS:
         assert getattr(rp.stats, f) == getattr(rj.stats, f), f
+    if keyword == "mesh":
+        plain = port(hp, device="cpu", **{k: v for k, v in _kw(entry, keyword, "port").items() if k != "mesh"})
+        assert_results_equal(rj, plain, hp)
+        assert [e["peak_occupancy"] for e in rp.stats.shards] == [e["peak_occupancy"] for e in rj.stats.shards]
 
 
 @pytest.mark.parametrize("chunked", [False, True], ids=["in-core", "chunked"])
