@@ -149,7 +149,23 @@ on the first failed phase:
    adversarial k=4, batch=3, seed 5, ACCEPT after the one-process run's
    layers with its frontier; (d) every fold call of (a)–(c) bit-exact
    against the plain fold;
-14. the kernel list, one JSON line of kernel measurements, and as the last
+14. the supervised device escalation (``checker/resilient.py``,
+   ``service/supervise.py``, ``service/devicepool.py``), every search in a
+   bounded child process beside this one: (a) the probe child answers;
+   (b) ``supervised_device_check`` of the main path's history, with no
+   ``device=``, decides OK with a witness that replays and the steps and
+   statistics of the same ``check_device_auto`` call in this process,
+   and says whether the child built a library; (c) a child killed (from a
+   wrapper, :data:`CRASH_AFTER_SAVES`) right after its second checkpoint
+   save is relaunched by ``drive`` and resumes to the same verdict and
+   counts in exactly two attempts; (d) a one-slot ``DevicePool`` grant runs
+   the mesh in the child, whose ``stats.shards`` feed a ``ServiceStats``'s
+   ``verifyd_shard_*`` families; (e) a cancel after the child's first
+   spooled heartbeat (phase 7's headline) returns None with no relaunch,
+   and the child's process group is gone within ``grace_s + 1`` s.  Each
+   sub-phase's wall is printed with the card's name and power limit; the
+   children's fold launches are the ones each child reports;
+15. the kernel list, one JSON line of kernel measurements, and as the last
    line ``{"ok": true, "device": {...}}``.
 
 Fold times are per call, from CUDA events: ``call`` with back-to-back
@@ -171,7 +187,9 @@ import hashlib
 import io
 import json
 import os
+import re
 import socket
+import subprocess
 import sys
 import tempfile
 import threading
@@ -280,6 +298,34 @@ HEADLINE_WARM_CALLS = 1
 #: ``--batch-max``)
 BATCH_SHAPE = ("match-seq-num", 5, 2000)
 BATCH_SEEDS = list(range(20260730, 20260745))
+#: phase 14: a wrapper around the supervised child's entry point
+#: (``service/supervise.py::_child_main``), written to a temporary file and
+#: run as ``python WRAPPER MARKER SAVES EVERY HIST CKPT OUT [extras]``: it
+#: lowers ``check_device_auto``'s ``checkpoint_every`` to EVERY and, when
+#: MARKER is absent, creates it and SIGKILLs its own process right after
+#: checkpoint save number SAVES — a crash with no cleanup, from outside the
+#: product code.  A relaunch finds MARKER and runs to its end.
+CRASH_AFTER_SAVES = """\
+import functools, os, signal, sys
+from s2_verification_tpu_torch.checker import device
+from s2_verification_tpu_torch.service import supervise
+
+marker, saves, every = sys.argv[1], int(sys.argv[2]), int(sys.argv[3])
+device.check_device_auto = functools.partial(device.check_device_auto, checkpoint_every=every)
+real_save, done = device.save_checkpoint, []
+
+
+def save_then_die(path, ckpt):
+    real_save(path, ckpt)
+    done.append(path)
+    if len(done) == saves and not os.path.exists(marker):
+        open(marker, "w").close()
+        os.kill(os.getpid(), signal.SIGKILL)
+
+
+device.save_checkpoint = save_then_die
+sys.exit(supervise._child_main(sys.argv[4:]))
+"""
 #: ``scripts/table_bench.py:27-33`` without the CPU-intractable 16×2000.
 TABLE_CONFIGS = [
     ("regular", 2, 50),
@@ -1619,6 +1665,242 @@ def run_mesh_phase(dev_mod, distributed, fold_cuda, fb, prepare, adversarial_eve
     return out
 
 
+def _group_of(needle: str) -> int | None:
+    """The process group of the one process whose command line holds
+    ``needle`` (a supervised child's spool path), from /proc."""
+    for pid in os.listdir("/proc"):
+        if not pid.isdigit() or int(pid) == os.getpid():
+            continue
+        try:
+            with open(f"/proc/{pid}/cmdline", "rb") as f:
+                if needle.encode() in f.read():
+                    return os.getpgid(int(pid))
+        except OSError:
+            continue
+    return None
+
+
+def _group_alive(pgid: int) -> bool:
+    try:
+        os.killpg(pgid, 0)
+        return True
+    except ProcessLookupError:
+        return False
+
+
+def run_supervise_phase(dev_mod, fb, prepare, events, long_events, device=None, crash_every=2,
+                        attempt_timeout_s=300.0, grace_s=2.0) -> dict:
+    """Phase 14, the supervised device escalation (``checker/resilient.py``,
+    ``service/supervise.py``, ``service/devicepool.py``): every search runs
+    in a bounded child process that this one never shares a card with.
+    ``events`` is the main path's history, ``long_events`` one that runs
+    long enough to spool heartbeats (phase 7's headline); ``device=None``
+    is the card, ``"cpu"`` rehearses the phase on the CPU.  Returns the
+    children's fold launches by path and the sub-phases' walls."""
+    from s2_verification_tpu_torch.checker.progress import ProgressSink
+    from s2_verification_tpu_torch.checker.resilient import DriveOutcome, default_probe_cmd, drive
+    from s2_verification_tpu_torch.obs.trace import Tracer
+    from s2_verification_tpu_torch.service import supervise
+    from s2_verification_tpu_torch.service.devicepool import DevicePool
+    from s2_verification_tpu_torch.service.scheduler import shape_key
+    from s2_verification_tpu_torch.service.stats import ServiceStats
+
+    t_phase = time.monotonic()
+    card = fb.card()
+    here = os.path.dirname(os.path.abspath(__file__))
+    # The children import the port from this checkout, whatever their cwd.
+    os.environ["PYTHONPATH"] = os.pathsep.join([here, *filter(None, [os.environ.get("PYTHONPATH")])])
+    out = {"launches_by_path": {}, "walls": {}}
+    hist = prepare(events)
+    shape = shape_key(hist)
+    extra = [] if device is None else [f"device={device}"]
+    probe_cmd = default_probe_cmd(device) if device is None else None
+
+    def attempts_of(said):
+        """Attempts ``drive`` launched, from its log lines."""
+        return sum(1 for s in said if re.match(r"attempt \d+: ", s))
+
+    def wall(tag, seconds):
+        out["walls"][tag] = seconds
+        print(f"supervised {tag}: {seconds:.3f} s wall; {card}", flush=True)
+
+    if device is None:
+        # The parent keeps its context, but hands its cached blocks back.
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_reserved()
+        torch.cuda.empty_cache()
+        print(f"supervised: parent's reserved card memory {before} B -> {torch.cuda.memory_reserved()} B "
+              "after empty_cache", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) the probe child answers.
+        t0 = time.monotonic()
+        probe = subprocess.run(default_probe_cmd(device), capture_output=True, text=True, timeout=300)
+        if probe.returncode != 0:
+            fail(f"supervised (a): the probe child exited {probe.returncode}: {probe.stderr[-2000:]}")
+        print(f"supervised (a): the probe child printed {probe.stdout.strip()}", flush=True)
+        wall("(a) probe", time.monotonic() - t0)
+
+        # (b) the main path's history in a supervised child, against the same
+        # call in this process.
+        said: list[str] = []
+        t0 = time.monotonic()
+        res = supervise.supervised_device_check(
+            events, spool_dir=tmp, job_id=1, profile=True, attempt_timeout_s=attempt_timeout_s,
+            log=said.append, device=device,
+        )
+        wall_b = time.monotonic() - t0
+        if res is None:
+            fail(f"supervised (b): the supervised check returned None (the device never answered): {said}")
+        t0 = time.monotonic()
+        ref = dev_mod.check_device_auto(hist, checkpoint_path=os.path.join(tmp, "ref.ckpt.npz"), profile=True,
+                                        device=device)
+        wall_ref = time.monotonic() - t0
+        if res.outcome.value != "ok" or ref.outcome.value != "ok":
+            fail(f"supervised (b): child {res.outcome.value}, in process {ref.outcome.value}; want ok")
+        if not replay_ok(hist, res.linearization):
+            fail("supervised (b): the child's witness does not replay")
+        got, want = _stats_view(res.stats), _stats_view(ref.stats)
+        if res.steps != ref.steps or got != want:
+            fail(f"supervised (b): the child's steps/stats {res.steps} {got} != in process {ref.steps} {want}")
+        built = res.child_jit.get("compiles") or {}
+        launches = res.child_launches.get("fold_lanes", 0)
+        out["launches_by_path"]["adversarial k=10 in a supervised child, beam then exhaustive (14b)"] = launches
+        print(
+            f"supervised (b): {shape} decided {res.outcome.value} in {attempts_of(said)} attempt(s), "
+            f"{wall_b:.3f} s wall (in process, warm: {wall_ref:.3f} s); witness replays, equal to the "
+            f"in-process witness: {res.linearization == ref.linearization}; steps and stats equal the "
+            f"in-process run's ({got}); the child's fold launches {launches}; the child built "
+            f"{'nothing (libraries loaded from _build/)' if not built else built}",
+            flush=True,
+        )
+        wall("(b) supervised k=10", wall_b)
+
+        # (c) a child killed after its second checkpoint save resumes.
+        wrapper = os.path.join(tmp, "crash_after_saves.py")
+        with open(wrapper, "w", encoding="utf-8") as f:
+            f.write(CRASH_AFTER_SAVES)
+        hist_path, ckpt, res_path, marker = (os.path.join(tmp, n) for n in ("c.jsonl", "c.ckpt.npz", "c.json", "c.killed"))
+        with open(hist_path, "w", encoding="utf-8") as f:
+            from s2_verification_tpu_torch.utils import events as ev
+
+            ev.write_history(events, f)
+        said = []
+        tracer = Tracer(64)
+        t0 = time.monotonic()
+        outcome = drive(
+            [sys.executable, wrapper, marker, "2", str(crash_every), hist_path, ckpt, res_path, "profile=1", *extra],
+            done=lambda: os.path.exists(res_path), attempt_timeout_s=attempt_timeout_s, max_restarts=2,
+            probe_cmd=probe_cmd, log=said.append, tracer=tracer,
+        )
+        wall_c = time.monotonic() - t0
+        if outcome != DriveOutcome(True, 2, 0, "conclusive") or not os.path.exists(marker):
+            fail(f"supervised (c): {outcome}, marker {os.path.exists(marker)}; want 2 attempts: {said}")
+        with open(res_path, encoding="utf-8") as f:
+            resumed = supervise._result_from_json(json.load(f))
+        keys = ("layers", "max_frontier", "expanded", "auto_closed", "pruned")
+        got = {k: getattr(resumed.stats, k) for k in keys}
+        want = {k: getattr(ref.stats, k) for k in keys}
+        if resumed.outcome != ref.outcome or resumed.steps != ref.steps or got != want:
+            fail(f"supervised (c): resumed {resumed.outcome.value} {resumed.steps} {got}, "
+                 f"in process {ref.outcome.value} {ref.steps} {want}")
+        if not replay_ok(hist, resumed.linearization):
+            fail("supervised (c): the resumed child's witness does not replay")
+        left = [n for n in os.listdir(tmp) if n.startswith("c.ckpt")]
+        if left:
+            fail(f"supervised (c): the conclusive run left its snapshot behind: {left}")
+        spans = {e["name"]: e["dur"] / 1e6 for e in tracer.export()["traceEvents"] if e.get("ph") == "X"}
+        out["launches_by_path"]["adversarial k=10, relaunched after a kill at its second save (14c)"] = (
+            resumed.child_launches.get("fold_lanes", 0))
+        print(
+            f"supervised (c): killed after checkpoint save 2 (checkpoint_every={crash_every}), resumed to "
+            f"{resumed.outcome.value} with the in-process counts {got} in {outcome.attempts} attempts; "
+            f"attempt 1 {spans.get('attempt 1', 0):.3f} s, probe between attempts "
+            f"{spans.get('backend_probe', 0):.3f} s, attempt 2 {spans.get('attempt 2', 0):.3f} s; the resumed "
+            f"attempt's host syncs {resumed.stats.host_syncs} (the whole run's in process: "
+            f"{ref.stats.host_syncs}), its fold launches {resumed.child_launches.get('fold_lanes', 0)}; "
+            "snapshots removed",
+            flush=True,
+        )
+        wall("(c) kill and resume", wall_c)
+
+        # (d) a one-slot DevicePool grant runs the mesh in the child.
+        stats = ServiceStats(None)
+        pool = DevicePool(1, stats=stats)
+        t0 = time.monotonic()
+        lease = pool.acquire(shape=shape, job=4, timeout_s=0)
+        if lease is None:
+            fail("supervised (d): DevicePool(1) granted nothing")
+        try:
+            res_d = supervise.supervised_device_check(
+                events, spool_dir=tmp, job_id=4, devices=lease.indices, attempt_timeout_s=attempt_timeout_s,
+                device=device,
+            )
+        finally:
+            pool.release(lease)
+        wall_d = time.monotonic() - t0
+        if res_d is None or res_d.outcome != ref.outcome or len(res_d.stats.shards) != lease.size:
+            fail(f"supervised (d): {res_d and res_d.outcome.value}, shards "
+                 f"{res_d and res_d.stats.shards}; want ok with {lease.size} shard(s)")
+        got = {k: getattr(res_d.stats, k) for k in keys}
+        if got != want:
+            fail(f"supervised (d): the mesh child's counts {got} != the unsharded run's {want}")
+        stats.emit("done", job=4, wall_s=wall_d, verdict=0, backend=f"device-mesh[{lease.size}]",
+                   shape=shape, shards=res_d.stats.shards)
+        out["launches_by_path"][f"adversarial k=10, a {lease.size}-slot DevicePool grant in a child (14d)"] = (
+            res_d.child_launches.get("fold_lanes", 0))
+        print(f"supervised (d): grant {list(lease.indices)} of DevicePool(1) for {shape}: "
+              f"{res_d.outcome.value} with the unsharded counts, stats.shards {res_d.stats.shards}, "
+              f"fold launches {res_d.child_launches.get('fold_lanes', 0)}", flush=True)
+        for line in stats.registry.render().splitlines():
+            if (line.startswith(("verifyd_shard_", "verifyd_leases_granted", "verifyd_devices_leased"))
+                    and "_bucket{" not in line):
+                print(f"  {line}", flush=True)
+        wall("(d) DevicePool grant", wall_d)
+
+        # (e) a cancel after the first spooled heartbeat stops the child.
+        said, beats, seen = [], [], {}
+        progress_path = os.path.join(tmp, "job5.progress.json")
+        hist_e = os.path.join(tmp, "job5.jsonl")
+
+        def cancel():
+            if "t" not in seen and os.path.exists(progress_path):
+                seen["pgid"] = _group_of(hist_e)
+                seen["t"] = time.monotonic()
+            return "smoke cancel" if "t" in seen else None
+
+        t0 = time.monotonic()
+        res_e = supervise.supervised_device_check(
+            long_events, spool_dir=tmp, job_id=5, attempt_timeout_s=attempt_timeout_s, log=said.append,
+            cancel=cancel, grace_s=grace_s, progress=ProgressSink(beats.append), device=device,
+        )
+        t_back = time.monotonic()
+        if res_e is not None or "t" not in seen:
+            fail(f"supervised (e): {res_e and res_e.outcome.value}, cancelled {'t' in seen}; want None")
+        if attempts_of(said) != 1:
+            fail(f"supervised (e): a cancelled job was relaunched: {said}")
+        stop_s = t_back - seen["t"]
+        if seen.get("pgid") is None or _group_alive(seen["pgid"]) or stop_s > grace_s + 1:
+            fail(f"supervised (e): child group {seen.get('pgid')} alive "
+                 f"{seen.get('pgid') is not None and _group_alive(seen['pgid'])}, "
+                 f"{stop_s:.3f} s after the cancel (grace {grace_s} s)")
+        print(f"supervised (e): cancelled {seen['t'] - t0:.3f} s in, after the first spooled heartbeat; "
+              f"None with no relaunch; the child's process group was gone {stop_s:.3f} s after the cancel "
+              f"(grace {grace_s} s)", flush=True)
+        wall("(e) cancel", t_back - t0)
+    out["seconds"] = time.monotonic() - t_phase
+    return out
+
+
+def _stats_view(stats) -> dict:
+    """Search statistics of a result, the profile timeline without its wall
+    times: equal between a child and the same call in process."""
+    import dataclasses
+
+    d = dataclasses.asdict(stats)
+    d["timeline"] = [{k: v for k, v in e.items() if k != "elapsed_s"} for e in d["timeline"]]
+    return d
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2250,6 +2532,11 @@ def main() -> int:
                              main_events)
     print(f"phase 13 (the mesh): {phase13['seconds']:.1f} s", flush=True)
     kernels[0]["launches_by_path"].update(phase13["launches_by_path"])
+
+    # -- 14. the supervised device escalation ------------------------------
+    phase14 = run_supervise_phase(dev_mod, fb, prepare, main_events, headline_events)
+    print(f"phase 14 (supervised escalation): {phase14['seconds']:.1f} s", flush=True)
+    kernels[0]["launches_by_path"].update(phase14["launches_by_path"])
 
     print(f"kernels: {', '.join(k['name'] for k in kernels)}", flush=True)
     print(f"total {time.monotonic() - t_start:.1f} s", flush=True)

@@ -11,6 +11,10 @@ Module names match the JAX package so each counterpart is easy to find:
   heartbeats, failure diagnostics and the search-shape profile
 - ``ops``       — the chain-hash fold (plain torch + the CUDA kernel), the step
 - ``collector`` — the collector, its fault campaigns, the adversarial family
+- ``service``   — the supervised device escalation: the search in a bounded
+  child process (``service/supervise.py`` over ``checker/resilient.py``),
+  the device-lease pool, the service statistics and metric families
+- ``obs``       — spans, trace context, metrics and the build tracker
 - ``viz``       — the HTML visualization ``check`` writes
 - ``cli``       — ``check`` (backends ``oracle|native|frontier|device|auto``)
   and ``collect``

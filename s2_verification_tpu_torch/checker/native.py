@@ -32,6 +32,7 @@ import numpy as np
 
 from ..models.encode import EncodedHistory, encode_history, intern_state
 from ..models.stream import StreamState
+from ..obs.introspect import record_build
 from .entries import History
 from .oracle import CheckOutcome, CheckResult
 
@@ -66,7 +67,8 @@ def _u8(a: np.ndarray) -> np.ndarray:
 
 def _compile() -> tuple[Path, float]:
     """Build the library from :data:`SOURCE` unless one built from the same
-    bytes exists; returns ``(path, seconds compiling)``."""
+    bytes exists; returns ``(path, seconds compiling)``.  A build that ran
+    the compiler is recorded in ``obs.introspect.INTROSPECTOR``."""
     tag = hashlib.sha1(SOURCE.read_bytes()).hexdigest()[:12]
     so = BUILD_DIR / f"libs2check-{tag}.so"
     if so.exists():
@@ -83,7 +85,9 @@ def _compile() -> tuple[Path, float]:
         os.unlink(tmp)
         raise NativeUnavailable(f"native build failed:\n{proc.stderr[-2000:]}")
     os.replace(tmp, so)
-    return so, _time.monotonic() - t0
+    seconds = _time.monotonic() - t0
+    record_build(f"g++:{SOURCE.name}", tag, seconds)
+    return so, seconds
 
 
 def _load() -> ct.CDLL:

@@ -56,6 +56,7 @@ from pathlib import Path
 
 import torch
 
+from ..obs.introspect import record_build
 from .xxh3 import fold_record_hashes_indexed
 
 __all__ = [
@@ -112,7 +113,8 @@ def compile_library(source: Path, trace: bool = False) -> tuple[Path, float, str
     """``nvcc`` ``source`` (with ``-DFOLD_TRACE`` if ``trace``) into a shared
     library under :data:`BUILD_DIR`, unless one built from the same bytes
     exists.  Returns ``(path, seconds compiling, compiler output)``; raises
-    if nvcc fails.  Safe to call from several threads at once."""
+    if nvcc fails.  Safe to call from several threads at once.  A build
+    that ran nvcc is recorded in ``obs.introspect.INTROSPECTOR``."""
     tag = hashlib.sha1(source.read_bytes()).hexdigest()[:12]
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     so = BUILD_DIR / f"lib{source.stem}-{tag}{'-trace' if trace else ''}.so"
@@ -143,7 +145,9 @@ def compile_library(source: Path, trace: bool = False) -> tuple[Path, float, str
         os.unlink(tmp)
         raise RuntimeError(f"{source.name}: nvcc failed:\n{log}")
     os.replace(tmp, so)
-    return so, time.monotonic() - t0, log
+    seconds = time.monotonic() - t0
+    record_build(f"nvcc:{source.name}", f"{tag}{'-trace' if trace else ''}", seconds)
+    return so, seconds, log
 
 
 def build(trace: bool = False) -> ctypes.CDLL:

@@ -5,6 +5,8 @@ CPU fallback.
   ``xxhash`` and every ``s2_verification_tpu`` module out of
   ``sys.modules``, and so do a small ``collect_history`` run, a launch
   of batched lanes and a search sharded over a mesh;
+- the supervising side of the device escalation (``checker.resilient``,
+  ``service``, ``obs``) leaves ``torch`` out of ``sys.modules`` too;
 - no port source (nor chip_smoke.py) imports them;
 - the entry points refuse to run when CUDA is asked for and absent, and
   so does the CLI's ``auto`` ladder when it escalates (exit 64, never a
@@ -92,9 +94,32 @@ def test_importing_the_port_loads_no_jax():
         "collector.campaign",
         "collector.socket_s2",
         "viz",
+        "checker.resilient",
+        "obs",
+        "obs.context",
+        "obs.trace",
+        "obs.metrics",
+        "obs.introspect",
+        "service",
+        "service.stats",
+        "service.devicepool",
+        "service.scheduler",
+        "service.supervise",
     ):
         assert f"s2_verification_tpu_torch.{m}" in mods
     proc = _fresh_interpreter(f"for m in {mods!r}:\n    importlib.import_module(m)\n")
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_the_supervising_side_loads_no_torch():
+    # The supervising process never holds a CUDA context: the bounded-child loop, the
+    # supervisor, the pool, the scheduler's key, the stats and the obs
+    # modules import neither torch nor jax (only the supervised child does).
+    proc = _fresh_interpreter(
+        "for m in ('checker.resilient', 'service', 'service.supervise', 'obs'):\n"
+        "    importlib.import_module('s2_verification_tpu_torch.' + m)\n"
+        "assert 'torch' not in sys.modules, sorted(m for m in sys.modules if m.startswith('torch'))\n"
+    )
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 

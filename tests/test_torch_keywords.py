@@ -239,3 +239,41 @@ def test_check_native_takes_enc_like_jax():
         assert (rp.outcome.value, rp.linearization, rp.deepest, rp.steps) == (
             rj.outcome.value, rj.linearization, rj.deepest, rj.steps
         )
+
+
+# -- the supervised device escalation: supervised_device_check and drive --------
+
+jresilient = importlib.import_module("s2_verification_tpu.checker.resilient")
+jsupervise = importlib.import_module("s2_verification_tpu.service.supervise")
+presilient = importlib.import_module("s2_verification_tpu_torch.checker.resilient")
+psupervise = importlib.import_module("s2_verification_tpu_torch.service.supervise")
+SUPERVISE_CASES = [
+    (who, name, k)
+    for who, name, jfn in (
+        ("supervise", "supervised_device_check", jsupervise.supervised_device_check),
+        ("resilient", "drive", jresilient.drive),
+    )
+    for k in inspect.signature(jfn).parameters
+]
+
+
+@pytest.mark.parametrize("who,name,keyword", SUPERVISE_CASES, ids=[f"{n}-{k}" for _, n, k in SUPERVISE_CASES])
+def test_supervision_takes_every_jax_keyword(who, name, keyword):
+    """``supervised_device_check`` and ``drive`` take every keyword of the
+    JAX package's, of the same kind and with the same default (the port
+    adds ``device`` to the first)."""
+    jmod, pmod = (jsupervise, psupervise) if who == "supervise" else (jresilient, presilient)
+    jp = inspect.signature(getattr(jmod, name)).parameters[keyword]
+    pp = inspect.signature(getattr(pmod, name)).parameters[keyword]
+    assert pp.kind == jp.kind
+    if isinstance(jp.default, jresilient.Tracer):  # each package's NULL_TRACER
+        assert pp.default is presilient.NULL_TRACER and not pp.default.enabled
+    else:
+        assert pp.default == jp.default
+
+
+def test_supervised_device_check_adds_only_device():
+    j = set(inspect.signature(jsupervise.supervised_device_check).parameters)
+    p = set(inspect.signature(psupervise.supervised_device_check).parameters)
+    assert p - j == {"device"}
+    assert inspect.signature(psupervise.supervised_device_check).parameters["device"].default is None

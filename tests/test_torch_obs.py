@@ -1,0 +1,605 @@
+"""The port's observability modules beside the JAX package's: the
+daemon-free cases of ``tests/test_obs.py``, ``test_obs_v2.py``,
+``test_obs_v3.py`` and ``test_service.py`` that touch only ``obs/trace``,
+``obs/context``, ``obs/metrics``, ``obs/introspect`` and
+``service/stats``, each run over both packages (parametrised by package);
+then what only the port has: the lazy ``g++`` / ``nvcc`` library builds
+recorded in ``INTROSPECTOR`` in place of ``jax.jit`` compiles, and a
+card-memory sampler that never creates a CUDA context.
+
+The JAX cases that need ``health``, ``log``, ``flight``, ``dashboard``,
+``httpd`` or a daemon stay behind, and so do the two cases of
+``observe_jit`` (a decorator the port has no site for).  The compile
+tracker's cases drive ``record_call`` / ``record_compile`` directly, as
+``observe_jit`` does, so they run over both packages.
+"""
+
+from __future__ import annotations
+
+import importlib
+import io
+import json
+import subprocess
+import sys
+import threading
+from pathlib import Path
+from types import SimpleNamespace
+
+import pytest
+
+PACKAGES = ("s2_verification_tpu", "s2_verification_tpu_torch")
+ROOT = Path(__file__).resolve().parent.parent
+
+
+@pytest.fixture(params=PACKAGES)
+def obs(request):
+    p = request.param
+    return SimpleNamespace(**{
+        name: importlib.import_module(f"{p}.{path}")
+        for name, path in (
+            ("trace", "obs.trace"),
+            ("context", "obs.context"),
+            ("metrics", "obs.metrics"),
+            ("introspect", "obs.introspect"),
+            ("stats", "service.stats"),
+        )
+    })
+
+
+# -- tracer (test_obs.py, test_obs_v2.py) --------------------------------------
+
+
+def test_tracer_spans_nest_and_export_is_trace_event_json(obs):
+    t = obs.trace.Tracer()
+    with t.span("outer", tid=7, args={"k": "v"}):
+        with t.span("inner", tid=7):
+            pass
+    out = t.export()
+    json.loads(json.dumps(out))
+    evs = {e["name"]: e for e in out["traceEvents"]}
+    outer, inner = evs["outer"], evs["inner"]
+    for e in (outer, inner):
+        assert e["ph"] == "X"
+        assert e["tid"] == 7
+        assert e["dur"] >= 0
+    assert outer["ts"] <= inner["ts"]
+    assert inner["ts"] + inner["dur"] <= outer["ts"] + outer["dur"]
+    assert outer["args"] == {"k": "v"}
+
+
+def test_tracer_ring_is_bounded_and_counts_drops(obs):
+    t = obs.trace.Tracer(capacity=4)
+    for i in range(10):
+        t0 = t.now()
+        t.add_span(f"s{i}", t0, t.now())
+    out = t.export()
+    assert len(out["traceEvents"]) == 4
+    assert [e["name"] for e in out["traceEvents"]] == ["s6", "s7", "s8", "s9"]
+    assert out["otherData"]["spans_dropped"] == 6
+
+
+def test_tracer_track_names_emit_metadata_once(obs):
+    t = obs.trace.Tracer()
+    t.name_track(3, "job 3")
+    t.name_track(3, "job 3")
+    meta = [e for e in t.export()["traceEvents"] if e["ph"] == "M"]
+    assert len(meta) == 1
+    assert meta[0]["name"] == "thread_name"
+    assert meta[0]["args"]["name"] == "job 3"
+
+
+def test_null_tracer_is_disabled_and_free(obs):
+    null = obs.trace.NULL_TRACER
+    assert not null.enabled
+    with null.span("x"):
+        pass
+    assert len(null) == 0
+
+
+def test_merge_child_rebases_onto_parent_clock(obs):
+    Tracer = obs.trace.Tracer
+    parent = Tracer()
+    t0 = parent.now()
+    child = Tracer()
+    c0 = child.now()
+    child.add_span("child_work", c0, c0 + 0.010)
+    t1 = parent.now() + 0.050
+    n = parent.merge_child(
+        child.export()["traceEvents"],
+        child_wall_base=child.wall_base,
+        tid=9,
+        clamp=(t0, t1),
+        extra_args={"origin": "child"},
+    )
+    assert n == 1
+    e = [e for e in parent.export()["traceEvents"] if e["name"] == "child_work"][0]
+    assert e["tid"] == 9 and e["dur"] >= 0
+    assert parent.us(t0) - 1 <= e["ts"]
+    assert e["ts"] + e["dur"] <= parent.us(t1) + 1
+    skewed = Tracer()
+    s0 = skewed.now()
+    skewed.add_span("skewed", s0, s0 + 0.010)
+    parent.merge_child(
+        skewed.export()["traceEvents"],
+        child_wall_base=skewed.wall_base + 3600.0,
+        tid=9,
+        clamp=(t0, t1),
+    )
+    got = [e for e in parent.export()["traceEvents"] if e["name"] == "skewed"]
+    assert got[0]["dur"] >= 0
+    assert got[0]["ts"] + got[0]["dur"] <= parent.us(t1) + 1
+    assert got[0]["args"]["clamped"] is True
+
+
+def test_drop_hook_fires_and_export_carries_warning(obs):
+    t = obs.trace.Tracer(capacity=2)
+    seen = []
+    t.drop_hook = seen.append
+    for i in range(5):
+        n = t.now()
+        t.add_span(f"s{i}", n, n)
+    assert seen == [1, 2, 3]
+    out = t.export()
+    assert out["otherData"]["spans_dropped"] == 3
+    assert "saturated" in out["otherData"]["warning"]
+    assert "wall_base" in out["otherData"]
+
+
+def test_span_hook_sees_every_completed_span(obs):
+    t = obs.trace.Tracer()
+    seen = []
+    t.span_hook = seen.append
+    with t.span("a", tid=1):
+        pass
+    assert [e["name"] for e in seen] == ["a"]
+    t.span_hook = lambda ev: 1 / 0
+    with t.span("b", tid=1):
+        pass
+    assert len(t) == 2
+
+
+# -- trace context (test_obs_v2.py) --------------------------------------------
+
+
+def test_trace_ids_are_w3c_shaped_and_unique(obs):
+    c = obs.context
+    a, b = c.new_trace_id(), c.new_trace_id()
+    assert a != b
+    for tid in (a, b):
+        assert c.valid_trace_id(tid)
+        assert len(tid) == 32
+    assert not c.valid_trace_id("0" * 32)
+    assert not c.valid_trace_id("Z" * 32)
+    assert not c.valid_trace_id(None)
+    assert not c.valid_trace_id(123)
+
+
+def test_trace_frame_round_trips_and_malformed_is_absent(obs):
+    c = obs.context
+    tid = c.new_trace_id()
+    got_tid, got_wall = c.parse_trace_frame(c.trace_frame(tid))
+    assert got_tid == tid
+    assert isinstance(got_wall, float)
+    assert c.parse_trace_frame(None) == (None, None)
+    assert c.parse_trace_frame("nope") == (None, None)
+    assert c.parse_trace_frame({"trace_id": "short"}) == (None, None)
+    assert c.parse_trace_frame({"trace_id": tid, "sent_wall": "x"}) == (tid, None)
+    assert c.TRACE_FIELD == "trace" and c.ENV_TRACE == "S2VTPU_TRACE"
+
+
+def test_rebase_shifts_clamps_and_never_goes_negative(obs):
+    spans = [
+        {"name": "inside", "ph": "X", "ts": 100.0, "dur": 50.0},
+        {"name": "drifted", "ph": "X", "ts": 900.0, "dur": 500.0},
+        {"name": "meta", "ph": "M", "ts": 0},
+    ]
+    out = obs.context.rebase_spans(
+        spans, offset_us=1000.0, tid=7, pid=42, clamp_us=(1000.0, 2000.0),
+        extra_args={"origin": "child"},
+    )
+    assert [e["name"] for e in out] == ["inside", "drifted"]
+    inside, drifted = out
+    assert inside["ts"] == 1100.0 and inside["dur"] == 50.0
+    assert "clamped" not in inside["args"]
+    assert drifted["ts"] + drifted["dur"] <= 2000.0
+    assert drifted["dur"] >= 0
+    assert drifted["args"]["clamped"] is True
+    for e in out:
+        assert e["tid"] == 7 and e["pid"] == 42
+        assert e["args"]["origin"] == "child"
+
+
+# -- metrics registry (test_obs.py, test_obs_v3.py) ------------------------------
+
+
+def test_counter_and_gauge_render_prometheus_text(obs):
+    r = obs.metrics.MetricsRegistry()
+    c = r.counter("jobs_total", "All jobs", labelnames=("verdict",))
+    c.inc(verdict="ok")
+    c.inc(2, verdict="illegal")
+    g = r.gauge("active", "Active jobs")
+    g.set(3)
+    g.dec()
+    text = r.render()
+    assert "# TYPE jobs_total counter" in text
+    assert 'jobs_total{verdict="ok"} 1' in text
+    assert 'jobs_total{verdict="illegal"} 2' in text
+    assert "# TYPE active gauge" in text
+    assert "active 2" in text
+    assert text.endswith("\n")
+    with pytest.raises(ValueError):
+        c.inc(-1, verdict="ok")
+    with pytest.raises(ValueError):
+        r.gauge("jobs_total", "kind clash")
+
+
+def test_histogram_bucket_boundaries_are_inclusive_le(obs):
+    r = obs.metrics.MetricsRegistry()
+    h = r.histogram("lat", "Latency", buckets=(0.1, 1.0, 10.0))
+    h.observe(0.1)
+    h.observe(1.0)
+    h.observe(10.0000001)
+    cum, total, count = h.counts()
+    assert cum == [1, 2, 2, 3]
+    assert count == 3
+    assert total == pytest.approx(11.1000001)
+    text = r.render()
+    assert 'lat_bucket{le="0.1"} 1' in text
+    assert 'lat_bucket{le="1"} 2' in text
+    assert 'lat_bucket{le="10"} 2' in text
+    assert 'lat_bucket{le="+Inf"} 3' in text
+    assert "lat_count 3" in text
+
+
+def test_histogram_labels_and_latency_defaults(obs):
+    r = obs.metrics.MetricsRegistry()
+    h = r.histogram("wall", "Wall", buckets=obs.metrics.LATENCY_BUCKETS, labelnames=("backend",))
+    h.observe(0.002, backend="native")
+    h.observe(50.0, backend="device")
+    text = r.render()
+    assert 'wall_bucket{backend="native",le="0.0025"} 1' in text
+    assert 'wall_bucket{backend="device",le="+Inf"} 1' in text
+    assert r.snapshot()["histograms"]['wall{backend="native"}']["count"] == 1
+
+
+def test_label_values_are_escaped(obs):
+    r = obs.metrics.MetricsRegistry()
+    r.counter("x_total", "X", labelnames=("path",)).inc(path='a"b\\c\nd')
+    assert 'path="a\\"b\\\\c\\nd"' in r.render()
+
+
+def test_openmetrics_exemplars_render_and_classic_text_stays_clean(obs):
+    reg = obs.metrics.MetricsRegistry()
+    hist = reg.histogram("demo_seconds", buckets=(0.1, 1.0), labelnames=("backend",))
+    tid = "deadbeef" * 4
+    hist.observe(0.05, exemplar=tid, backend="native")
+    hist.observe(0.5, backend="native")
+    om = reg.render_openmetrics()
+    assert om.rstrip().endswith("# EOF")
+    ex_lines = [line for line in om.splitlines() if "# {" in line]
+    assert len(ex_lines) == 1
+    assert 'le="0.1"' in ex_lines[0]
+    assert '# {trace_id="%s"} 0.05' % tid in ex_lines[0]
+    reg.counter("demo_jobs_total").inc()
+    om = reg.render_openmetrics()
+    assert "# TYPE demo_jobs counter" in om
+    assert "demo_jobs_total 1" in om
+    classic = reg.render()
+    assert "# {" not in classic
+    assert "# EOF" not in classic
+    assert "# TYPE demo_jobs_total counter" in classic
+    assert obs.metrics.OPENMETRICS_CONTENT_TYPE.startswith("application/openmetrics-text")
+
+
+def test_histogram_observe_without_exemplar_keeps_counts_consistent(obs):
+    reg = obs.metrics.MetricsRegistry()
+    hist = reg.histogram("h_seconds", buckets=(1.0,))
+    hist.observe(0.5)
+    hist.observe(2.0, exemplar="ab" * 16)
+    cum, total, count = hist.counts()
+    assert count == 2 and total == 2.5 and cum == [1, 2]
+    snap = reg.snapshot()["histograms"]["h_seconds"]
+    assert snap["count"] == 2
+    assert snap["exemplars"]["+Inf"]["trace_id"] == "ab" * 16
+
+
+def test_registry_render_is_safe_against_concurrent_registration(obs):
+    reg = obs.metrics.MetricsRegistry()
+    stop = threading.Event()
+    errors = []
+
+    def churn():
+        i = 0
+        while not stop.is_set():
+            try:
+                reg.counter("churn_%d_total" % (i % 50)).inc()
+                reg.gauge("churn_g_%d" % (i % 50)).set(i)
+            except Exception as e:  # pragma: no cover - the failure mode
+                errors.append(e)
+                return
+            i += 1
+
+    threads = [threading.Thread(target=churn) for _ in range(4)]
+    for t in threads:
+        t.start()
+    try:
+        for _ in range(200):
+            assert isinstance(reg.render(), str)
+            reg.render_openmetrics()
+    finally:
+        stop.set()
+        for t in threads:
+            t.join()
+    assert not errors
+
+
+# -- ServiceStats: sink resilience, metric hooks, retry hint ----------------------
+
+
+class _FlakySink(io.StringIO):
+    """Raises OSError on the first N write attempts, then behaves."""
+
+    def __init__(self, failures: int):
+        super().__init__()
+        self.failures = failures
+        self.attempts = 0
+
+    def write(self, s: str) -> int:
+        self.attempts += 1
+        if self.attempts <= self.failures:
+            raise OSError("transient")
+        return super().write(s)
+
+
+def test_stats_sink_survives_one_transient_oserror(obs):
+    sink = _FlakySink(failures=1)
+    s = obs.stats.ServiceStats(sink)
+    s.emit("admit", job=1)
+    assert '"ev":"admit"' in sink.getvalue()
+    assert s.snapshot()["stats_sink_lost"] == 0
+    s.emit("admit", job=2)
+    assert sink.getvalue().count('"ev":"admit"') == 2
+
+
+def test_stats_sink_dropped_after_two_failures_with_counter(obs):
+    sink = _FlakySink(failures=100)
+    s = obs.stats.ServiceStats(sink)
+    s.emit("admit", job=1)
+    assert s.snapshot()["stats_sink_lost"] == 1
+    assert sink.attempts == 2
+    s.emit("admit", job=2)
+    assert sink.attempts == 2
+    assert s.snapshot()["admitted"] == 2
+    assert "verifyd_stats_sink_lost_total 1" in s.registry.render()
+
+
+def test_stats_closed_sink_drops_without_retry(obs):
+    sink = io.StringIO()
+    sink.close()
+    s = obs.stats.ServiceStats(sink)
+    s.emit("admit", job=1)
+    assert s.snapshot()["stats_sink_lost"] == 1
+
+
+def test_cache_loaded_counter_accumulates(obs):
+    s = obs.stats.ServiceStats(None)
+    s.emit("cache_loaded", entries=4)
+    s.emit("cache_loaded", entries=3)
+    assert s.snapshot()["cache_loaded"] == 7
+    assert "verifyd_cache_loaded_total 7" in s.registry.render()
+
+
+def test_stats_events_drive_metrics_registry(obs):
+    s = obs.stats.ServiceStats(None)
+    s.emit("admit", job=1)
+    s.emit("start", job=1, queue_wait_s=0.004)
+    s.emit("done", job=1, wall_s=0.5, verdict=0, backend="native")
+    s.emit("admit", job=2)
+    s.emit("start", job=2)
+    s.emit("job_error", job=2, reason="boom")
+    text = s.registry.render()
+    assert "verifyd_jobs_submitted_total 2" in text
+    assert 'verifyd_jobs_completed_total{verdict="ok"} 1' in text
+    assert 'verifyd_wall_seconds_bucket{backend="native",le="0.5"} 1' in text
+    assert "verifyd_job_errors_total 1" in text
+    assert "verifyd_active_jobs 0" in text
+    snap = s.snapshot()
+    assert snap["active"] == 0
+    assert snap["metrics"]["counters"]["verifyd_jobs_submitted_total"] == 2
+
+
+def test_stats_done_event_feeds_the_shard_families(obs):
+    # A mesh child's stats.shards ride a done event into the per-shard
+    # families (the parent's view of a sharded supervised search).
+    s = obs.stats.ServiceStats(None)
+    shards = [
+        {"shard": 0, "device": "cuda:0", "peak_occupancy": 131072, "occupancy_sum": 200000,
+         "segments": 3, "collective_wall_s": 0.004, "skew": 1.28},
+        {"shard": 1, "device": "cuda:1", "peak_occupancy": 17755, "occupancy_sum": 20000,
+         "segments": 3, "collective_wall_s": 0.004, "skew": 0.17},
+    ]
+    s.emit("done", job=1, wall_s=0.3, verdict=0, backend="device-mesh[2]", shards=shards)
+    text = s.registry.render()
+    assert 'verifyd_shard_frontier_occupancy{shard="0"} 131072' in text
+    assert 'verifyd_shard_frontier_occupancy{shard="1"} 17755' in text
+    assert 'verifyd_shard_skew{shard="1"} 0.17' in text
+    assert 'verifyd_shard_collective_seconds_count{shard="0"} 1' in text
+    assert 'verifyd_wall_seconds_count{backend="device-mesh"} 1' in text
+
+
+def test_stats_retry_hint_is_clamped(obs):
+    s = obs.stats.ServiceStats(None)
+    assert s.retry_after_hint(0) == 0.5
+    assert s.retry_after_hint(4) == 4.0
+    s.emit("done", wall_s=20.0, verdict=0)
+    assert s.retry_after_hint(100) == 30.0
+
+
+def test_stats_retry_hint_counts_in_flight_jobs(obs):
+    s = obs.stats.ServiceStats(None)
+    s.emit("done", wall_s=2.0, verdict=0)
+    assert s.retry_after_hint(1) == 2.0
+    s.emit("start", job=1)
+    s.emit("start", job=2)
+    assert s.retry_after_hint(1) == 6.0
+    s.emit("done", job=1, wall_s=2.0, verdict=0)
+    assert s.retry_after_hint(1) == 4.0
+
+
+def test_stats_retry_hint_folds_in_the_lease_backlog(obs):
+    # Jobs parked on the device pool drain no faster than leases turn
+    # over: waiters x EWMA lease hold joins the hint.
+    s = obs.stats.ServiceStats(None)
+    s.emit("lease_release", held_s=2.0, in_use=0)
+
+    class Pool:
+        def snapshot(self):
+            return {"waiters": 3}
+
+    assert s.retry_after_hint(0) == 0.5
+    s.device_pool = Pool()
+    assert s.retry_after_hint(0) == 6.0
+
+
+# -- the compile / build tracker (test_obs_v3.py) ---------------------------------
+
+
+def _site_call(tracker, sig, site="fake_site", wall_s=0.001):
+    """What a tracked site does per call: a miss is a compile (or build)."""
+    if not tracker.record_call(site, sig):
+        tracker.record_compile(site, sig, wall_s)
+
+
+def test_compile_tracker_counts_compiles_hits_and_retraces(obs):
+    tr = obs.introspect.JitIntrospector()
+    with obs.introspect.job_context(shape="64x5x8"):
+        for sig in ("a", "a", "a", "b"):
+            _site_call(tr, sig)
+    snap = tr.snapshot()
+    assert snap["compiles"] == {"fake_site\t64x5x8": 2}
+    assert snap["retraces"] == {"fake_site\t64x5x8": 1}
+    assert snap["hits"] == {"64x5x8": 2}
+    assert snap["misses"] == {"64x5x8": 2}
+    assert snap["signatures"] == {"fake_site": 2}
+    assert snap["compile_wall_s"]["fake_site"] == pytest.approx(0.002)
+
+
+def test_retrace_storm_is_latched_and_reaches_the_event_stream(obs):
+    stats = obs.stats.ServiceStats(None)
+    tr = obs.introspect.JitIntrospector()
+    tr.attach(registry=stats.registry, stats=stats, storm_threshold=2)
+    with obs.introspect.job_context(shape="stormy"):
+        for n in (2, 3, 4, 5):
+            _site_call(tr, f"sig{n}")
+    assert tr.snapshot()["storms"] == [{"site": "fake_site", "shape": "stormy", "compiles": 3}]
+    assert stats.snapshot()["retrace_storms"] == 1
+    rendered = stats.registry.render()
+    assert "verifyd_retrace_storms_total 1" in rendered
+    assert 'verifyd_jit_retraces_total{site="fake_site",shape="stormy"} 3' in rendered
+
+
+def test_fold_merges_child_snapshot_and_retrips_the_storm(obs):
+    stats = obs.stats.ServiceStats(None)
+    parent = obs.introspect.JitIntrospector()
+    parent.attach(registry=stats.registry, stats=stats, storm_threshold=2)
+    child = obs.introspect.JitIntrospector()
+    with obs.introspect.job_context(shape="64x5x8"):
+        for n in (2, 3, 4):
+            _site_call(child, f"sig{n}", site="regrow")
+    harvest = child.snapshot_and_reset()
+    assert child.snapshot()["compiles"] == {}
+    parent.fold(harvest)
+    assert parent.snapshot()["compiles"] == {"regrow\t64x5x8": 3}
+    assert parent.snapshot()["hits"] == {}
+    assert stats.snapshot()["retrace_storms"] == 1
+    parent.fold(harvest)
+    assert parent.snapshot()["compiles"] == {"regrow\t64x5x8": 6}
+    assert stats.snapshot()["retrace_storms"] == 1
+
+
+def test_attach_replays_accumulated_counts_into_a_fresh_registry(obs):
+    tr = obs.introspect.JitIntrospector()
+    with obs.introspect.job_context(shape="pre"):
+        _site_call(tr, "a")
+        _site_call(tr, "a")
+    reg = obs.metrics.MetricsRegistry()
+    tr.attach(registry=reg)
+    text = reg.render()
+    assert 'verifyd_jit_compiles_total{site="fake_site",shape="pre"} 1' in text
+    assert 'verifyd_jit_cache_hits_total{shape="pre"} 1' in text
+
+
+def test_resource_sampler_ring_is_bounded_and_updates_gauges(obs):
+    reg = obs.metrics.MetricsRegistry()
+    s = obs.introspect.ResourceSampler(reg, interval_s=60.0, capacity=3)
+    for _ in range(7):
+        sample = s.sample_once()
+    assert sample["rss_bytes"] > 0
+    assert sample["threads"] >= 1
+    assert sample["cpu_s"] >= 0.0
+    assert len(s.ring()) == 3
+    snap = s.snapshot()
+    assert snap["samples"] == 7 and snap["retained"] == 3
+    assert snap["last"]["rss_bytes"] == sample["rss_bytes"]
+    text = reg.render()
+    assert "verifyd_resource_rss_bytes %d" % sample["rss_bytes"] in text
+    assert "verifyd_resource_threads" in text
+
+
+def test_resource_sampler_thread_starts_and_stops(obs):
+    s = obs.introspect.ResourceSampler(None, interval_s=0.05, capacity=8).start()
+    try:
+        assert s.snapshot()["samples"] >= 1
+    finally:
+        s.close()
+    assert s._thread is None
+
+
+# -- what only the port has: builds in place of jit compiles ------------------------
+
+
+def test_native_build_lands_in_the_introspector(tmp_path, monkeypatch):
+    """A cold ``g++`` build of ``csrc/s2check.cpp`` is one recorded compile
+    at site ``g++:s2check.cpp`` under the job context's shape, keyed by the
+    source hash that names the library; a build span lands on the context
+    tracer; loading the built library again records nothing."""
+    from s2_verification_tpu_torch.checker import native
+    from s2_verification_tpu_torch.obs import introspect
+    from s2_verification_tpu_torch.obs.trace import Tracer
+
+    monkeypatch.setattr(native, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(introspect, "INTROSPECTOR", introspect.JitIntrospector())
+    tracer = Tracer(16)
+    with introspect.job_context(job=4, shape="16x2x2", tracer=tracer):
+        so, seconds = native._compile()
+        again = native._compile()
+    assert seconds > 0 and again == (so, 0.0)
+    tag = so.stem.split("-")[-1]
+    snap = introspect.INTROSPECTOR.snapshot()
+    assert snap["compiles"] == {"g++:s2check.cpp\t16x2x2": 1}
+    assert snap["signatures"] == {"g++:s2check.cpp": 1}
+    assert snap["compile_wall_s"]["g++:s2check.cpp"] == pytest.approx(seconds, abs=1e-6)
+    spans = [e for e in tracer.export()["traceEvents"] if e.get("name") == "build"]
+    assert len(spans) == 1 and spans[0]["tid"] == 4
+    assert spans[0]["args"]["site"] == "g++:s2check.cpp" and spans[0]["args"]["sig"] == tag
+    harvest = introspect.INTROSPECTOR.snapshot_and_reset()
+    assert introspect.INTROSPECTOR.snapshot()["compiles"] == {}
+    assert harvest["compiles"] == snap["compiles"]
+
+
+def test_device_memory_never_creates_a_cuda_context():
+    """The sampler reads card memory only where ``torch`` is imported and
+    CUDA already initialised; importing the port's obs package (and
+    sampling) leaves ``torch`` unimported."""
+    code = (
+        "import sys\n"
+        "from s2_verification_tpu_torch.obs import introspect\n"
+        "assert introspect._device_memory() == {}\n"
+        "introspect.ResourceSampler(None).sample_once()\n"
+        "assert 'torch' not in sys.modules, 'torch imported'\n"
+        "import torch\n"
+        "assert introspect._device_memory() == {}\n"
+        "assert not torch.cuda.is_initialized()\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
