@@ -42,7 +42,7 @@ on the first failed phase:
    -backend=device -stats``, launch counts reset just before and read just
    after, every fold call recorded), which must exit 0 with a witness that
    replays (:func:`replay_fast`) and the search statistics of
-   :data:`HEADLINE_STATS`; one warm ``check_device_auto`` call; every
+   :data:`HEADLINE_STATS`, and its wall (:data:`HEADLINE_WARM_CALLS`); every
    recorded fold call again, bit-exact against the plain fold, with their
    total device and per-call time beside the summed bound, and the largest
    by steps measured alone;
@@ -55,7 +55,7 @@ on the first failed phase:
    peak memory; the 5×2000 headline through the CLI with ``--prune
    --speculate-depth 3`` (launch counts reset just before and read just
    after), with the statistics of :data:`PRUNED_HEADLINE_STATS`, its host
-   syncs, first and warm walls, and the kernels per layer of a
+   syncs, wall, and the kernels per layer of a
    profiled 100-layer window; every fold call of both, bit-exact against
    the plain fold and timed; then the port's campaign matrix
    (``collector/campaign.py``: five legal fault shapes, four violation
@@ -86,7 +86,7 @@ on the first failed phase:
    bit-exact;
 10. the host-RAM spill and checkpoints (``device._spill_search``,
    ``checker/checkpoint.py``), each run timed on its first call and warm
-   (but (b)),
+   (but (b) and (d)),
    with its streamed layers, slabs per streamed layer, slab halvings and
    hybrid in-core segments, host syncs, seconds in ``_dedup_rows``, peak
    device memory and the host's peak RSS, and its fold calls bit-exact
@@ -126,14 +126,14 @@ on the first failed phase:
    (phase 7's headline and :data:`BATCH_SEEDS` with :func:`bench_faults`)
    through ``check_batch_vmap`` on the card, every lane OK, the headline
    lane's layers equal to its ``run_search`` alone at the lanes' capacity,
-   with the group's first and warm walls, loop iterations, host syncs and
+   with the group's wall (one launch since phase 15), loop iterations, host syncs and
    fold launches per iteration and peak memory beside the lane alone and
    phase 7's ``-backend=device`` walls; (b) the campaign matrix (seed 11)
    in one launch, each decided lane equal to its label and an undecided one
    only where it pruned; (c) ``check_batch_native`` over the same lanes
    equal to ``check_native`` lane by lane, and every lane the card decided
-   equal to the native verdict; (d) every fold call of (a)'s first launch
-   and of (b) bit-exact against the plain fold, and the largest measured;
+   equal to the native verdict; (d) every fold call of (a)'s launch and of
+   (b) bit-exact against the plain fold, and the largest measured;
 13. the frontier sharded over a mesh (``parallel/distributed.py``,
    ``device.place_frontier``, ``check_device(mesh=)``): (a) adversarial
    k=10, batch=100, seed 0, beam off, in a 2^19-row bucket (410,971 rows at
@@ -165,7 +165,33 @@ on the first failed phase:
    and the child's process group is gone within ``grace_s + 1`` s.  Each
    sub-phase's wall is printed with the card's name and power limit; the
    children's fold launches are the ones each child reports;
-15. the kernel list, one JSON line of kernel measurements, and as the last
+15. verifyd, the resident daemon (``service/daemon.py``): the port's
+   ``serve`` as its own process (through :data:`VERIFYD_WRAPPER`, which
+   records each job's result and every fold call of the processes that
+   search on the card), driven with the port's ``submit`` CLI and
+   ``VerifydClient``: (a) ``--device supervised --time-budget 2``: the main
+   path's k=10 escalates to a supervised child — OK, backend
+   ``device-supervised``, no ``degrade`` event, the child's fold launches
+   > 0 (as the daemon's ``stats`` op counts them), a witness that replays
+   and the steps and statistics of ``check_device_auto`` in this process
+   (:data:`K10_DEVICE_STATS`); resubmitted, a cache hit; (b) the headline
+   decided on the native rung, as the one-shot ``check`` decides it, and an
+   unsatisfiable history refused with an HTML artifact naming the refused
+   ops; (c) phase 12's 16 lanes at once from 16 client threads to a
+   daemon with ``--workers 4``: the burst wall, ops verified per second,
+   p50 / p95 submit latency, the daemon's counts and queue peak, every
+   verdict equal to phase 12's; (d) ``--device inline``: the k=10 and its
+   client-id twin (:func:`client_twin`, a cache miss with the same search),
+   each ``device-inline`` with the fold launches counted in the daemon
+   process and the witness and statistics of (a), the walls beside (a)'s;
+   (e) the unsatisfiable k=10 under ``--deadline 20``: ``DeadlineExceeded``
+   while the child searches, its process group gone within
+   ``--deadline-grace``, the daemon still answering; (f) a signed TCP
+   submit answered as the unix socket answers, a wrong secret refused
+   before admission, and SIGTERM under ``--drain-timeout 30`` with a job in
+   flight: answered, exit 0; then every recorded fold call bit-exact
+   against the plain fold;
+16. the kernel list, one JSON line of kernel measurements, and as the last
    line ``{"ok": true, "device": {...}}``.
 
 Fold times are per call, from CUDA events: ``call`` with back-to-back
@@ -186,8 +212,10 @@ import contextlib
 import hashlib
 import io
 import json
+import logging
 import os
 import re
+import signal
 import socket
 import subprocess
 import sys
@@ -289,15 +317,29 @@ MESH_BUCKET = 1 << 19
 MESH_SPILL_BUCKET = 1 << 18
 #: the campaign seed every builtin violation provably fires under
 CAMPAIGN_SEED = 11
-#: warm calls of the headline in phases 7 and 8, plain and pruned: one
-#: each, for the script's time limit (phase 12 runs the headline's shape
-#: for about 10,000 layers, twice)
-HEADLINE_WARM_CALLS = 1
+#: warm calls of the headline in phases 7 and 8, plain and pruned: none
+#: since phase 15, for the script's time limit (their first calls run
+#: after phases 1–6 have warmed the CUDA context, kernels and allocator;
+#: phase 12 runs the headline's shape for about 10,000 layers)
+HEADLINE_WARM_CALLS = 0
+
+
+def walls_text(first: float, warm: list, ops: int) -> str:
+    """``first call ... s[, warm ... s]; N ops verified per s (...)``, the
+    rate over the warm median, or over the first call without warm calls."""
+    rate_wall = sorted(warm)[len(warm) // 2] if warm else first
+    what = "warm median" if len(warm) > 1 else ("one warm call" if warm else "the first call")
+    warm_s = (", warm " + ", ".join(f"{w:.3f}" for w in warm) + " s") if warm else ""
+    return f"first call {first:.3f} s{warm_s}; {ops / rate_wall:.0f} ops verified per s ({what})"
 #: phase 12's launch group: lanes of the headline's shape, the headline
 #: first and then one lane a seed of these (16 lanes, the daemon's default
 #: ``--batch-max``)
 BATCH_SHAPE = ("match-seq-num", 5, 2000)
 BATCH_SEEDS = list(range(20260730, 20260745))
+#: phase 15: the main path's k=10 through ``check_device_auto(profile=True)``
+#: in process and in verifyd's supervised child, as phase 14 (b) measures it
+#: on the H100 (PERF.md §6)
+K10_DEVICE_STATS = {"layers": 7, "max_frontier": 65536, "expanded": 506362, "host_syncs": 30}
 #: phase 14: a wrapper around the supervised child's entry point
 #: (``service/supervise.py::_child_main``), written to a temporary file and
 #: run as ``python WRAPPER MARKER SAVES EVERY HIST CKPT OUT [extras]``: it
@@ -325,6 +367,85 @@ def save_then_die(path, ckpt):
 
 device.save_checkpoint = save_then_die
 sys.exit(supervise._child_main(sys.argv[4:]))
+"""
+#: phase 15: a wrapper around the port's CLI, written to a temporary file and
+#: run as ``python WRAPPER RECORD serve-supervised|serve-inline ARGS`` (the
+#: daemon: ``cli.main(ARGS)``) or ``python WRAPPER RECORD child ARGS`` (a
+#: supervised child: ``supervise._child_main(ARGS)``).  It observes and
+#: changes nothing the product decides: the daemon's ``Scheduler._finish``
+#: writes each decided job's result (backend, outcome, witness, steps,
+#: statistics, refused ops, a child's launches) to
+#: ``RECORD/job-<daemon pid>-<job id>.json``;
+#: the daemon launches its supervised children through this file; and the
+#: processes that search on the card (a child, an inline daemon) save every
+#: ``fold_lanes`` call's inputs to ``RECORD/folds-<role>-<pid>.pt`` when they
+#: exit.  A supervised daemon never imports torch through it.
+VERIFYD_WRAPPER = """\
+import dataclasses, json, os, sys
+
+record, role, argv = sys.argv[1], sys.argv[2], sys.argv[3:]
+
+
+def record_folds():
+    import atexit
+    import torch
+    from s2_verification_tpu_torch.checker import device
+
+    calls, tables = [], []
+    real = device.fold_lanes
+
+    def recording(seed, row, length, rh):
+        if not tables or tables[-1][0] is not rh:
+            tables.append((rh, rh.detach().cpu().clone()))
+        calls.append([t.detach().cpu().clone() for t in (seed, row, length)] + [len(tables) - 1])
+        return real(seed, row, length, rh)
+
+    def save():
+        if calls:
+            torch.save({"calls": calls, "tables": [t for _, t in tables]},
+                       os.path.join(record, f"folds-{role}-{os.getpid()}.pt"))
+
+    device.fold_lanes = recording
+    atexit.register(save)
+
+
+if role == "child":
+    record_folds()
+    from s2_verification_tpu_torch.service import supervise
+
+    sys.exit(supervise._child_main(argv))
+
+from s2_verification_tpu_torch import cli
+from s2_verification_tpu_torch.checker import resilient
+from s2_verification_tpu_torch.service import scheduler
+
+real_drive, real_finish = resilient.drive, scheduler.Scheduler._finish
+
+
+def drive(cmd, **kw):
+    at = cmd.index("-m")
+    return real_drive([cmd[0], os.path.abspath(__file__), record, "child", *cmd[at + 2:]], **kw)
+
+
+def finish(self, job, res, backend, **kw):
+    reply = real_finish(self, job, res, backend, **kw)
+    st = getattr(res, "stats", None)
+    rec = {
+        "pid": os.getpid(), "job": job.id, "backend": backend, "outcome": res.outcome.value,
+        "linearization": res.linearization, "steps": res.steps,
+        "stats": None if st is None else dataclasses.asdict(st),
+        "refused": sorted({job.hist.ops[i].op_id for _p, r in res.refusals or [] for i in r}),
+        "child_launches": getattr(res, "child_launches", None),
+    }
+    with open(os.path.join(record, f"job-{os.getpid()}-{job.id}.json"), "w", encoding="utf-8") as f:
+        json.dump(rec, f)
+    return reply
+
+
+resilient.drive, scheduler.Scheduler._finish = drive, finish
+if role == "serve-inline":
+    record_folds()
+sys.exit(cli.main(argv))
 """
 #: ``scripts/table_bench.py:27-33`` without the CPU-intractable 16×2000.
 TABLE_CONFIGS = [
@@ -960,10 +1081,8 @@ def run_spill_phase(dev_mod, fold_cuda, xxh3, fb, prepare, adversarial_events, r
     print(f"cli stats: {json.dumps(stats)}", flush=True)
     out["launches_by_path"]["unsatisfiable k=10 through the CLI: beam, tier to 2^23 rows, spill (d)"] = (
         first["launches"])
-    hist10u = captured["hist"]
-    res_w, warm = measured(lambda: dev_mod.check_device_auto(hist10u, collect_stats=True), record=False)
-    check_run(f"{tag} (warm, check_device_auto)", res_w, warm, "illegal", SPILL_K10_UNSAT_STATS)
-    print(f"{tag}, warm check_device_auto: {warm['wall']:.3f} s ({shape(warm)})", flush=True)
+    # No warm call of (d) since phase 15 (for the script's time limit): it
+    # repeated the first call's search.
 
     a = largest.pop("args")
     got_f = fold_cuda.fold_lanes(*a)
@@ -1339,17 +1458,13 @@ def run_batch_phase(dev_mod, fold_cuda, fb, prepare, recheck_calls, measure, hea
     if bad:
         fail(f"batched lanes (a): lanes {bad} are not OK")
     layers = [v.layers for v in first["verdicts"]]
-    # (d), for (a): its fold calls, before the warm call, so that no
-    # recorded copy counts in that call's peak memory.
+    # (d), for (a): its fold calls.  No warm launch of the group since
+    # phase 15, for the script's time limit (116-128 s on the H100).
     group_calls = first.pop("calls")
     steps = recheck_calls(group_calls, "batched lanes (a)")
     largest = max(range(len(group_calls)), key=lambda j: (steps[j], -j))
     out["batched_call"] = measure(group_calls[largest], f"batched lanes (a) call {largest + 1}, the largest by steps")
     del group_calls
-    warm = launch(lanes, "the headline-shape launch group, warm", False)
-    if [(v.result.outcome, v.layers) for v in warm["verdicts"]] != [(v.result.outcome, v.layers)
-                                                                     for v in first["verdicts"]]:
-        fail("batched lanes (a): the warm launch differs from the first")
 
     # The headline lane alone through run_search, at the lanes' capacity.
     max_layers = max(lane.enc.total_remaining for lane in lanes) + 2
@@ -1373,18 +1488,16 @@ def run_batch_phase(dev_mod, fold_cuda, fb, prepare, recheck_calls, measure, hea
         f"batched lanes (a): check_batch_vmap of {len(lanes)} lanes at capacity {batched.VMAP_LANE_CAPACITY}: "
         f"every lane OK, layers per lane {layers} (the headline lane {layers[0]}; its pinned count through "
         f"check_device {HEADLINE_STATS['layers']}); first call {first['wall']:.3f} s ({per_iter(first)}, peak "
-        f"memory {first['peak'] / 2**30:.3f} GiB with its fold inputs recorded), warm {warm['wall']:.3f} s "
-        f"({per_iter(warm)}, peak memory {warm['peak'] / 2**30:.3f} GiB); card {card}",
+        f"memory {first['peak'] / 2**30:.3f} GiB with its fold inputs recorded); card {card}",
         flush=True,
     )
     print(
         f"batched lanes (a): the headline lane alone, run_search at capacity {batched.VMAP_LANE_CAPACITY}: "
         f"{single.layers} layers (== its lane in the group) in {single_wall:.3f} s, {single_syncs} host syncs "
         f"({single_syncs / single.layers:.2f} a layer), {single_launches} fold launches; through check "
-        f"-backend=device in phase 7: first {cli_first:.3f} s, warm "
-        + ", ".join(f"{w:.3f}" for w in cli_warm)
-        + f" s; the group's warm wall is {warm['wall'] / single_wall:.2f}x the lane alone for "
-        f"{len(lanes)} lanes ({sum(len(h.ops) for h in hists) / warm['wall']:.0f} ops verified per s, the "
+        f"-backend=device in phase 7: {walls_text(cli_first, cli_warm, len(hists[0].ops))}; the group's first "
+        f"wall (recording its fold inputs) is {first['wall'] / single_wall:.2f}x the lane alone for "
+        f"{len(lanes)} lanes ({sum(len(h.ops) for h in hists) / first['wall']:.0f} ops verified per s, the "
         f"lane alone {len(hists[0].ops) / single_wall:.0f}); the {sum(layers)} layers of all lanes at the lane "
         f"alone's {1e3 * single_wall / single.layers:.3f} ms a layer would take {sum(layers) * single_wall / single.layers:.1f} s "
         f"one lane after another (an extrapolation from the headline lane's rate, not a measurement: the other "
@@ -1433,6 +1546,8 @@ def run_batch_phase(dev_mod, fold_cuda, fb, prepare, recheck_calls, measure, hea
     del mixed_calls
     out["launches_by_path"][f"{len(lanes)} lanes of {workflow} {clients}x{ops} through check_batch_vmap (12a)"] = (
         first["launches"])
+    out["lane_events"] = events
+    out["lane_verdicts"] = [v.result.outcome.value for v in first["verdicts"]]
     out["launches_by_path"][f"campaign matrix, {len(lanes_b)} lanes through check_batch_vmap (12b)"] = (
         mixed["launches"])
     out["seconds"] = time.monotonic() - t_phase
@@ -1891,6 +2006,445 @@ def run_supervise_phase(dev_mod, fb, prepare, events, long_events, device=None, 
     return out
 
 
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _has_torch(pid: int) -> bool:
+    """Whether process ``pid`` has loaded torch's library, from /proc."""
+    with open(f"/proc/{pid}/maps", encoding="utf-8", errors="replace") as f:
+        return "libtorch" in f.read()
+
+
+def client_twin(events, offset: int) -> list:
+    """``events`` with every client id moved by ``offset``: another verdict-
+    cache fingerprint for the same search (the encoder numbers chains in
+    client order, so witness, steps and statistics are the same)."""
+    import dataclasses
+
+    return [dataclasses.replace(e, client_id=e.client_id + offset) for e in events]
+
+
+def run_verifyd_phase(dev_mod, fb, prepare, recheck_calls, k10_events, headline_events, lane_events,
+                      lane_verdicts, refused_events, long_events, small_events, device=None, budget_s=2.0,
+                      deadline_s=20.0, grace_s=2.0) -> dict:
+    """Phase 15, verifyd on the card: the port's daemon as its own process
+    (``python -m s2_verification_tpu_torch serve``, through
+    :data:`VERIFYD_WRAPPER`), driven with the port's ``submit`` CLI and
+    ``VerifydClient``.  ``k10_events`` is the main path's history,
+    ``headline_events`` phase 7's, ``lane_events`` / ``lane_verdicts``
+    phase 12's lanes and outcomes, ``refused_events`` an unsatisfiable
+    history the native rung refuses, ``long_events`` one it cannot decide
+    inside 0.05 s and whose device search outlasts ``deadline_s`` (the
+    unsatisfiable k=10), ``small_events`` a small one; ``device=None`` is
+    the card,
+    ``"cpu"`` rehearses the phase on the CPU (``--torch-device cpu``).
+    Returns the fold launches by path and the sub-phases' walls."""
+    from s2_verification_tpu_torch import cli
+    from s2_verification_tpu_torch.checker.stats import FrontierStats
+    from s2_verification_tpu_torch.service.client import VerifydClient, VerifydError, VerifydRefused
+    from s2_verification_tpu_torch.utils import events as ev
+
+    t_phase = time.monotonic()
+    card = fb.card()
+    here = os.path.dirname(os.path.abspath(__file__))
+    out = {"launches_by_path": {}, "walls": {}}
+    torch_dev = [] if device is None else ["--torch-device", device]
+    daemons: list = []
+
+    def wall(tag, seconds):
+        out["walls"][tag] = seconds
+        print(f"verifyd {tag}: {seconds:.3f} s wall; {card}", flush=True)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        record = os.path.join(tmp, "record")
+        os.makedirs(record)
+        wrapper = os.path.join(tmp, "verifyd_wrapper.py")
+        with open(wrapper, "w", encoding="utf-8") as f:
+            f.write(VERIFYD_WRAPPER)
+        env = dict(os.environ, TMPDIR=tmp,
+                   PYTHONPATH=os.pathsep.join([here, *filter(None, [os.environ.get("PYTHONPATH")])]))
+        secret = os.path.join(tmp, "secret")
+        with open(secret, "w", encoding="utf-8") as f:
+            f.write("phase-15-secret\n")
+
+        def history_file(name, events):
+            path = os.path.join(tmp, f"{name}.jsonl")
+            with open(path, "w", encoding="utf-8") as f:
+                ev.write_history(events, f)
+            return path
+
+        def text_of(path):
+            with open(path, encoding="utf-8") as f:
+                return f.read()
+
+        def boot(tag, mode, *args):
+            """One daemon; returns its namespace once it answers ``ping``."""
+            d = type("Daemon", (), {})()
+            d.tag, d.sock, d.log = tag, os.path.join(tmp, f"{tag}.sock"), os.path.join(tmp, f"{tag}.stats.jsonl")
+            d.err = open(os.path.join(tmp, f"{tag}.stderr"), "w", encoding="utf-8")
+            t0 = time.monotonic()
+            d.proc = subprocess.Popen(
+                [sys.executable, wrapper, record, f"serve-{mode}", "serve", "-socket", d.sock, "--device", mode,
+                 "--stats-log", d.log, "-out-dir", os.path.join(tmp, f"{tag}-viz"), *torch_dev, *args],
+                env=env, cwd=tmp, stdout=subprocess.DEVNULL, stderr=d.err,
+            )
+            daemons.append(d)
+            while not os.path.exists(d.sock):
+                if d.proc.poll() is not None or time.monotonic() - t0 > 300:
+                    d.err.flush()
+                    fail(f"verifyd {tag}: serve exited {d.proc.poll()} before its socket appeared: "
+                         f"{open(d.err.name, encoding='utf-8').read()[-3000:]}")
+                time.sleep(0.05)
+            d.client = VerifydClient(d.sock, timeout=900)
+            d.pid = d.client.ping()["pid"]
+            d.boot_s = time.monotonic() - t0
+            print(f"verifyd {tag}: `serve --device {mode} {' '.join(args)}` answered ping in {d.boot_s:.3f} s "
+                  f"(pid {d.pid}, torch loaded in the daemon: {_has_torch(d.pid)})", flush=True)
+            return d
+
+        def stop(d):
+            d.client.shutdown()
+            rc = d.proc.wait(timeout=120)
+            d.err.close()
+            if rc != 0:
+                fail(f"verifyd {d.tag}: serve exited {rc} after shutdown")
+
+        def events_of(d):
+            with open(d.log, encoding="utf-8") as f:
+                return [json.loads(line) for line in f if line.strip()]
+
+        def launches(d):
+            return d.client.stats()["introspection"]["launches"]
+
+        def job_spans(d, job):
+            """Seconds of each span on job ``job``'s track of the daemon's
+            ``trace`` op: ``cpu[native]`` (the CPU rung), ``device[MODE]``
+            (the escalation), ``prepare`` (admission's decode), ..."""
+            return {e["name"]: e["dur"] / 1e6 for e in d.client.trace()["traceEvents"]
+                    if e.get("ph") == "X" and e.get("tid") == job}
+
+        def submit_cli(d, path, *extra):
+            """``submit -stats`` in this process: exit code, its JSON line,
+            wall, and the job records the daemon wrote meanwhile."""
+            before = set(os.listdir(record))
+            buf = io.StringIO()
+            t0 = time.monotonic()
+            with contextlib.redirect_stdout(buf):
+                rc = cli.main(["submit", "-file", path, "-socket", d.sock, "-stats", "-no-viz", *extra])
+            took = time.monotonic() - t0
+            new = sorted(n for n in set(os.listdir(record)) - before if n.startswith("job"))
+            recs = []
+            for n in new:
+                with open(os.path.join(record, n), encoding="utf-8") as f:
+                    recs.append(json.load(f))
+            return rc, json.loads(buf.getvalue().strip().splitlines()[-1]), took, recs
+
+        def job_records():
+            recs = []
+            for n in os.listdir(record):
+                if n.startswith("job"):
+                    with open(os.path.join(record, n), encoding="utf-8") as f:
+                        recs.append(json.load(f))
+            return recs
+
+        def same_search(rec, ref, what):
+            got = _stats_view(FrontierStats(**rec["stats"]))
+            want = _stats_view(ref.stats)
+            if rec["linearization"] != ref.linearization or rec["steps"] != ref.steps or got != want:
+                fail(f"verifyd {what}: witness/steps/stats differ from check_device_auto in this process: "
+                     f"{rec['steps']} {got} != {ref.steps} {want}")
+
+        try:
+            hist10 = prepare(k10_events)
+            path10 = history_file("k10", k10_events)
+            ref = dev_mod.check_device_auto(hist10, checkpoint_path=os.path.join(tmp, "ref.ckpt.npz"),
+                                            profile=True, device=device)
+            if ref.outcome.value != "ok":
+                fail(f"verifyd: check_device_auto of the k=10 history in process: {ref.outcome.value}")
+            pinned = {k: getattr(ref.stats, k) for k in K10_DEVICE_STATS}
+            if device is None and pinned != K10_DEVICE_STATS:
+                fail(f"verifyd: k=10 in process {pinned} != phase 14 (b)'s {K10_DEVICE_STATS}")
+
+            # (a) --device supervised (the default): k=10 past a short CPU budget.
+            d1 = boot("a", "supervised", "--time-budget", str(budget_s), "--profile")
+            if _has_torch(d1.pid):
+                fail("verifyd (a): the supervised daemon loaded torch")
+            l0 = launches(d1)
+            rc, line, wall_a, recs = submit_cli(d1, path10)
+            l1 = launches(d1)
+            if rc != 0 or line["backend"] != "device-supervised" or len(recs) != 1:
+                fail(f"verifyd (a): exit {rc}, {line}, {len(recs)} job records")
+            (rec_a,) = recs
+            if rec_a["backend"] != "device-supervised" or not replay_ok(hist10, rec_a["linearization"]):
+                fail(f"verifyd (a): backend {rec_a['backend']}, or the witness does not replay")
+            same_search(rec_a, ref, "(a)")
+            child_a = (rec_a["child_launches"] or {}).get("fold_lanes", 0)
+            seen_a = l1["children"].get("fold_lanes", 0) - l0["children"].get("fold_lanes", 0)
+            if device is None and (child_a <= 0 or seen_a != child_a):
+                fail(f"verifyd (a): the child reported {child_a} fold launches, the daemon counted {seen_a}")
+            if any(e["ev"] == "degrade" for e in events_of(d1)):
+                fail("verifyd (a): a degrade event")
+            rc, line2, wall_hit, _ = submit_cli(d1, path10)
+            if rc != 0 or line2["cached"] is not True:
+                fail(f"verifyd (a): the resubmit is not a cache hit: {line2}")
+            out["launches_by_path"]["adversarial k=10 in verifyd's supervised child (15a)"] = child_a
+            sp = job_spans(d1, rec_a["job"])
+            esc_a = sp["device[supervised]"]
+            print(f"verifyd (a): k=10 through `submit`: exit 0, backend {line['backend']}, daemon wall_s "
+                  f"{line['wall_s']} (CPU rung {sp.get('cpu[native]', 0):.3f} s, escalation {esc_a:.3f} s), "
+                  f"client wall {wall_a:.3f} s; witness replays, steps and statistics == "
+                  f"check_device_auto in this process ({rec_a['stats']['layers']} layers, "
+                  f"{rec_a['stats']['host_syncs']} host syncs); the child's fold launches {child_a} (the "
+                  f"daemon's stats op: {seen_a}); no degrade event; resubmitted: cached, {wall_hit:.3f} s",
+                  flush=True)
+            wall("(a) supervised k=10", wall_a)
+            wall("(a) supervised escalation", esc_a)
+            wall("(a) cache hit", wall_hit)
+
+            # (b) The headline and a refused history.
+            path_h = history_file("headline", headline_events)
+            buf = io.StringIO()
+            quiet = logging.getLogger("s2_verification_tpu_torch.cli")
+            level = quiet.level
+            quiet.setLevel(logging.WARNING)  # not the headline's witness line
+            try:
+                with contextlib.redirect_stdout(buf):
+                    one_shot = cli.main(["check", "-file", path_h, "-no-viz"])
+            finally:
+                quiet.setLevel(level)
+            t0 = time.monotonic()
+            rc, line, wall_b, _ = submit_cli(d1, path_h)
+            if rc != 0 or one_shot != 0 or line["backend"] != "native":
+                fail(f"verifyd (b): the headline exit {rc} ({line}), one-shot check exit {one_shot}")
+            reply = d1.client.submit(text_of(history_file("refused", refused_events)), client="smoke")
+            with open(reply.get("artifact") or os.devnull, encoding="utf-8") as f:
+                page = f.read()
+            (rec_r,) = [r for r in job_records() if (r["pid"], r["job"]) == (d1.pid, reply["job"])]
+            named = f"<code>{', '.join(map(str, rec_r['refused']))}</code>"
+            if reply["verdict"] != 1 or not rec_r["refused"] or named not in page:
+                fail(f"verifyd (b): refused history verdict {reply['verdict']}, refused ops {rec_r['refused']}, "
+                     f"named in the artifact: {named in page}")
+            print(f"verifyd (b): the 5x2000 headline: exit 0 == one-shot `check` exit {one_shot}, backend "
+                  f"{line['backend']}, daemon wall_s {line['wall_s']}, client {wall_b:.3f} s; the refused "
+                  f"history: verdict 1 ({reply['backend']}), its artifact names the refused ops "
+                  f"{rec_r['refused']}", flush=True)
+            wall("(b) headline", wall_b)
+            stop(d1)
+
+            # (c) A burst: phase 12's lanes from 16 client threads at once.
+            dc = boot("c", "supervised", "--workers", "4")
+            texts = [text_of(history_file(f"lane{i}", e)) for i, e in enumerate(lane_events)]
+            replies, lat = [None] * len(texts), [0.0] * len(texts)
+            gate = threading.Barrier(len(texts) + 1)
+
+            def one(i):
+                c = VerifydClient(dc.sock, timeout=900)
+                gate.wait()
+                t = time.monotonic()
+                replies[i] = c.submit(texts[i], client=f"lane{i}", no_viz=True)
+                lat[i] = time.monotonic() - t
+
+            threads = [threading.Thread(target=one, args=(i,)) for i in range(len(texts))]
+            for t in threads:
+                t.start()
+            gate.wait()
+            t0 = time.monotonic()
+            for t in threads:
+                t.join(timeout=900)
+            burst = time.monotonic() - t0
+            if any(t.is_alive() for t in threads) or None in replies:
+                fail("verifyd (c): a burst submit never came back")
+            got = [r["outcome"] for r in replies]
+            if got != list(lane_verdicts):
+                fail(f"verifyd (c): burst verdicts {got} != phase 12's {list(lane_verdicts)}")
+            snap = dc.client.stats()
+            peak = max(e.get("depth", 0) for e in events_of(dc) if e["ev"] == "admit")
+            spans = [job_spans(dc, r["job"]) for r in replies]
+            prep = [sp.get("prepare", 0.0) for sp in spans]
+            search = [sp.get("search", 0.0) for sp in spans]
+            ops = sum(r["ops"] for r in replies)
+            q = sorted(lat)
+            print(f"verifyd (c): {len(texts)} headline-shape histories from {len(texts)} threads, --workers 4: "
+                  f"burst wall {burst:.3f} s, {ops} ops, {ops / burst:.0f} ops verified per s, submit latency "
+                  f"p50 {q[len(q) // 2]:.3f} s p95 {q[min(len(q) - 1, int(0.95 * len(q)))]:.3f} s; backends "
+                  f"{sorted({r['backend'] for r in replies})}; every verdict == phase 12's; stats: submitted "
+                  f"{snap['submitted']}, completed {snap['completed']}, queue peak {peak}; admission's decode "
+                  f"(the `prepare` spans, on the acceptor's event loop) {sum(prep):.3f} s in all "
+                  f"({sum(prep) / len(prep):.3f} s a history), the searches {sum(search):.3f} s in all; {card}",
+                  flush=True)
+            wall("(c) burst", burst)
+            stop(dc)
+
+            # (d) --device inline: the daemon holds one CUDA context.
+            d2 = boot("d", "inline", "--time-budget", str(budget_s), "--profile")
+            walls_d, esc_d, recs_d = [], [], []
+            for k, path in enumerate((path10, history_file("k10-twin", client_twin(k10_events, 1000)))):
+                j0, l0 = d2.client.stats()["introspection"]["jit"], launches(d2)
+                rc, line, took, recs = submit_cli(d2, path)
+                j1, l1 = d2.client.stats()["introspection"]["jit"], launches(d2)
+                n = l1["inline"].get("fold_lanes", 0) - l0["inline"].get("fold_lanes", 0)
+                if rc != 0 or line["backend"] != "device-inline" or line["cached"] or len(recs) != 1:
+                    fail(f"verifyd (d) submit {k + 1}: exit {rc}, {line}, {len(recs)} job records")
+                same_search(recs[0], ref, f"(d) submit {k + 1}")
+                if device is None and n <= 0:
+                    fail(f"verifyd (d) submit {k + 1}: {n} fold launches counted in the daemon")
+                builds = sum(j1.get("compiles", {}).values()) - sum(j0.get("compiles", {}).values())
+                sp = job_spans(d2, recs[0]["job"])
+                walls_d.append(took)
+                esc_d.append(sp["device[inline]"])
+                recs_d.append(recs[0])
+                out["launches_by_path"][f"adversarial k=10 in the inline daemon, submit {k + 1} (15d)"] = n
+                print(f"verifyd (d) submit {k + 1}: backend device-inline, daemon wall_s {line['wall_s']} (CPU "
+                      f"rung {sp.get('cpu[native]', 0):.3f} s, escalation {esc_d[-1]:.3f} s), client {took:.3f} s; "
+                      f"fold launches counted in the daemon {n}; library builds {builds}; "
+                      f"witness, steps and statistics == (a)'s and check_device_auto's", flush=True)
+            if not _has_torch(d2.pid) or d2.client.ping()["pid"] != d2.pid:
+                fail("verifyd (d): the inline daemon has no torch, or restarted")
+            print(f"verifyd (d): inline k=10 {walls_d[0]:.3f} s (first, with the daemon's first CUDA work), "
+                  f"{walls_d[1]:.3f} s (second, same pid {d2.pid} and context) against supervised {wall_a:.3f} s "
+                  f"in (a): inline/supervised {walls_d[0] / wall_a:.3f} first, {walls_d[1] / wall_a:.3f} warm; "
+                  f"the escalations alone {esc_d[0]:.3f} / {esc_d[1]:.3f} s against {esc_a:.3f} s "
+                  f"({esc_d[0] / esc_a:.3f} / {esc_d[1] / esc_a:.3f}); daemon boot {d2.boot_s:.3f} s (supervised "
+                  f"{d1.boot_s:.3f} s); {card}", flush=True)
+            wall("(d) inline k=10, first", walls_d[0])
+            wall("(d) inline k=10, second", walls_d[1])
+            wall("(d) inline escalation, first", esc_d[0])
+            wall("(d) inline escalation, second", esc_d[1])
+            stop(d2)
+
+            # (e) A deadline that expires while the child searches.  A
+            # deadline floors the CPU budget at 0.05 s (scheduler.py), inside
+            # which the native rung decides the headline's 2,885 steps; the
+            # unsatisfiable k=10 it cannot, and its device search runs longer
+            # than the deadline.
+            port = _free_port()
+            d3 = boot("e", "supervised", "--time-budget", "0.05", "--deadline-grace", str(grace_s),
+                      "--drain-timeout", "30", "--tcp", f"127.0.0.1:{port}", "--secret-file", secret)
+            spool = os.path.join(tmp, f"verifyd-spool-{d3.pid}")
+            seen: dict = {}
+            done = threading.Event()
+
+            def watch_child():
+                while not done.is_set():
+                    pgid = _group_of(spool + "/job")
+                    if pgid is not None and "pgid" not in seen:
+                        seen["pgid"], seen["t"] = pgid, time.monotonic()
+                    if os.path.isdir(spool) and any(n.endswith(".progress.json") for n in os.listdir(spool)):
+                        seen.setdefault("beat", time.monotonic())
+                    time.sleep(0.05)
+
+            watcher = threading.Thread(target=watch_child)
+            watcher.start()
+            t0 = time.monotonic()
+            try:
+                d3.client.submit(text_of(history_file("long", long_events)), no_viz=True, deadline_s=deadline_s)
+                err_cls = None
+            except VerifydError as e:
+                err_cls = e.cls
+            t_reply = time.monotonic()
+            done.set()
+            watcher.join(timeout=30)
+            gone = None
+            while seen.get("pgid") is not None and time.monotonic() - t_reply < grace_s + 5:
+                if not _group_alive(seen["pgid"]):
+                    gone = time.monotonic()
+                    break
+                time.sleep(0.01)
+            expiry = t0 + deadline_s
+            if err_cls != "DeadlineExceeded" or "pgid" not in seen or gone is None or gone - expiry > grace_s + 1:
+                fail(f"verifyd (e): reply {err_cls}, child seen {'pgid' in seen}, group gone "
+                     f"{None if gone is None else round(gone - expiry, 3)} s after the deadline")
+            if d3.client.ping()["server"] != "verifyd":
+                fail("verifyd (e): the daemon stopped answering ping")
+            beat = seen.get("beat")
+            print(f"verifyd (e): the unsatisfiable k=10 with --time-budget 0.05 and --deadline {deadline_s}: "
+                  f"DeadlineExceeded {t_reply - t0:.3f} s after submit; the child started "
+                  f"{seen['t'] - t0:.3f} s in, spooled its first heartbeat "
+                  f"{'never' if beat is None else f'{beat - t0:.3f} s in'}; its process group was gone "
+                  f"{gone - expiry:.3f} s after the deadline (grace {grace_s} s); the daemon answers ping",
+                  flush=True)
+            wall("(e) deadline", t_reply - t0)
+            out["walls"]["(e) cancel to gone"] = gone - expiry
+
+            # (f) TCP and drain.
+            small = text_of(history_file("small", small_events))
+            keys = ("verdict", "outcome", "backend", "ops", "shape")
+            by_unix = d3.client.submit(small, no_viz=True)
+            tcp = VerifydClient(f"127.0.0.1:{port}", timeout=300, secret=b"phase-15-secret")
+            by_tcp = tcp.submit(small, no_viz=True)
+            if {k: by_unix[k] for k in keys} != {k: by_tcp[k] for k in keys}:
+                fail(f"verifyd (f): TCP reply {by_tcp} != unix {by_unix}")
+            before = d3.client.stats()
+            try:
+                VerifydClient(f"127.0.0.1:{port}", timeout=30, secret=b"wrong").submit(small)
+                refused = None
+            except VerifydRefused as e:
+                refused = e.cls
+            after = d3.client.stats()
+            if refused != "AuthError" or after["submitted"] != before["submitted"] or (
+                    after["auth_rejects"] != before["auth_rejects"] + 1):
+                fail(f"verifyd (f): a wrong secret got {refused}; submitted {before['submitted']} -> "
+                     f"{after['submitted']}, auth rejects {before['auth_rejects']} -> {after['auth_rejects']}")
+            drained: dict = {}
+
+            def in_flight():
+                drained["reply"] = VerifydClient(d3.sock, timeout=600).submit(
+                    text_of(history_file("k10-drain", client_twin(k10_events, 2000))), no_viz=True)
+
+            t0 = time.monotonic()
+            th = threading.Thread(target=in_flight)
+            th.start()
+            while d3.client.stats()["active"] < 1:
+                if time.monotonic() - t0 > 60:
+                    fail("verifyd (f): the drain's job never started")
+                time.sleep(0.05)
+            d3.proc.send_signal(signal.SIGTERM)
+            t_sig = time.monotonic()
+            rc = d3.proc.wait(timeout=120)
+            th.join(timeout=60)
+            d3.err.close()
+            rep = drained.get("reply") or {}
+            evs = events_of(d3)
+            drain = [e for e in evs if e["ev"] == "drain_done"]
+            if rc != 0 or rep.get("verdict") != 0 or rep.get("backend") != "device-supervised" or not drain or (
+                    not drain[0]["clean"]):
+                fail(f"verifyd (f): serve exited {rc}, the in-flight reply {rep}, drain {drain}")
+            child_f = sum((r["child_launches"] or {}).get("fold_lanes", 0) for r in job_records()
+                          if (r["pid"], r["job"]) == (d3.pid, rep.get("job")))
+            out["launches_by_path"]["adversarial k=10 in flight through a drain, supervised child (15f)"] = child_f
+            print(f"verifyd (f): a signed TCP submit == the unix socket's reply ({by_tcp['outcome']}, "
+                  f"{by_tcp['backend']}); a wrong secret: {refused} before admission; SIGTERM with "
+                  f"--drain-timeout 30 while k=10 was in flight: the job was answered "
+                  f"({rep.get('backend')}, verdict 0, {child_f} fold launches in its child), serve exited 0 "
+                  f"{time.monotonic() - t_sig:.3f} s after the signal (drain waited {drain[0]['waited_s']} s, "
+                  f"clean)", flush=True)
+            wall("(f) drain", time.monotonic() - t0)
+        finally:
+            for d in daemons:
+                if d.proc.poll() is None:
+                    d.proc.kill()
+                    d.proc.wait(timeout=30)
+
+        # Every fold call the phase's device searches made, bit-exact.
+        calls = []
+        for n in sorted(os.listdir(record)):
+            if n.startswith("folds-"):
+                saved = torch.load(os.path.join(record, n))
+                tables = [t.to(device or "cuda") for t in saved["tables"]]
+                calls += [[t.to(device or "cuda") for t in c[:3]] + [tables[c[3]]] for c in saved["calls"]]
+        if device is None and not calls:
+            fail("verifyd: no fold call was recorded")
+        if calls:
+            recheck_calls(calls, "verifyd (phase 15), children and inline daemon")
+        print(f"verifyd: {len(calls)} recorded fold calls from "
+              f"{sum(1 for n in os.listdir(record) if n.startswith('folds-'))} processes, bit-exact", flush=True)
+    out["seconds"] = time.monotonic() - t_phase
+    return out
+
+
 def _stats_view(stats) -> dict:
     """Search statistics of a result, the profile timeline without its wall
     times: equal between a child and the same call in process."""
@@ -2298,16 +2852,12 @@ def main() -> int:
         warm.append(time.monotonic() - t0)
         if res_w.outcome.value != "ok" or not replay_fast(hist, res_w.linearization or []):
             fail("warm check_device_auto of the headline is not OK with a replaying witness")
-    warm_median = sorted(warm)[len(warm) // 2]
     card_name = fb.card()
     print(
         f"headline check (CLI, in process): exit 0 OK, witness replays; {len(hist.ops)} checked ops; "
         f"layers {stats['layers']}, peak frontier {stats['max_frontier']}, expanded "
         f"{stats['expanded']} (== the CPU run); host syncs {syncs}, fold launches "
-        f"{collector_launches['fold_lanes']}; first call {first_wall:.3f} s, warm "
-        + ", ".join(f"{w:.3f}" for w in warm)
-        + f" s; {len(hist.ops) / warm_median:.0f} ops verified per s "
-        f"({'warm median' if len(warm) > 1 else 'one warm call'}); "
+        f"{collector_launches['fold_lanes']}; {walls_text(first_wall, warm, len(hist.ops))}; "
         f"peak memory {peak / 2**30:.3f} GiB; card {card_name}",
         flush=True,
     )
@@ -2428,10 +2978,8 @@ def main() -> int:
     print(
         f"pruned headline check (CLI --prune --speculate-depth 3, in process): exit 0 OK, witness "
         f"replays; statistics == the JAX engine's {json.dumps(got_stats)}; host syncs {syncs} "
-        f"(un-pruned: see above), fold launches {head_launches['fold_lanes']}; first call "
-        f"{first_wall:.3f} s, warm " + ", ".join(f"{w:.3f}" for w in warm)
-        + f" s; {len(hist.ops) / min(warm):.0f} ops verified per s "
-        f"({'best warm' if len(warm) > 1 else 'one warm call'}); peak memory "
+        f"(un-pruned: see above), fold launches {head_launches['fold_lanes']}; "
+        f"{walls_text(first_wall, warm, len(hist.ops))}; peak memory "
         f"{peak / 2**30:.3f} GiB; profiled window of 100 layers ({start}-{start + 100}): "
         f"{window['kernels']} kernels ({window['kernels'] / 100:.1f} a layer), {box['syncs']} host "
         f"syncs, {box['wall']:.3f} s, device busy {window['device_busy_ms']:.2f} ms "
@@ -2537,6 +3085,15 @@ def main() -> int:
     phase14 = run_supervise_phase(dev_mod, fb, prepare, main_events, headline_events)
     print(f"phase 14 (supervised escalation): {phase14['seconds']:.1f} s", flush=True)
     kernels[0]["launches_by_path"].update(phase14["launches_by_path"])
+
+    # -- 15. verifyd -----------------------------------------------------------
+    small = next(e for name, e in table_events.items() if not name.endswith("x2000"))
+    phase15 = run_verifyd_phase(dev_mod, fb, prepare, recheck_calls, main_events, headline_events,
+                                phase12["lane_events"], phase12["lane_verdicts"],
+                                adversarial_events(6, batch=100, seed=0, unsatisfiable=True),
+                                adversarial_events(10, batch=100, seed=0, unsatisfiable=True), small)
+    print(f"phase 15 (verifyd): {phase15['seconds']:.1f} s", flush=True)
+    kernels[0]["launches_by_path"].update(phase15["launches_by_path"])
 
     print(f"kernels: {', '.join(k['name'] for k in kernels)}", flush=True)
     print(f"total {time.monotonic() - t_start:.1f} s", flush=True)

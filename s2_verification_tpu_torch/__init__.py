@@ -11,19 +11,23 @@ Module names match the JAX package so each counterpart is easy to find:
   heartbeats, failure diagnostics and the search-shape profile
 - ``ops``       — the chain-hash fold (plain torch + the CUDA kernel), the step
 - ``collector`` — the collector, its fault campaigns, the adversarial family
-- ``service``   — the supervised device escalation: the search in a bounded
-  child process (``service/supervise.py`` over ``checker/resilient.py``),
-  the device-lease pool, the service statistics and metric families
-- ``obs``       — spans, trace context, metrics and the build tracker
+- ``service``   — verifyd, the resident daemon (``serve`` / ``submit``): its
+  wire protocol, admission queue and controller, verdict cache, scheduler
+  and client, and the supervised device escalation (the search in a
+  bounded child process, ``service/supervise.py`` over
+  ``checker/resilient.py``), the device-lease pool, the service statistics
+  and metric families
+- ``obs``       — spans, trace context, metrics, the build tracker, the
+  structured logger, SLO health and the perf sentinel
 - ``viz``       — the HTML visualization ``check`` writes
-- ``cli``       — ``check`` (backends ``oracle|native|frontier|device|auto``)
-  and ``collect``
+- ``cli``       — ``check`` (backends ``oracle|native|frontier|device|auto``),
+  ``collect``, ``serve`` and ``submit``
 
 The package imports ``torch`` and ``numpy``, never ``jax`` and nothing of the
 JAX package.  Entry points run on ``torch.device("cuda")`` unless the caller
 passes ``device="cpu"``.
 """
 
-__version__ = "0.1.0"
+from .version import __version__
 
 __all__ = ["__version__"]

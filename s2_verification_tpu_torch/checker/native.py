@@ -138,10 +138,10 @@ def check_native(
     profile: bool = False,
     prune: bool = False,
     enc: EncodedHistory | None = None,
+    progress=None,
 ) -> CheckResult:
     """Decide linearizability with the native engine (the JAX package's
-    ``check_native``; its ``_states_cap`` and ``progress`` keywords, which
-    only that package's daemon and tests set, are not ported).
+    ``check_native``; its ``_states_cap`` test hook is not ported).
 
     Verdict semantics match :func:`.oracle.check`, including the
     ``deepest`` linearized set on ILLEGAL/UNKNOWN; ``time_budget_s``
@@ -154,6 +154,10 @@ def check_native(
     lane runner encodes a whole launch group up front, padded by
     :func:`..models.encode.encode_batch`) skip the second encode; it must
     be ``encode_history(history)``, padded or not.  ``encode_s`` is then 0.
+
+    ``progress`` is an optional :class:`.progress.ProgressSink`.  The C
+    search blocks, so it hears of the run only at its start and end (the
+    daemon's ``watch`` rows for a native job show it).
     """
     lib = _load()
     t_enc0 = _time.monotonic() if profile else 0.0
@@ -274,6 +278,9 @@ def check_native(
             ct.byref(hits),
         )
 
+    if progress is not None:
+        # Rate baseline only (the sink never emits on first offer).
+        progress.update(ops_committed=0, total_ops=n, engine="native")
     t_search0 = _time.monotonic() if profile else 0.0
     rc = invoke(-1.0 if time_budget_s is None else time_budget_s)
     if rc == 0 and states_len.value > states_cap:
@@ -288,6 +295,14 @@ def check_native(
         if rc != 0 or states_len.value > states_cap:
             raise RuntimeError(f"native engine re-run returned {rc} with {states_len.value} states")
     search_s = (_time.monotonic() - t_search0) if profile else 0.0
+    if progress is not None:
+        progress.update(
+            ops_committed=n if rc == 0 else int(order_len.value),
+            total_ops=n,
+            states_expanded=int(steps.value),
+            engine="native",
+            final=True,
+        )
 
     # Encoded op index → History.ops index (forced-prefix ops were peeled
     # off before encoding).

@@ -1,7 +1,7 @@
 """The search-shape profile of one decided history (the JAX package's
-``service/scheduler.py::job_profile``; the serving package itself is not
-ported, and no port engine attaches per-shard records, so that key never
-appears).  The CLI's ``-profile OUT.json`` writes it."""
+``service/scheduler.py::job_profile``).  The CLI's ``-profile OUT.json``
+writes it, and the daemon attaches it to ``done`` events and replies
+under ``serve --profile``."""
 
 from __future__ import annotations
 
@@ -44,6 +44,8 @@ def job_profile(res: CheckResult) -> dict:
         )
         if st.timeline:
             out["timeline"] = st.timeline
+        if st.shards:
+            out["shards"] = st.shards
         # Acceleration counters only when the knobs actually fired: a
         # prune-off job's profile stays as it was.
         out.update(accel_counters(st))

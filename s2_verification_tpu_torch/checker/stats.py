@@ -32,7 +32,7 @@ class FrontierStats:
     spec_rollbacks: int = 0
     #: per-segment profile entries (``profile=True`` runs)
     timeline: list = field(default_factory=list)
-    #: per-shard summary (multi-device runs; not ported yet)
+    #: per-shard summary (sharded runs over a frontier mesh)
     shards: list = field(default_factory=list)
     #: host<->device synchronisations the GPU search made (each fetch of
     #: a scalar that steers the host loop is one)

@@ -1,5 +1,18 @@
-"""Command line: ``python -m s2_verification_tpu_torch check -file=H.jsonl``
-and ``python -m s2_verification_tpu_torch collect``.
+"""Command line: ``python -m s2_verification_tpu_torch check -file=H.jsonl``,
+``collect``, ``serve`` and ``submit``.
+
+``serve`` runs verifyd, the resident verification daemon (service/), on a
+unix socket and optionally an authenticated TCP listener (``--tcp`` + a
+shared secret), with the JAX package's flags and defaults and one more,
+``--torch-device`` (the device of the inline and supervised escalations;
+the card unless it names another).  Flags whose modules the port does not
+have yet (``--state-dir``, ``--telemetry-dir``, ``--metrics-port``,
+``--alert-url``/``--alert-rule``, ``--prefix``, ``--batching``) exit 64
+naming the module.  ``submit`` sends one history to a running daemon of
+either package and exits with the ``check`` exit code of its verdict (75
+queue full after retries, 69 no daemon ever answered, 76 a daemon refused
+after retries, 64 a history it could not decode).  Neither loads
+``torch`` unless the daemon escalates inline.
 
 ``collect`` records a history against the in-process fault-injecting fake
 S2 (``collector/``), with the JAX package's flags and defaults, writes
@@ -74,7 +87,6 @@ import time
 
 from . import __version__
 from .checker.checkpoint import CheckpointError
-from .checker.device import DeviceUnavailable, check_device_auto
 from .checker.entries import History, prepare
 from .checker.native import NativeUnavailable, check_native
 from .checker.oracle import CheckOutcome, CheckResult, check
@@ -95,6 +107,15 @@ class _Parser(argparse.ArgumentParser):
     def error(self, message: str) -> None:  # noqa: D401 - argparse hook
         self.print_usage(sys.stderr)
         self.exit(USAGE_EXIT, f"{self.prog}: error: {message}\n")
+
+
+def check_device_auto(hist: History, **kw) -> CheckResult:
+    """The device search (``checker/device.py``), imported at its first
+    call: ``serve`` under ``--device supervised|off`` and ``submit`` must
+    not load ``torch``."""
+    from .checker.device import check_device_auto as search
+
+    return search(hist, **kw)
 
 
 def _read_events(path: str) -> list[ev.LabeledEvent]:
@@ -262,6 +283,8 @@ def _write_artifact(args: argparse.Namespace, file_path: str, events, checked: H
 
 
 def _check_one(args: argparse.Namespace, file_path: str, on_result=None) -> int:
+    from .checker.device import DeviceUnavailable
+
     try:
         events = _read_events(file_path)
     except (OSError, ValueError) as e:
@@ -461,6 +484,268 @@ def _cmd_collect(args: argparse.Namespace) -> int:
     return 0
 
 
+def _read_secret(args: argparse.Namespace) -> bytes | None:
+    """Shared secret for the TCP transport: ``--secret-file`` wins, then
+    the ``VERIFYD_SECRET`` environment variable (never a CLI argument —
+    process listings leak those)."""
+    if getattr(args, "secret_file", None):
+        with open(args.secret_file, "rb") as f:
+            secret = f.read().strip()
+        if not secret:
+            raise SystemExit(f"secret file {args.secret_file} is empty")
+        return secret
+    env = os.environ.get("VERIFYD_SECRET", "")
+    return env.encode("utf-8") if env else None
+
+
+def _resolve_mesh_devices(spec: str | None, torch_device: str | None) -> int | None:
+    """Resolve ``serve --mesh-devices N|auto`` to a device-pool size.
+
+    ``auto`` counts the visible cards in a bounded probe child — the
+    daemon process itself never initializes CUDA (a lost card can hang
+    it; see service/supervise.py).  With ``--torch-device cpu`` there is
+    one host device.
+    """
+    if spec is None:
+        return None
+    s = str(spec).strip().lower()
+    if s in ("", "0", "none", "off"):
+        return None
+    if s != "auto":
+        n = int(s)
+        if n < 1:
+            raise SystemExit(f"--mesh-devices must be >= 1, got {n}")
+        return n
+    if torch_device == "cpu":
+        return 1
+    import subprocess
+
+    code = "import torch\nprint(torch.cuda.device_count())\n"
+    try:
+        proc = subprocess.run(
+            [sys.executable, "-c", code],
+            capture_output=True,
+            text=True,
+            timeout=120,
+        )
+        if proc.returncode == 0:
+            return max(1, int(proc.stdout.strip().splitlines()[-1]))
+    except (subprocess.TimeoutExpired, OSError, ValueError, IndexError):
+        pass
+    log.warning("--mesh-devices auto: device probe failed; serving without a pool")
+    return None
+
+
+def _cmd_serve(args: argparse.Namespace) -> int:
+    from .service.daemon import Verifyd, VerifydConfig
+
+    if os.path.exists(args.socket):
+        # A stale socket file from a crashed daemon only a clean exit
+        # removes; refusing with a clear message beats a bind error.
+        log.error(
+            "%s already exists — another verifyd running? (remove the file "
+            "if it is stale)",
+            args.socket,
+        )
+        return USAGE_EXIT
+    secret = _read_secret(args)
+    if args.tcp and not secret:
+        log.error("--tcp requires a shared secret (--secret-file or VERIFYD_SECRET)")
+        return USAGE_EXIT
+    cfg = VerifydConfig(
+        socket_path=args.socket,
+        queue_depth=args.queue_depth,
+        workers=args.workers,
+        batch_max=args.batch_max,
+        time_budget_s=args.time_budget,
+        device=args.device,
+        out_dir=args.out_dir,
+        no_viz=args.no_viz,
+        stats_log=args.stats_log or None,
+        device_rows=args.device_rows,
+        tcp=args.tcp or None,
+        secret=secret,
+        state_dir=args.state_dir or None,
+        fsync=args.fsync,
+        metrics_port=args.metrics_port,
+        trace_capacity=args.trace_capacity,
+        profile=args.profile,
+        mesh_devices=_resolve_mesh_devices(args.mesh_devices, args.torch_device),
+        log_format=args.log_format,
+        slo_target=args.slo_target,
+        slo_latency_target_s=args.slo_latency_target,
+        alert_url=args.alert_url or None,
+        alert_rules=tuple(args.alert_rule or ()),
+        alert_dedup_s=args.alert_dedup,
+        drain_timeout_s=args.drain_timeout,
+        sentinel_band=args.sentinel_band,
+        sentinel_min_samples=args.sentinel_min_samples,
+        resource_sample_s=args.resource_sample,
+        retrace_storm_threshold=args.retrace_storm,
+        dashboard_sample_s=args.dashboard_sample,
+        telemetry_dir=args.telemetry_dir,
+        telemetry_sample_s=args.telemetry_sample,
+        max_rss_frac=args.max_rss_frac,
+        deadline_grace_s=args.deadline_grace,
+        quarantine_threshold=args.quarantine_threshold,
+        fast_admission=args.fast_admission,
+        batching=args.batching,
+        batch_engine=args.batch_engine,
+        prefix_enabled=args.prefix,
+        prefix_capacity=args.prefix_capacity,
+        prefix_min_ops=args.prefix_min_ops,
+        prefix_cuts=args.prefix_cuts,
+        prefix_max_segments=args.prefix_max_segments,
+        prune=args.prune,
+        speculate_depth=args.speculate_depth,
+        torch_device=args.torch_device,
+    )
+    refused: tuple = (NotImplementedError,)
+    if cfg.device == "inline":
+        # The inline daemon loads torch anyway: it holds the card.
+        from .checker.device import DeviceUnavailable
+
+        refused += (DeviceUnavailable,)
+    try:
+        daemon = Verifyd(cfg)
+    except refused as e:
+        log.error("%s", e)
+        return USAGE_EXIT
+
+    # Route stdlib-logging diagnostics (this module, scheduler, supervise)
+    # through the daemon's structured logger so every line — events and
+    # diagnostics alike — shares one format and one stream.
+    from .obs.log import StructuredHandler
+
+    pkg_log = logging.getLogger("s2_verification_tpu_torch")
+    handler = StructuredHandler(daemon.logger)
+    pkg_log.addHandler(handler)
+    pkg_log.propagate = False
+
+    import signal as _signal
+
+    def _stop(signum, frame):
+        # The flight-recorder marker before teardown (a no-op until the
+        # port has a flight recorder, as in a JAX daemon without one).
+        daemon.dump_flight("sigterm" if signum == _signal.SIGTERM else "sigint")
+        if signum == _signal.SIGTERM and cfg.drain_timeout_s > 0:
+            # Rolling-restart contract: finish what was admitted, then exit.
+            log.info(
+                "signal %d: draining verifyd (up to %.0fs)",
+                signum,
+                cfg.drain_timeout_s,
+            )
+            daemon.request_drain()
+            return
+        log.info("signal %d: stopping verifyd", signum)
+        daemon.request_stop()
+
+    for sig in (_signal.SIGINT, _signal.SIGTERM):
+        _signal.signal(sig, _stop)
+    try:
+        return daemon.serve_forever()
+    finally:
+        pkg_log.removeHandler(handler)
+        pkg_log.propagate = True
+
+
+def _cmd_submit(args: argparse.Namespace) -> int:
+    from .service.client import (
+        VerifydBusy,
+        VerifydClient,
+        VerifydError,
+        VerifydRefused,
+        VerifydUnavailable,
+    )
+    from .service.protocol import EXIT_BUSY, EXIT_PROTOCOL, EXIT_UNAVAILABLE
+
+    if args.file == "-":
+        text = sys.stdin.read()
+    else:
+        try:
+            with open(args.file, encoding="utf-8") as f:
+                text = f.read()
+        except OSError as e:
+            log.error("failed to read history: %s", e)
+            return USAGE_EXIT
+    try:
+        client = VerifydClient(args.socket, secret=_read_secret(args))
+    except ValueError as e:
+        log.error("%s", e)
+        return USAGE_EXIT
+    try:
+        reply = client.submit_with_retry(
+            text,
+            client=args.client,
+            priority=args.priority,
+            no_viz=args.no_viz or None,
+            timeout=args.timeout,
+            retries=args.retries,
+            backoff_s=args.backoff,
+            deadline_s=args.deadline,
+            distributed=args.distributed,
+        )
+    except VerifydBusy as e:
+        log.error(
+            "verifyd is at capacity (%s); retry after ~%.1fs",
+            e.msg,
+            e.retry_after_s,
+        )
+        return EXIT_BUSY
+    except VerifydUnavailable as e:
+        log.error("cannot reach verifyd on %s: %s", args.socket, e.msg)
+        return EXIT_UNAVAILABLE
+    except VerifydRefused as e:
+        log.error("verifyd on %s refused: %s", args.socket, e)
+        return EXIT_PROTOCOL
+    except VerifydError as e:
+        if e.cls == "DecodeError":
+            log.error("daemon rejected the history: %s", e.msg)
+            return USAGE_EXIT
+        # The daemon answered — an internal failure is a refusal, not
+        # unavailability (exit 76, not 69).
+        log.error("submit failed: %s", e)
+        return EXIT_PROTOCOL
+    except (OSError, TimeoutError) as e:
+        log.error("cannot reach verifyd on %s: %s", args.socket, e)
+        return EXIT_UNAVAILABLE
+
+    if args.stats:
+        import json as _json
+
+        line = {
+            "file": args.file,
+            "outcome": reply.get("outcome"),
+            "backend": reply.get("backend"),
+            "wall_s": reply.get("wall_s"),
+            "queue_wait_s": reply.get("queue_wait_s"),
+            "ops": reply.get("ops"),
+            "cached": reply.get("cached", False),
+            "shape": reply.get("shape"),
+            "trace_id": reply.get("trace_id"),
+        }
+        print(_json.dumps(line), flush=True)
+    art = reply.get("artifact")
+    if art:
+        log.info("visualization: %s", art)
+    if reply.get("trace_id"):
+        log.info("trace_id: %s", reply["trace_id"])
+    verdict = reply.get("verdict")
+    outcome = reply.get("outcome")
+    if verdict == 0:
+        log.info(
+            "history is linearizable (%s, %ss%s)",
+            reply.get("backend"),
+            reply.get("wall_s"),
+            ", cached" if reply.get("cached") else "",
+        )
+    elif verdict == 1:
+        log.error("history is NOT linearizable (%s)", reply.get("backend"))
+    else:
+        log.error("check inconclusive (outcome %s)", outcome)
+    return verdict if verdict in (0, 1, 2) else USAGE_EXIT
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = _Parser(
         prog="s2_verification_tpu_torch",
@@ -553,6 +838,7 @@ def build_parser() -> argparse.ArgumentParser:
     )
 
     g = sub.add_parser("collect", help="collect a history against the fake S2")
+    g.set_defaults(fn=_cmd_collect)
     g.add_argument(
         "basin",
         nargs="?",
@@ -611,6 +897,461 @@ def build_parser() -> argparse.ArgumentParser:
         "the fault-injecting stream from another thread) instead of the "
         "in-process call path",
     )
+
+    s = sub.add_parser(
+        "serve", help="run verifyd, the resident verification daemon"
+    )
+    s.add_argument(
+        "-socket", "--socket", required=True, help="unix-domain socket path"
+    )
+    s.add_argument(
+        "--queue-depth",
+        type=int,
+        default=64,
+        help="admission-queue bound; a full queue rejects with retry-after "
+        "instead of buffering (default 64)",
+    )
+    s.add_argument("--workers", type=int, default=1)
+    s.add_argument(
+        "--batch-max",
+        type=int,
+        default=16,
+        help="max jobs per shape group a worker drains back to back",
+    )
+    s.add_argument(
+        "-time-budget",
+        "--time-budget",
+        type=float,
+        default=10.0,
+        help="per-job CPU budget in seconds before device escalation; "
+        "0 = unbounded CPU, no escalation (default 10)",
+    )
+    s.add_argument(
+        "--device",
+        default="supervised",
+        choices=["supervised", "inline", "off"],
+        help="device escalation: 'supervised' (bounded child + checkpoint "
+        "resume; a wedged or lost card degrades the job to CPU), 'inline' "
+        "(in-process: the daemon holds one CUDA context across jobs), 'off'",
+    )
+    s.add_argument(
+        "--torch-device",
+        default=None,
+        metavar="DEVICE",
+        help="torch device of the inline and supervised escalations "
+        "(default: the card, cuda; an inline daemon without one exits 64). "
+        "'cpu' runs the device search on the CPU",
+    )
+    s.add_argument("-out-dir", "--out-dir", default="./porcupine-outputs")
+    s.add_argument(
+        "-no-viz",
+        "--no-viz",
+        action="store_true",
+        help="default jobs to skipping the HTML artifact",
+    )
+    s.add_argument(
+        "--stats-log",
+        default="-",
+        help="structured per-job event sink: a path, '-' for stderr "
+        "(default), or '' to silence",
+    )
+    s.add_argument(
+        "-device-rows",
+        "--device-rows",
+        type=int,
+        default=None,
+        help="device-resident frontier cap for escalated jobs",
+    )
+    s.add_argument(
+        "--tcp",
+        default=None,
+        metavar="HOST:PORT",
+        help="also listen on an authenticated TCP address (port 0 = "
+        "ephemeral); every frame carries an HMAC under the shared secret "
+        "(--secret-file / VERIFYD_SECRET) and unauthenticated frames are "
+        "rejected before admission",
+    )
+    s.add_argument(
+        "--secret-file",
+        default=None,
+        help="file holding the TCP shared secret (whitespace-stripped); "
+        "falls back to the VERIFYD_SECRET environment variable",
+    )
+    s.add_argument(
+        "--state-dir",
+        default=None,
+        help="durable-state directory (verdict-cache segments + admission "
+        "journal): a restarted daemon answers previously decided "
+        "histories from disk and re-runs jobs that were accepted but "
+        "never answered (default: in-memory only). Not ported yet: serve exits 64 naming the module it needs",
+    )
+    s.add_argument(
+        "--fsync",
+        action="store_true",
+        help="fsync every durable append (survives machine crashes, not "
+        "just daemon death; slower)",
+    )
+    s.add_argument(
+        "--metrics-port",
+        type=int,
+        default=None,
+        metavar="PORT",
+        help="serve Prometheus text metrics on http://127.0.0.1:PORT/metrics "
+        "(0 = ephemeral port, logged at startup; default: off). Not ported yet: serve exits 64 naming the module it needs",
+    )
+    s.add_argument(
+        "--trace-capacity",
+        type=int,
+        default=8192,
+        metavar="SPANS",
+        help="in-memory span-ring capacity for the `trace` op (0 disables "
+        "tracing; default 8192)",
+    )
+    s.add_argument(
+        "-profile",
+        "--profile",
+        action="store_true",
+        help="attach a per-job search-shape profile (FrontierStats + "
+        "per-layer timeline) to every done event and submit reply",
+    )
+    s.add_argument(
+        "-mesh-devices",
+        "--mesh-devices",
+        default=None,
+        metavar="N|auto",
+        help="device-pool size for mesh-sharded escalations: escalating "
+        "jobs lease a power-of-two card set sized by job shape and run "
+        "the frontier search sharded over exactly those cards, reported "
+        "as backend device-mesh[N] ('auto' = every visible card, counted "
+        "in a probe child; default: off — single-card escalation). With "
+        "--torch-device cpu every slot is a CPU shard.",
+    )
+    s.add_argument(
+        "--log-format",
+        default="text",
+        choices=["text", "json"],
+        help="structured-log line format for daemon diagnostics and the "
+        "stats-log '-' fallback: human 'text' (default) or one JSON "
+        "object per line for log shippers",
+    )
+    s.add_argument(
+        "--slo-target",
+        type=float,
+        default=0.99,
+        metavar="FRACTION",
+        help="SLO availability target driving /healthz and slo_breach "
+        "events (default 0.99; 1.0 disables burn-rate math)",
+    )
+    s.add_argument(
+        "--slo-latency-target",
+        type=float,
+        default=5.0,
+        metavar="SECONDS",
+        help="end-to-end p95 latency target on the 1m window for "
+        "/healthz degradation (default 5.0)",
+    )
+    s.add_argument(
+        "--alert-url",
+        default=None,
+        metavar="URL",
+        help="deliver alertmanager-compatible JSON webhooks (slo_breach, "
+        "perf_regression, and --alert-rule matches) to this HTTP URL, "
+        "with exponential-backoff retries and per-rule dedup windows "
+        "(default: off). Not ported yet: serve exits 64 naming the module it needs",
+    )
+    s.add_argument(
+        "--alert-rule",
+        action="append",
+        default=None,
+        metavar="SPEC",
+        help="additional alert rule (repeatable): an event name "
+        "('slo_breach'), a field threshold ('done.wall_s>30'), or a "
+        "metric threshold ('metric:verifyd_job_errors_total>=5'); "
+        "named like a builtin, it overrides that builtin. Not ported yet: serve exits 64 naming the module it needs",
+    )
+    s.add_argument(
+        "--alert-dedup",
+        type=float,
+        default=300.0,
+        metavar="SECONDS",
+        help="per-rule alert dedup window: repeat fires inside it are "
+        "suppressed (counted), not delivered (default 300)",
+    )
+    s.add_argument(
+        "--sentinel-band",
+        type=float,
+        default=0.75,
+        metavar="FRACTION",
+        help="perf-regression sentinel drift band: a shape whose wall "
+        "time exceeds its EWMA baseline by this fraction on consecutive "
+        "jobs emits perf_regression (default 0.75; <=0 disables the "
+        "sentinel)",
+    )
+    s.add_argument(
+        "--sentinel-min-samples",
+        type=int,
+        default=8,
+        metavar="N",
+        help="jobs per shape before the sentinel judges drift (default 8)",
+    )
+    s.add_argument(
+        "--resource-sample",
+        type=float,
+        default=1.0,
+        metavar="SECONDS",
+        help="resource-telemetry sampling interval: host RSS, CPU, fds, "
+        "threads, GC pauses into verifyd_resource_* gauges and the "
+        "flight recorder (default 1.0; <=0 disables the sampler)",
+    )
+    s.add_argument(
+        "--retrace-storm",
+        type=int,
+        default=5,
+        metavar="N",
+        help="emit a latched retrace_storm event when one build site "
+        "rebuilds a shape bucket more than N times (default 5; "
+        "0 disables)",
+    )
+    s.add_argument(
+        "--dashboard-sample",
+        type=float,
+        default=2.0,
+        metavar="SECONDS",
+        help="/dashboard sparkline sampling interval on the metrics "
+        "listener (needs --metrics-port; default 2.0; <=0 disables "
+        "the dashboard)",
+    )
+    s.add_argument(
+        "--telemetry-dir",
+        default=None,
+        metavar="DIR",
+        help="durable telemetry store root (delta-encoded registry "
+        "snapshots at raw/1m/15m resolutions; the tsq command and "
+        "sentinel re-seeding read it); default <state-dir>/telemetry, "
+        "disabled without a state dir. Not ported yet: serve exits 64 naming the module it needs",
+    )
+    s.add_argument(
+        "--telemetry-sample",
+        type=float,
+        default=2.0,
+        metavar="SECONDS",
+        help="telemetry sampling interval for the raw ring (the 1m/15m "
+        "rings downsample from it; default 2.0; <=0 disables recording)",
+    )
+    s.add_argument(
+        "--drain-timeout",
+        type=float,
+        default=0.0,
+        metavar="SECONDS",
+        help="graceful drain budget: on SIGTERM (or a drain-flagged "
+        "shutdown op) stop admitting, let queued + in-flight jobs "
+        "finish up to this many seconds, close the journal cleanly, "
+        "then exit.  0 (default) keeps the immediate-stop behavior; "
+        "the router's rolling restart needs this > 0",
+    )
+    s.add_argument(
+        "--max-rss-frac",
+        type=float,
+        default=0.0,
+        metavar="FRACTION",
+        help="pressure-aware admission: shed new submits (honest "
+        "retry_after, QueueFull) while daemon RSS exceeds this fraction "
+        "of MemTotal, and while open fds near RLIMIT_NOFILE "
+        "(default 0 = shedding off)",
+    )
+    s.add_argument(
+        "--deadline-grace",
+        type=float,
+        default=2.0,
+        metavar="SECONDS",
+        help="SIGTERM-to-SIGKILL grace for supervised children of "
+        "cancelled jobs (deadline expiry, client gone, shutdown) "
+        "(default 2.0)",
+    )
+    s.add_argument(
+        "--quarantine-threshold",
+        type=int,
+        default=3,
+        metavar="N",
+        help="poison-job quarantine: a fingerprint observed in-flight "
+        "across this many process deaths or supervised-child kills is "
+        "quarantined (definite Quarantined error) instead of replayed; "
+        "needs --state-dir (default 3)",
+    )
+    s.add_argument(
+        "--batching",
+        action="store_true",
+        help="continuous cross-job batching: drain every queued job of a "
+        "worker-picked shape group into one mega-launch (late-join at "
+        "launch boundaries, per-lane deadlines/cancels honored, per-job "
+        "done attribution). Not ported yet: serve exits 64 naming the module it needs",
+    )
+    s.add_argument(
+        "--batch-engine",
+        default="auto",
+        choices=("auto", "native", "vmap"),
+        help="mega-launch engine: native (pre-encoded C lanes, per-lane "
+        "early exit) or vmap (one compiled vmapped frontier search per "
+        "launch); auto picks native when the C engine is built "
+        "(default auto)",
+    )
+    s.add_argument(
+        "--no-fast-admission",
+        dest="fast_admission",
+        action="store_false",
+        default=True,
+        help="disable the fused single-pass admission parser and decode "
+        "every submission through the layered event decoder",
+    )
+    s.add_argument(
+        "--prune",
+        action="store_true",
+        help="verdict-exact search pruning on every engine that carries "
+        "it: successful appends expand in their forced tail order, inert "
+        "ops and state-passing filters commit eagerly, and tail-pinned "
+        "dead configurations drop — same verdicts, smaller search "
+        "(checker/prune.py; parity gated by `make prune`)",
+    )
+    s.add_argument(
+        "--speculate-depth",
+        type=int,
+        default=0,
+        metavar="K",
+        help="speculative multi-layer frontier expansion for device "
+        "escalations: one narrow K-layer dive per launch along the "
+        "value-ordered beam, accepted only when it reaches a conclusive "
+        "accept, wholesale-discarded on misprediction (0 = off; "
+        "internally disabled for witness-carrying runs)",
+    )
+    s.add_argument(
+        "--prefix",
+        action="store_true",
+        help="incremental prefix verification: snapshot the decided "
+        "frontier at closed op boundaries of every OK search, keyed by "
+        "the chain-hash of the committed prefix, so a resubmission that "
+        "extends a verified history resumes at the deepest cached cut "
+        "instead of op 0 — and enable the 'follow' op for rolling-window "
+        "stream monitoring.  Snapshots persist under --state-dir and "
+        "survive restarts. Not ported yet: serve exits 64 naming the module it needs",
+    )
+    s.add_argument(
+        "--prefix-capacity",
+        type=int,
+        default=2048,
+        metavar="N",
+        help="in-memory prefix-store entries before LRU eviction "
+        "(default 2048)",
+    )
+    s.add_argument(
+        "--prefix-min-ops",
+        type=int,
+        default=4,
+        metavar="N",
+        help="histories shorter than this skip the prefix probe — the "
+        "cold search is cheaper than the bookkeeping (default 4)",
+    )
+    s.add_argument(
+        "--prefix-cuts",
+        type=int,
+        default=8,
+        metavar="N",
+        help="snapshot cuts recorded per OK search (deepest boundary "
+        "always included; the rest spread evenly) (default 8)",
+    )
+    s.add_argument(
+        "--prefix-max-segments",
+        type=int,
+        default=8,
+        metavar="N",
+        help="on-disk prefix log segments before the oldest rotates out "
+        "(default 8)",
+    )
+    s.set_defaults(fn=_cmd_serve, stats=False)
+
+    u = sub.add_parser("submit", help="submit one history to a running verifyd")
+    u.add_argument(
+        "-file", "--file", required=True, help="history JSONL path, '-' for stdin"
+    )
+    u.add_argument(
+        "-socket",
+        "--socket",
+        required=True,
+        help="the daemon's unix-socket path, or HOST:PORT for the "
+        "authenticated TCP transport (needs --secret-file or "
+        "VERIFYD_SECRET)",
+    )
+    u.add_argument(
+        "--secret-file",
+        default=None,
+        help="file holding the TCP shared secret (whitespace-stripped); "
+        "falls back to the VERIFYD_SECRET environment variable",
+    )
+    u.add_argument("--client", default="cli", help="client identity for the queue")
+    u.add_argument(
+        "--priority",
+        type=int,
+        default=10,
+        help="admission priority (lower = scheduled sooner; default 10)",
+    )
+    u.add_argument(
+        "--timeout",
+        type=float,
+        default=None,
+        help="seconds to wait for the verdict (default: wait)",
+    )
+    u.add_argument(
+        "--retries",
+        type=int,
+        default=0,
+        help="re-submissions after a transient failure.  Queue-full "
+        "rejects sleep the daemon's retry-after hint; connect failures "
+        "and transport noise sleep exponential backoff with jitter "
+        "(--backoff).  Default 0: fail fast.  Exhausted retries exit "
+        "75 (still busy), 69 (no daemon ever answered), or 76 (a "
+        "daemon was reached but refused)",
+    )
+    u.add_argument(
+        "--backoff",
+        type=float,
+        default=0.5,
+        metavar="SECONDS",
+        help="base of the exponential retry backoff: attempt n sleeps "
+        "uniform(0, SECONDS * 2^n), capped at 30s (default 0.5)",
+    )
+    u.add_argument(
+        "--deadline",
+        type=float,
+        default=None,
+        metavar="SECONDS",
+        help="total wall-clock budget across all attempts and retry "
+        "sleeps: per-attempt timeouts are clamped to what remains, and "
+        "a spent budget exits 69 with 'deadline exceeded after N "
+        "attempts' — bounds a retry loop against a flapping node "
+        "(default: unbounded)",
+    )
+    u.add_argument(
+        "-no-viz", "--no-viz", action="store_true", help="skip the HTML artifact"
+    )
+    u.add_argument(
+        "-distributed",
+        "--distributed",
+        action="store_true",
+        help="ask a verifyd-router to run the search fleet-distributed: "
+        "the frontier is partitioned by state-hash range across healthy "
+        "backends and the merged verdict carries partition/epoch "
+        "telemetry.  Plain daemons (and routers without >= 2 healthy "
+        "backends) serve the submit single-node — the flag degrades, "
+        "never fails",
+    )
+    u.add_argument(
+        "-stats",
+        "--stats",
+        action="store_true",
+        help="print one machine-readable JSON line (verdict, backend, "
+        "queue wait, cache hit) on stdout",
+    )
+    u.set_defaults(fn=_cmd_submit)
+
     return p
 
 
@@ -624,9 +1365,9 @@ def main(argv: list[str] | None = None, *, on_result=None) -> int:
         format="%(asctime)s %(levelname)s %(name)s %(message)s",
     )
     args = build_parser().parse_args(argv)
-    if args.cmd == "collect":
-        return _cmd_collect(args)
-    return _cmd_check(args, on_result=on_result)
+    if args.cmd == "check":
+        return _cmd_check(args, on_result=on_result)
+    return args.fn(args)
 
 
 if __name__ == "__main__":

@@ -1,7 +1,7 @@
-"""Zero-dependency observability: spans, metrics and build introspection.
+"""Zero-dependency observability: spans, metrics, health and logs.
 
 The port's copy of the part of the JAX package's ``obs`` package that the
-supervised device escalation needs:
+in-memory daemon and the supervised device escalation need:
 
 - ``trace``      — a thread-safe Tracer recording nested spans into a
                    bounded ring, exportable as Chrome trace_event JSON
@@ -15,10 +15,15 @@ supervised device escalation needs:
                    builds in place of the JAX package's ``jax.jit``
                    compiles) and the ResourceSampler (RSS / CPU / fds /
                    threads / GC pauses / card memory).
+- ``log``        — the structured logger and its ``logging.Handler``.
+- ``health``     — the SLO engine: availability and latency windows,
+                   burn rates, the breach events.
+- ``sentinel``   — per-shape EWMA wall-time baselines that report a
+                   drift as ``perf_regression``.
 
-The daemon-side modules of the JAX package (health, httpd, log, flight,
-alerts, archive, sentinel, dashboard, tsdb, federate) are not ported yet.
-Everything here is stdlib-only and never imports ``torch``.
+The JAX package's httpd, flight, alerts, archive, dashboard, tsdb and
+federate modules are not ported yet (ROADMAP.md, queue 1).  Everything
+here is stdlib-only and never imports ``torch``.
 """
 
 from .context import new_trace_id, valid_trace_id
@@ -30,7 +35,10 @@ from .introspect import (
     job_context,
     record_build,
 )
+from .health import SLOConfig, SLOHealth
+from .log import StructuredHandler, StructuredLogger
 from .metrics import Counter, Gauge, Histogram, MetricsRegistry
+from .sentinel import PerfSentinel, SentinelConfig
 from .trace import Tracer
 
 __all__ = [
@@ -40,7 +48,13 @@ __all__ = [
     "INTROSPECTOR",
     "JitIntrospector",
     "MetricsRegistry",
+    "PerfSentinel",
     "ResourceSampler",
+    "SLOConfig",
+    "SLOHealth",
+    "SentinelConfig",
+    "StructuredHandler",
+    "StructuredLogger",
     "Tracer",
     "get_job_context",
     "job_context",

@@ -1,0 +1,1107 @@
+"""verifyd: the resident verification daemon.
+
+The port's copy of the JAX package's ``service/daemon.py``, in-memory:
+serves the :mod:`.protocol` over a unix-domain socket and, optionally, an
+HMAC-authenticated TCP listener (``VerifydConfig.tcp`` + ``secret``) so
+collectors on other machines can submit.  Like the collector's loopback
+S2 server (``collector/socket_s2.py``), the asyncio acceptor runs a
+private event loop on a daemon thread, so the daemon composes as a
+context manager in tests and as a foreground process under
+``python -m s2_verification_tpu_torch serve``.  Checking itself never runs
+on the event loop: the acceptor only decodes, consults the verdict cache,
+and admits into the bounded queue; :class:`~.scheduler.Scheduler` worker
+threads do the searching and resolve each submit's deferred reply through
+``call_soon_threadsafe``.
+
+Ops served: ``ping``, ``stats``, ``trace``, ``watch``, ``shutdown`` (and
+its drain) and ``submit`` (with deadlines and cancel).  A supervised
+escalation runs the device search in a child process; ``device="inline"``
+runs it here, on ``torch_device`` (``None`` = the card), the one field
+the port adds to the JAX config.  A supervised or device-off daemon never
+imports ``torch``.
+
+Not ported yet, and refused by name: the durability and ops layer
+(``--state-dir`` with its journal, flight recorder, profile archive,
+telemetry store and quarantine; ``--telemetry-dir``; ``--metrics-port``
+with its HTTP listener and dashboard; ``--alert-url``), prefix resume
+(``--prefix``, the ``follow`` op), cross-job batching (``--batching``) and
+the distributed-search ops (``grant``, ``delta``, ``partition_done``).  A
+config that needs one raises ``NotImplementedError`` when the daemon is
+built; an op that needs one is answered with an error frame.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import contextlib
+import functools
+import itertools
+import json
+import logging
+import os
+import platform
+import sys
+import threading
+import time
+from dataclasses import dataclass, field
+
+from .. import version as _version
+from ..checker.entries import prepare
+from ..obs.context import TRACE_FIELD, new_trace_id, parse_trace_frame
+from ..obs.health import SLOConfig, SLOHealth
+from ..obs.introspect import INTROSPECTOR, ResourceSampler
+from ..obs.log import StructuredLogger
+from ..obs.metrics import MetricsRegistry
+from ..obs.sentinel import PerfSentinel, SentinelConfig
+from ..obs.trace import Tracer
+from ..utils import events as ev
+from .cache import VerdictCache, history_fingerprint
+from .fastprep import FastPrepFallback, fast_prepare
+from .overload import AdmissionController, CancelToken
+from .protocol import (
+    ERR_AUTH,
+    ERR_DEADLINE,
+    ERR_DECODE,
+    ERR_FRAME,
+    ERR_INTERNAL,
+    ERR_QUEUE_FULL,
+    ERR_SHUTTING_DOWN,
+    ERR_TOO_LARGE,
+    ERR_UNKNOWN_JOB,
+    MAX_FRAME_BYTES,
+    PROTOCOL_VERSION,
+    decode_frame,
+    encode_frame,
+    err,
+    ok,
+    parse_hostport,
+    sign_frame,
+    verify_frame,
+)
+from .queue import AdmissionQueue, Job, QueueFull
+from .scheduler import Scheduler, shape_key
+from .stats import ServiceStats
+
+__all__ = ["VerifydConfig", "Verifyd"]
+
+log = logging.getLogger("s2_verification_tpu_torch.verifyd")
+
+#: the roadmap items the unported daemon features wait for (ROADMAP.md,
+#: queue 1)
+_DURABILITY = "ROADMAP.md queue 1 item 3b, verifyd durability and ops"
+_PREFIX = "ROADMAP.md queue 1 item 5, incremental verification"
+_BATCHING = "ROADMAP.md queue 1 item 4, continuous batching"
+_FLEET = "ROADMAP.md queue 1 item 6, the fleet tier"
+
+
+@dataclass
+class VerifydConfig:
+    socket_path: str
+    queue_depth: int = 64
+    workers: int = 1  # 0 = admission only (test hook: nothing drains)
+    batch_max: int = 16
+    time_budget_s: float | None = 10.0  # per-job CPU budget; 0 = unbounded CPU
+    device: str = "supervised"  # supervised | inline | off
+    unbounded_close: bool = False
+    out_dir: str = "./porcupine-outputs"
+    no_viz: bool = False
+    cache_capacity: int = 4096
+    spool_dir: str | None = None
+    device_rows: int | None = None
+    attempt_timeout_s: float = 900.0
+    max_restarts: int = 2
+    #: structured-events sink: a path, "-" for stderr, or None (silent)
+    stats_log: str | None = None
+    #: "host:port" for the authenticated TCP listener (port 0 = ephemeral,
+    #: bound port on :attr:`Verifyd.tcp_port`); requires ``secret``
+    tcp: str | None = None
+    #: shared secret for TCP frame HMACs; the unix socket never needs it
+    secret: bytes | None = None
+    #: per-frame read bound; oversized frames get a definite FrameTooLarge
+    frame_max_bytes: int = MAX_FRAME_BYTES
+    #: TCP per-frame *read* deadline (slowloris bound) — the deferred
+    #: submit reply is bounded by the scheduler's budgets, not this
+    conn_deadline_s: float = 30.0
+    #: graceful-drain budget (``serve --drain-timeout``): on SIGTERM or a
+    #: drain-flagged shutdown op, stop admitting, let queued + in-flight
+    #: jobs finish up to this many seconds, then stop.  0 keeps the
+    #: immediate stop
+    drain_timeout_s: float = 0.0
+    #: durable-state root; not ported yet (refused when set)
+    state_dir: str | None = None
+    #: fsync every durable append; only meaningful with ``state_dir``
+    fsync: bool = False
+    #: Prometheus /metrics HTTP listener port; not ported yet (refused
+    #: when set)
+    metrics_port: int | None = None
+    #: span-ring capacity for the in-process tracer (`trace` op / CLI
+    #: export); 0 disables tracing entirely
+    trace_capacity: int = 8192
+    #: attach per-job search profiles (FrontierStats timeline, native
+    #: phase attribution) to `done` events and submit replies
+    profile: bool = False
+    #: size of the device pool for mesh-sharded escalations; None = the
+    #: single-card path (no pool).  The daemon only tracks abstract slot
+    #: indices — devices are resolved by the escalation itself
+    mesh_devices: int | None = None
+    #: how long an escalation waits for a lease before running unsharded
+    lease_timeout_s: float = 120.0
+    #: structured-log line format for daemon diagnostics (and the
+    #: stats_log="-" fallback): "text" or "json"
+    log_format: str = "text"
+    #: SLO availability target for the burn-rate breach events; 1.0
+    #: disables burn math (never degraded by errors)
+    slo_target: float = 0.99
+    #: end-to-end latency target (p95 on the short window)
+    slo_latency_target_s: float = 5.0
+    #: alert webhook URL; not ported yet (refused when set)
+    alert_url: str | None = None
+    #: extra --alert-rule specs; not ported yet (refused when set)
+    alert_rules: tuple = ()
+    alert_dedup_s: float = 300.0
+    alert_retries: int = 4
+    alert_backoff_s: float = 0.5
+    #: perf sentinel drift band: fire when a shape's wall time exceeds
+    #: its EWMA baseline by this fraction for consecutive jobs; <= 0
+    #: disables the sentinel
+    sentinel_band: float = 0.75
+    #: sentinel cold-start guard: per-shape jobs folded before judging
+    sentinel_min_samples: int = 8
+    #: resource-telemetry sampling interval (RSS, CPU, fds, threads, GC
+    #: pauses, card memory → gauges); <= 0 disables
+    resource_sample_s: float = 1.0
+    #: retained resource samples in the in-memory ring
+    resource_capacity: int = 600
+    #: latched retrace_storm trip point: a shape rebuilding one build
+    #: site more than this many times emits the event once
+    retrace_storm_threshold: int = 5
+    #: /dashboard tick; only meaningful with ``metrics_port``
+    dashboard_sample_s: float = 2.0
+    dashboard_capacity: int = 240
+    #: durable telemetry store root; not ported yet (refused when set)
+    telemetry_dir: str | None = None
+    #: telemetry sampling cadence; only meaningful with a telemetry store
+    telemetry_sample_s: float = 2.0
+    #: RSS watermark for the admission controller, as a fraction of
+    #: MemTotal: submits arriving past it are shed with an honest
+    #: retry_after instead of queued; <= 0 disables pressure shedding
+    max_rss_frac: float = 0.0
+    #: SIGTERM→SIGKILL grace for cancelled supervised children (also the
+    #: slack a 2 s-deadline job gets to actually free its worker)
+    deadline_grace_s: float = 2.0
+    #: crash count before quarantine; only meaningful with ``state_dir``
+    quarantine_threshold: int = 3
+    #: fused single-pass admission (service/fastprep.py): parse, pair,
+    #: validate and prepare in one walk, falling back to the layered
+    #: decode path on any anomaly (identical errors, just slower)
+    fast_admission: bool = True
+    #: continuous cross-job batching; not ported yet (refused when set)
+    batching: bool = False
+    batch_engine: str = "auto"
+    #: incremental prefix verification; not ported yet (refused when set)
+    prefix_enabled: bool = False
+    prefix_capacity: int = 2048
+    prefix_min_ops: int = 4
+    prefix_cuts: int = 8
+    prefix_max_segments: int = 8
+    #: progress-heartbeat cadence per job (checker/progress.ProgressSink
+    #: time gate, the `watch` op's data source); <= 0 disables heartbeats
+    #: entirely — engines then run exactly the pre-progress code path
+    progress_interval_s: float = 0.5
+    #: verdict-exact search pruning (``serve --prune``) on every engine
+    #: that carries it (checker/prune.py); never changes a verdict
+    prune: bool = False
+    #: speculative multi-layer frontier expansion depth for device
+    #: escalations (``serve --speculate-depth``); 0 = off
+    speculate_depth: int = 0
+    extra: dict = field(default_factory=dict)
+    #: the port's one addition: the torch device of inline and supervised
+    #: escalations (``serve --torch-device``).  None = the card; an
+    #: inline daemon without one raises when it is built.  "cpu" runs the
+    #: device search on the CPU
+    torch_device: str | None = None
+
+
+def _refuse_unported(cfg: VerifydConfig) -> None:
+    """``NotImplementedError`` naming the module for each configured
+    feature whose modules the port does not have yet."""
+    wants = (
+        (cfg.state_dir, "--state-dir", "service/journal.py, obs/flight.py, obs/archive.py, "
+         "obs/tsdb.py and the QuarantineStore's ledger", _DURABILITY),
+        (cfg.telemetry_dir, "--telemetry-dir", "obs/tsdb.py", _DURABILITY),
+        (cfg.metrics_port is not None, "--metrics-port", "obs/httpd.py and obs/dashboard.py",
+         _DURABILITY),
+        (cfg.alert_url or cfg.alert_rules, "--alert-url / --alert-rule", "obs/alerts.py",
+         _DURABILITY),
+        (cfg.prefix_enabled, "--prefix", "service/prefixstore.py and checker/prefix.py", _PREFIX),
+        (cfg.batching, "--batching", "service/batcher.py", _BATCHING),
+    )
+    for on, flag, modules, item in wants:
+        if on:
+            raise NotImplementedError(
+                f"verifyd {flag} needs {modules}, which the port does not have yet ({item})"
+            )
+
+
+class Verifyd:
+    """The daemon.  ``with Verifyd(cfg) as d: ...`` for tests;
+    :meth:`serve_forever` for the foreground CLI."""
+
+    def __init__(self, config: VerifydConfig) -> None:
+        self.cfg = config
+        _refuse_unported(config)
+        if config.tcp is not None and not config.secret:
+            raise ValueError(
+                "a TCP listener requires a shared secret (VerifydConfig.secret)"
+            )
+        if config.device == "inline":
+            # The inline daemon holds the card itself: without one it
+            # raises DeviceUnavailable now, never at its first escalation.
+            from ..checker.device import resolve_device
+
+            resolve_device(config.torch_device)
+        self.logger = StructuredLogger(
+            sys.stderr, fmt=config.log_format, component="verifyd"
+        )
+        self._stats_file = None
+        sink = None
+        stats_logger = None
+        if config.stats_log == "-":
+            # Events flow through the structured logger so they share
+            # format + stream with every other daemon diagnostic.
+            stats_logger = self.logger
+        elif config.stats_log:
+            self._stats_file = open(config.stats_log, "a", encoding="utf-8")
+            sink = self._stats_file
+        self.registry = MetricsRegistry()
+        self.tracer = Tracer(config.trace_capacity)
+        self.tracer.name_track(0, "admission")
+        self._m_trace_dropped = self.registry.counter(
+            "verifyd_trace_spans_dropped_total",
+            "Spans evicted from the saturated trace ring (timelines truncated)",
+        )
+        self._m_trace_dropped.inc(0)
+        self.tracer.drop_hook = lambda _total: self._m_trace_dropped.inc()
+        # Info-style gauge (constant 1): build identity rides the label
+        # set, so scrapes can tell nodes apart.
+        self.registry.gauge(
+            "verifyd_build_info",
+            "Build identity (value is always 1; the labels carry it)",
+            labelnames=("version", "backend", "python"),
+        ).set(
+            1.0,
+            version=_version.__version__,
+            backend=config.device,
+            python=platform.python_version(),
+        )
+        self.health = SLOHealth(
+            SLOConfig(
+                availability_target=config.slo_target,
+                latency_target_s=config.slo_latency_target_s,
+            ),
+            registry=self.registry,
+        )
+        self.sentinel = None
+        if config.sentinel_band > 0:
+            self.sentinel = PerfSentinel(
+                SentinelConfig(
+                    band=config.sentinel_band,
+                    min_samples=config.sentinel_min_samples,
+                ),
+                registry=self.registry,
+            )
+        self.stats = ServiceStats(
+            sink,
+            registry=self.registry,
+            health=self.health,
+            logger=stats_logger,
+            sentinel=self.sentinel,
+        )
+        # Runtime introspection: point the process-global build tracker at
+        # this daemon's registry + event stream, and arm the resource
+        # sampler feeding the gauges.
+        INTROSPECTOR.attach(
+            registry=self.registry,
+            stats=self.stats,
+            storm_threshold=config.retrace_storm_threshold,
+        )
+        self.sampler = None
+        if config.resource_sample_s > 0:
+            self.sampler = ResourceSampler(
+                self.registry,
+                interval_s=config.resource_sample_s,
+                capacity=config.resource_capacity,
+            )
+        self.cache = VerdictCache(config.cache_capacity)
+        self.queue = AdmissionQueue(
+            config.queue_depth, retry_hint=self.stats.retry_after_hint
+        )
+        self.device_pool = None
+        if config.mesh_devices and config.device != "off":
+            from .devicepool import DevicePool
+
+            self.device_pool = DevicePool(config.mesh_devices, stats=self.stats)
+        # retry_after hints fold supervised lease-wait estimates in: the
+        # stats object reads pool waiters straight off this snapshot.
+        self.stats.device_pool = self.device_pool
+        self.admission = AdmissionController(
+            self.stats,
+            max_rss_frac=config.max_rss_frac,
+            sampler=self.sampler,
+        )
+        self.progress = None
+        if config.progress_interval_s > 0:
+            from .progress import JobProgress
+
+            self.progress = JobProgress(
+                interval_s=config.progress_interval_s,
+                on_heartbeat=self._emit_progress,
+            )
+        self.scheduler = Scheduler(
+            self.queue,
+            self.cache,
+            self.stats,
+            time_budget_s=config.time_budget_s,
+            device=config.device,
+            unbounded_close=config.unbounded_close,
+            batch_max=config.batch_max,
+            out_dir=config.out_dir,
+            spool_dir=config.spool_dir,
+            device_rows=config.device_rows,
+            attempt_timeout_s=config.attempt_timeout_s,
+            max_restarts=config.max_restarts,
+            tracer=self.tracer,
+            profile=config.profile,
+            device_pool=self.device_pool,
+            lease_timeout_s=config.lease_timeout_s,
+            cancel_grace_s=config.deadline_grace_s,
+            progress=self.progress,
+            prune=config.prune,
+            speculate_depth=config.speculate_depth,
+            torch_device=config.torch_device,
+        )
+        self._job_ids = itertools.count(1)
+        #: submits between dispatch and reply-written (loop thread owns
+        #: the writes; the drain poller only reads)
+        self._inflight = 0
+        self._drain_lock = threading.Lock()
+        self._draining = False
+        self._drain_thread: threading.Thread | None = None
+        self._thread: threading.Thread | None = None
+        self._loop: asyncio.AbstractEventLoop | None = None
+        self._started = threading.Event()
+        self._stopped = threading.Event()
+        self._stop: asyncio.Future | None = None
+        self._startup_error: BaseException | None = None
+        #: bound port of the TCP listener (set before __enter__ returns)
+        self.tcp_port: int | None = None
+        #: the /metrics listener is not ported; always None
+        self.metrics_port: int | None = None
+
+    # -- lifecycle ----------------------------------------------------------
+
+    def __enter__(self) -> "Verifyd":
+        if self.sampler is not None:
+            self.sampler.start()
+        self.scheduler.start(self.cfg.workers)
+        self.stats.emit(
+            "serve_start",
+            socket=self.cfg.socket_path,
+            tcp=self.cfg.tcp,
+            workers=self.cfg.workers,
+            queue_depth=self.cfg.queue_depth,
+            pid=os.getpid(),
+            mesh_devices=self.cfg.mesh_devices,
+        )
+        self._thread = threading.Thread(
+            target=self._run, name="verifyd-accept", daemon=True
+        )
+        self._thread.start()
+        if not self._started.wait(timeout=10):
+            raise RuntimeError(
+                f"verifyd failed to start on {self.cfg.socket_path}"
+            )
+        if self._startup_error is not None:
+            raise RuntimeError(
+                f"verifyd failed to start on {self.cfg.socket_path}"
+            ) from self._startup_error
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.request_stop()
+        if self._thread is not None:
+            self._thread.join(timeout=10)
+        self.scheduler.stop()
+        if self.sampler is not None:
+            with contextlib.suppress(Exception):
+                self.sampler.sample_once()
+            self.sampler.close()
+        self.stats.emit("serve_stop", **self.stats.snapshot())
+        self.dump_flight("shutdown")
+        self.cache.close()
+        if self._stats_file is not None:
+            with contextlib.suppress(OSError):
+                self._stats_file.close()
+        with contextlib.suppress(FileNotFoundError):
+            os.remove(self.cfg.socket_path)
+
+    def dump_flight(self, reason: str) -> None:
+        """The JAX daemon's flight-recorder marker (shutdown path, SIGTERM
+        handler).  The flight recorder needs ``--state-dir``, which the
+        port does not have yet, so this is a no-op, as it is in the JAX
+        daemon without a state dir."""
+
+    def request_drain(self, timeout_s: float | None = None) -> float:
+        """Graceful drain, then stop (drain-flagged shutdown op, SIGTERM
+        under ``serve --drain-timeout``).  Thread-safe and idempotent.
+
+        Closes the admission queue immediately — new submits answer
+        ``ShuttingDown``, workers finish what is queued — then a
+        background thread waits until every dispatched submit has its
+        reply written, the queue is empty, and no worker holds an active
+        job (or the budget runs out), and finally triggers the normal
+        stop path.  Cache hits keep answering throughout: they touch no
+        queue slot and cost nothing.  Returns the effective budget.
+        """
+        t = float(
+            timeout_s
+            if timeout_s is not None
+            else (self.cfg.drain_timeout_s or 30.0)
+        )
+        with self._drain_lock:
+            if self._draining:
+                return t
+            self._draining = True
+
+        def _drain() -> None:
+            self.queue.close()
+            self.stats.emit(
+                "drain_start",
+                queued=len(self.queue),
+                inflight=self._inflight,
+                active=self.stats.active,
+                timeout_s=t,
+            )
+            t0 = time.monotonic()
+            while time.monotonic() - t0 < t:
+                if (
+                    self._inflight == 0
+                    and len(self.queue) == 0
+                    and self.stats.active == 0
+                ):
+                    break
+                time.sleep(0.05)
+            waited = time.monotonic() - t0
+            clean = (
+                self._inflight == 0
+                and len(self.queue) == 0
+                and self.stats.active == 0
+            )
+            self.stats.emit(
+                "drain_done", waited_s=round(waited, 3), clean=clean
+            )
+            self.dump_flight("drain")
+            self.request_stop()
+
+        self._drain_thread = threading.Thread(
+            target=_drain, name="verifyd-drain", daemon=True
+        )
+        self._drain_thread.start()
+        return t
+
+    def request_stop(self) -> None:
+        """Thread-safe stop trigger (shutdown op, signal handler)."""
+        self._stopped.set()
+        if self._loop is not None and self._stop is not None:
+            def _finish() -> None:
+                if not self._stop.done():
+                    self._stop.set_result(None)
+
+            with contextlib.suppress(RuntimeError):
+                self._loop.call_soon_threadsafe(_finish)
+
+    def wait(self) -> None:
+        """Block until a shutdown request (or KeyboardInterrupt)."""
+        try:
+            self._stopped.wait()
+        except KeyboardInterrupt:
+            pass
+
+    def serve_forever(self) -> int:
+        with self:
+            log.info(
+                "verifyd listening on %s%s (queue depth %d, %d workers, "
+                "device=%s)",
+                self.cfg.socket_path,
+                f" + tcp {self.cfg.tcp} (port {self.tcp_port})"
+                if self.cfg.tcp
+                else "",
+                self.cfg.queue_depth,
+                self.cfg.workers,
+                self.cfg.device,
+            )
+            self.wait()
+        return 0
+
+    def _run(self) -> None:
+        try:
+            asyncio.run(self._main())
+        except BaseException as e:
+            self._startup_error = e
+        finally:
+            self._started.set()
+            self._stopped.set()
+
+    async def _main(self) -> None:
+        self._loop = asyncio.get_running_loop()
+        self._stop = self._loop.create_future()
+        # The stream limit IS the frame bound: readuntil past it raises
+        # LimitOverrunError, answered as a definite FrameTooLarge.
+        server = await asyncio.start_unix_server(
+            functools.partial(self._handle, secret=None, deadline_s=None),
+            path=self.cfg.socket_path,
+            limit=self.cfg.frame_max_bytes,
+        )
+        tcp_server = None
+        if self.cfg.tcp is not None:
+            host, port = parse_hostport(self.cfg.tcp)
+            tcp_server = await asyncio.start_server(
+                functools.partial(
+                    self._handle,
+                    secret=self.cfg.secret,
+                    deadline_s=self.cfg.conn_deadline_s,
+                ),
+                host=host,
+                port=port,
+                limit=self.cfg.frame_max_bytes,
+            )
+            self.tcp_port = tcp_server.sockets[0].getsockname()[1]
+        self._started.set()
+        try:
+            await self._stop
+        finally:
+            server.close()
+            await server.wait_closed()
+            if tcp_server is not None:
+                tcp_server.close()
+                await tcp_server.wait_closed()
+
+    # -- connection handling ------------------------------------------------
+
+    async def _read_frame(
+        self, reader: asyncio.StreamReader, deadline_s: float | None
+    ) -> bytes | None:
+        """One frame, bounded in size (stream limit) and, on TCP, in read
+        time.  Returns None on clean EOF; raises the caller's per-frame
+        protocol failures as marker exceptions."""
+        fut = reader.readuntil(b"\n")
+        if deadline_s is not None:
+            fut = asyncio.wait_for(fut, timeout=deadline_s)
+        try:
+            return await fut
+        except asyncio.IncompleteReadError as e:
+            return e.partial or None  # truncated final frame or clean EOF
+
+    async def _handle(
+        self,
+        reader: asyncio.StreamReader,
+        writer: asyncio.StreamWriter,
+        *,
+        secret: bytes | None,
+        deadline_s: float | None,
+    ) -> None:
+        try:
+            while True:
+                try:
+                    line = await self._read_frame(reader, deadline_s)
+                except (asyncio.LimitOverrunError, ValueError):
+                    # Oversized frame: a definite protocol error, then
+                    # close — the stream cannot be resynced past it.
+                    self.stats.emit("frame_error", reason="oversized")
+                    resp = err(
+                        ERR_TOO_LARGE,
+                        f"frame exceeds {self.cfg.frame_max_bytes} bytes",
+                    )
+                    await self._reply(writer, resp, secret)
+                    break
+                except asyncio.TimeoutError:
+                    self.stats.emit("frame_error", reason="read_deadline")
+                    break
+                if not line:
+                    break
+                close_after = False
+                inflight = False
+                try:
+                    try:
+                        req = decode_frame(line)
+                    except ValueError as e:
+                        self.stats.emit("frame_error", reason="decode")
+                        resp = err(ERR_FRAME, f"malformed frame: {e}")
+                    else:
+                        if secret is not None and not verify_frame(req, secret):
+                            # Rejected before admission: nothing below the
+                            # transport ever sees an unauthenticated frame.
+                            peer = writer.get_extra_info("peername")
+                            self.stats.emit(
+                                "auth_reject", op=req.get("op"), peer=str(peer)
+                            )
+                            resp = err(ERR_AUTH, "missing or invalid frame auth")
+                            close_after = True
+                        else:
+                            if req.get("op") == "submit":
+                                # Drain counts a submit until its reply is
+                                # *written* — an accepted job whose verdict
+                                # never reached the client is a lost job.
+                                # Every _handle coroutine runs on the accept
+                                # loop, so +=/-= never interleave; the drain
+                                # poller thread only reads the counter.
+                                inflight = True
+                                self._inflight += 1
+                            resp = await self._dispatch(req, reader)
+                    await self._reply(writer, resp, secret)
+                finally:
+                    if inflight:
+                        self._inflight -= 1
+                if close_after:
+                    break
+        except (ConnectionResetError, BrokenPipeError):
+            pass
+        finally:
+            writer.close()
+            with contextlib.suppress(Exception):
+                await writer.wait_closed()
+
+    async def _reply(
+        self, writer: asyncio.StreamWriter, resp: dict, secret: bytes | None
+    ) -> None:
+        if secret is not None:
+            resp = sign_frame(resp, secret)
+        writer.write(encode_frame(resp))
+        await writer.drain()
+
+    def launch_counts(self) -> dict:
+        """Kernel launches on this daemon's escalations: ``inline`` counts
+        the fold launches of this process (the inline device search; zero
+        unless ``ops/fold_cuda.py`` was loaded here), ``children`` the
+        launches the supervised children reported."""
+        fold = sys.modules.get("s2_verification_tpu_torch.ops.fold_cuda")
+        return {
+            "inline": dict(fold.LAUNCHES) if fold is not None else {},
+            "children": dict(self.scheduler.child_launches),
+        }
+
+    async def _dispatch(
+        self, req: dict, reader: asyncio.StreamReader | None = None
+    ) -> dict:
+        op = req.get("op")
+        try:
+            if op == "ping":
+                return ok(
+                    {
+                        "server": "verifyd",
+                        "version": _version.__version__,
+                        "protocol": PROTOCOL_VERSION,
+                        "pid": os.getpid(),
+                    }
+                )
+            if op == "stats":
+                snap = self.stats.snapshot()
+                snap["queue_depth_now"] = len(self.queue)
+                snap["cache_entries"] = len(self.cache)
+                if self.device_pool is not None:
+                    snap["device_pool"] = self.device_pool.snapshot()
+                introspection: dict = {
+                    "jit": INTROSPECTOR.snapshot(),
+                    "launches": self.launch_counts(),
+                }
+                if self.sampler is not None:
+                    introspection["resources"] = self.sampler.snapshot()
+                snap["introspection"] = introspection
+                if self.progress is not None:
+                    snap["progress"] = self.progress.rows()
+                return ok(snap)
+            if op == "watch":
+                return self._watch(req)
+            if op == "trace":
+                return ok(self.tracer.export())
+            if op == "shutdown":
+                if req.get("drain"):
+                    tmo = req.get("timeout")
+                    try:
+                        tmo = float(tmo) if tmo is not None else None
+                    except (TypeError, ValueError):
+                        return err(ERR_DECODE, "timeout must be a number")
+                    effective = self.request_drain(tmo)
+                    return ok(
+                        {
+                            "stopping": True,
+                            "draining": True,
+                            "timeout_s": effective,
+                        }
+                    )
+                self.request_stop()
+                return ok({"stopping": True})
+            if op == "submit":
+                return await self._submit(req, reader)
+            refused = _UNPORTED_OPS.get(op)
+            if refused is not None:
+                return err(ERR_DECODE, f"op {op!r} needs {refused}")
+            return err(ERR_DECODE, f"unknown op {op!r}")
+        except Exception as e:  # protocol handler must never kill the loop
+            log.exception("dispatch failed for op %r", op)
+            return err(ERR_INTERNAL, repr(e))
+
+    def _emit_progress(self, row: dict) -> None:
+        """JobProgress heartbeat hook → the ``search_progress`` event
+        (metrics and the stats log ride the normal emit path)."""
+        self.stats.emit(
+            "search_progress",
+            job=row["job"],
+            engine=row["engine"],
+            ops_committed=row["ops_committed"],
+            total_ops=row["total_ops"],
+            frontier_width=row["frontier_width"],
+            states_expanded=row["states_expanded"],
+            layer_rate=row["layer_rate"],
+            progress_ratio=row["progress_ratio"],
+            eta_s=row["eta_s"],
+            fingerprint=row["fingerprint"],
+            trace_id=row["trace_id"],
+        )
+
+    def _watch(self, req: dict) -> dict:
+        """One-shot progress snapshot of running (or just-done) searches.
+
+        Selectors: ``job`` (one id), ``fingerprint`` (verdict-cache key),
+        ``search`` (+ optional ``part``: every partition of a distributed
+        search running here), or none (all active jobs).  A named
+        selector with no match is the definite
+        :data:`~.protocol.ERR_UNKNOWN_JOB`."""
+        if self.progress is None:
+            return err(
+                ERR_DECODE,
+                "progress heartbeats disabled (progress_interval_s <= 0)",
+            )
+        if req.get("job") is not None:
+            try:
+                job = int(req["job"])
+            except (TypeError, ValueError):
+                return err(ERR_DECODE, "job must be an int")
+            row = self.progress.get(job)
+            if row is None:
+                return err(
+                    ERR_UNKNOWN_JOB, f"job {job} is not running here", job=job
+                )
+            return ok({"progress": [row]})
+        if req.get("fingerprint") is not None:
+            fp = str(req["fingerprint"])
+            rows = self.progress.find(fp)
+            if not rows:
+                return err(
+                    ERR_UNKNOWN_JOB, f"no running job for fingerprint {fp!r}"
+                )
+            return ok({"progress": rows})
+        if req.get("search") is not None:
+            search = str(req["search"])
+            rows = self.progress.find(f"ppart:{search[:16]}/", prefix=True)
+            if req.get("part") is not None:
+                part = str(req["part"])
+                rows = [
+                    r for r in rows if r["fingerprint"].rsplit("/", 1)[-1] == part
+                ]
+            if not rows:
+                return err(
+                    ERR_UNKNOWN_JOB,
+                    f"no partition of search {search[:16]!r} runs here",
+                )
+            return ok({"progress": rows})
+        return ok({"progress": self.progress.rows()})
+
+    def _decode_history(
+        self, text, records, client: str
+    ) -> tuple[str | None, list, object] | dict:
+        """Validate and prepare one history payload, returning ``(text,
+        events, hist)`` or an error frame.
+
+        Fast admission first: one fused parse+pair+validate+build pass
+        (service/fastprep.py).  Fallback-not-fork: anything the fast path
+        won't vouch for re-runs through the layered decoder below, which
+        produces the canonical error message for every rejection.
+        """
+        if records is not None:
+            # Structured submission: the client ships the event records as
+            # a JSON array instead of a JSONL string, skipping one
+            # serialize/parse round-trip on the hot path.
+            if not isinstance(records, list) or not records:
+                self.stats.emit("decode_error", reason="bad records")
+                return err(
+                    ERR_DECODE, "'records' must be a non-empty list of event objects"
+                )
+            if text is not None:
+                return err(ERR_DECODE, "send 'history' or 'records', not both")
+        elif not isinstance(text, str) or not text.strip():
+            self.stats.emit("decode_error", reason="missing history")
+            return err(ERR_DECODE, "submit needs a non-empty 'history' JSONL string")
+        prep = None
+        if self.cfg.fast_admission:
+            try:
+                prep = fast_prepare(text=text, records=records)
+            except FastPrepFallback:
+                prep = None
+        if prep is not None:
+            events = prep.events
+            hist = prep.hist
+            if text is None:
+                text = prep.wire_text()
+            return text, events, hist
+        if text is None:
+            try:
+                text = "\n".join(
+                    json.dumps(r, separators=(",", ":")) for r in records
+                )
+            except (TypeError, ValueError) as e:
+                self.stats.emit(
+                    "decode_error", client=client, reason=str(e)[:200]
+                )
+                return err(
+                    ERR_DECODE, f"'records' are not JSON-serializable: {e}"
+                )
+        try:
+            events = list(ev.iter_history(text))
+            hist = prepare(events, elide_trivial=True)
+        except (ev.DecodeError, ValueError) as e:
+            self.stats.emit("decode_error", client=client, reason=str(e)[:200])
+            return err(ERR_DECODE, str(e))
+        return text, events, hist
+
+    async def _submit(
+        self, req: dict, reader: asyncio.StreamReader | None = None
+    ) -> dict:
+        t_recv = self.tracer.now()
+        # Distributed trace context: honor a client-minted id (new
+        # clients), mint one otherwise (old clients) — every job traces.
+        trace_id, sent_wall = parse_trace_frame(req.get(TRACE_FIELD))
+        if trace_id is None:
+            trace_id = new_trace_id()
+        text = req.get("history")
+        records = req.get("records")
+        client = str(req.get("client") or "anon")
+        try:
+            priority = int(req.get("priority", 10))
+        except (TypeError, ValueError):
+            return err(ERR_DECODE, f"priority must be an int, got {req.get('priority')!r}")
+        no_viz = bool(req.get("no_viz", self.cfg.no_viz))
+        # Remaining end-to-end budget in seconds.  Optional (old clients
+        # never send it) and HMAC-covered like every frame field.
+        deadline = req.get("deadline")
+        if deadline is not None:
+            try:
+                deadline = float(deadline)
+            except (TypeError, ValueError):
+                return err(
+                    ERR_DECODE, f"deadline must be a number, got {deadline!r}"
+                )
+
+        t_prep0 = self.tracer.now()
+        decoded = self._decode_history(text, records, client)
+        if isinstance(decoded, dict):
+            return decoded
+        text, events, hist = decoded
+        t_prep1 = self.tracer.now()
+
+        fingerprint = history_fingerprint(hist)
+        cached = self.cache.get(fingerprint)
+        if cached is not None:
+            self.stats.emit(
+                "cache_hit",
+                stage="admission",
+                client=client,
+                fingerprint=fingerprint,
+                queue_wait_s=0.0,
+            )
+            self.tracer.add_span(
+                "admit",
+                t_recv,
+                self.tracer.now(),
+                tid=0,
+                args={"client": client, "cached": True, "trace_id": trace_id},
+            )
+            cached.update(cached=True, queue_wait_s=0.0, trace_id=trace_id)
+            return ok(cached)
+
+        # Admission gates, in cost order: dead deadline, then pressure
+        # shedding with an honest retry_after.
+        shape = shape_key(hist)
+        if deadline is not None and deadline <= 0:
+            self.stats.emit(
+                "admission_shed",
+                reason="deadline",
+                client=client,
+                trace_id=trace_id,
+            )
+            return err(
+                ERR_DEADLINE,
+                "deadline already expired at admission",
+                reason="deadline",
+            )
+        shed = self.admission.decide(
+            queue_depth=len(self.queue), deadline_s=deadline, shape=shape
+        )
+        if shed is not None:
+            self.stats.emit(
+                "admission_shed",
+                reason=shed,
+                client=client,
+                depth=len(self.queue),
+                trace_id=trace_id,
+            )
+            if shed == "deadline":
+                return err(
+                    ERR_DEADLINE,
+                    "cannot finish inside the deadline at the current "
+                    "queue depth (observed per-shape wall time)",
+                    reason=shed,
+                )
+            return err(
+                ERR_QUEUE_FULL,
+                f"admission shed under {shed} pressure",
+                retry_after_s=self.stats.retry_after_hint(len(self.queue)),
+                reason=shed,
+                depth=len(self.queue),
+            )
+
+        cancel = CancelToken(
+            time.monotonic() + deadline if deadline is not None else None
+        )
+        job = Job(
+            id=next(self._job_ids),
+            client=client,
+            priority=priority,
+            shape=shape,
+            fingerprint=fingerprint,
+            events=events,
+            hist=hist,
+            no_viz=no_viz,
+            trace_id=trace_id,
+            cancel=cancel,
+        )
+        fut: asyncio.Future = self._loop.create_future()
+
+        def _resolve(reply: dict) -> None:
+            def _finish() -> None:
+                if not fut.done():
+                    fut.set_result(reply)
+
+            with contextlib.suppress(RuntimeError):  # loop already closed
+                self._loop.call_soon_threadsafe(_finish)
+
+        job.resolve = _resolve
+        try:
+            depth = self.queue.put(job)
+        except QueueFull as e:
+            self.stats.emit(
+                "reject",
+                client=client,
+                priority=priority,
+                depth=e.depth,
+                retry_after_s=e.retry_after_s,
+            )
+            return err(
+                ERR_QUEUE_FULL,
+                str(e),
+                retry_after_s=e.retry_after_s,
+                depth=e.depth,
+            )
+        except RuntimeError as e:  # queue closed: daemon is stopping
+            return err(ERR_SHUTTING_DOWN, str(e))
+        job.enqueued_at = self.tracer.now()
+        self.stats.emit(
+            "admit",
+            job=job.id,
+            client=client,
+            priority=priority,
+            shape=job.shape,
+            depth=depth,
+            trace_id=trace_id,
+        )
+        self.stats.set_queue_depth(depth)
+        if self.tracer.enabled:
+            self.tracer.name_track(job.id, f"job {job.id} ({client})")
+            if sent_wall is not None:
+                # Client-origin span: network + connect + queueing before
+                # the daemon saw the frame.  sent_wall is the client's
+                # wall clock, mapped onto our monotonic timeline and
+                # clamped to t_recv so skew can't produce negative wait.
+                t_sent = min(t_recv, self.tracer.mono_of_wall(sent_wall))
+                self.tracer.add_span(
+                    "client_wait",
+                    t_sent,
+                    t_recv,
+                    tid=job.id,
+                    cat="client",
+                    args={"trace_id": trace_id, "origin": "client"},
+                )
+            self.tracer.add_span(
+                "prepare", t_prep0, t_prep1, tid=job.id,
+                args={"trace_id": trace_id},
+            )
+            self.tracer.add_span(
+                "admit",
+                t_recv,
+                job.enqueued_at,
+                tid=job.id,
+                args={
+                    "client": client,
+                    "shape": job.shape,
+                    "depth": depth,
+                    "trace_id": trace_id,
+                },
+            )
+        return await self._await_reply(fut, job, reader)
+
+    async def _await_reply(
+        self,
+        fut: asyncio.Future,
+        job: Job,
+        reader: asyncio.StreamReader | None,
+    ) -> dict:
+        """Wait for the worker's reply while watching the client socket.
+
+        A peer that disconnects mid-submit (EOF or reset on ``reader``)
+        cancels the job with reason ``client_gone`` so no worker stays
+        pinned computing an answer nobody will read — the scheduler
+        notices at its next cancellation boundary, the lease releases,
+        and the (unwritable) reply just fails fast in ``_handle``.  The
+        asyncio transport feeds EOF without a pending read, so polling
+        ``at_eof()`` here never consumes a pipelined frame.
+        """
+        while True:
+            done, _ = await asyncio.wait({fut}, timeout=0.2)
+            if done:
+                return fut.result()
+            if reader is not None and (
+                reader.at_eof() or reader.exception() is not None
+            ):
+                if job.cancel.cancel("client_gone"):
+                    self.stats.emit(
+                        "client_gone",
+                        job=job.id,
+                        client=job.client,
+                        trace_id=job.trace_id,
+                    )
+
+
+#: ops the JAX daemon serves whose modules the port does not have yet:
+#: each is answered with an error frame naming them
+_UNPORTED_OPS = {
+    "tsq": f"the telemetry store, obs/tsdb.py, which the port does not have yet ({_DURABILITY})",
+    "profiles": f"the profile archive, obs/archive.py, which the port does not have yet ({_DURABILITY})",
+    "quarantine": "the quarantine ledger under --state-dir (service/journal.py), which the port "
+                  f"does not have yet ({_DURABILITY})",
+    "follow": "the prefix store, service/prefixstore.py and checker/prefix.py, which the port "
+              f"does not have yet ({_PREFIX})",
+    **{
+        op: f"the distributed search, service/distsearch.py, which the port does not have yet ({_FLEET})"
+        for op in ("grant", "delta", "partition_done")
+    },
+}

@@ -1,10 +1,11 @@
 """Structured per-job service events + aggregate counters + metrics.
 
 The port's own copy of the JAX package's ``service/stats.py`` (plain
-Python, unchanged in behaviour).  The daemon-side consumers it can feed
-(alerts, archive, flight recorder, SLO health, logger, sentinel) are
-referenced for type checking only; the port has none of them yet, so
-they stay ``None``.
+Python, unchanged in behaviour).  Of the daemon-side consumers it can
+feed, the port's daemon wires the SLO health, the structured logger and
+the sentinel; the alert engine, profile archive and flight recorder are
+referenced for type checking only and stay ``None`` until the port has
+them.
 
 Every notable daemon event becomes one JSON line on the configured sink
 (a file-like object; ``None`` silences the stream but keeps counters):

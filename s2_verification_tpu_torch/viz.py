@@ -11,10 +11,10 @@ renders offline, matching the reference's single-artifact behavior.
 
 The port's copy of the JAX package's ``viz.py``, byte for byte the same
 HTML for the same history and result (``tests/test_torch_viz.py``).  Of
-its panels below the timeline it keeps the frontier timeline and the mesh
-shard panel (a sharded search's ``stats.shards``); the supervised-child
-panel, which renders nothing without a serving daemon, waits for the
-port's daemon.
+its panels below the timeline it keeps all three: the frontier timeline,
+the mesh shard panel (a sharded search's ``stats.shards``) and the
+supervised-child panel (the span ring a supervised child ships home,
+drawn in the daemon's artifacts).
 """
 
 from __future__ import annotations
@@ -274,6 +274,58 @@ def _shard_panel(result: CheckResult) -> str:
     )
 
 
+def _child_panel(result: CheckResult) -> str:
+    """Supervised-child panel: one row per span of the escalation child's
+    own trace ring (``result.child_trace``, shipped home in the result
+    JSON), bar offset/width scaled against the child's busy window.
+    Returns "" when the verdict did not come from a supervised child."""
+    ct = getattr(result, "child_trace", None)
+    spans = ct.get("spans") if isinstance(ct, dict) else None
+    spans = [s for s in spans or [] if s.get("ph") == "X"]
+    if not spans:
+        return ""
+    lo = min(float(s["ts"]) for s in spans)
+    hi = max(float(s["ts"]) + float(s.get("dur") or 0.0) for s in spans)
+    total = max(hi - lo, 1.0)
+    rows = []
+    for s in sorted(spans, key=lambda s: float(s["ts"])):
+        ts = float(s["ts"]) - lo
+        dur = float(s.get("dur") or 0.0)
+        left = 100.0 * ts / total
+        width = max(100.0 * dur / total, 0.5)
+        tip_parts = [
+            f"{s.get('name')}",
+            f"start: {ts / 1e6:.3f}s into child",
+            f"duration: {dur / 1e6:.3f}s",
+        ]
+        devices = (s.get("args") or {}).get("devices")
+        if devices:
+            tip_parts.append(f"devices: {devices}")
+        tip = html.escape("\n".join(tip_parts), quote=True).replace(
+            "\n", "&#10;"
+        )
+        rows.append(
+            f'<div class="flayer">'
+            f'<div class="flayer-label">{html.escape(str(s.get("name")))}</div>'
+            f'<div class="flayer-track">'
+            f'<div class="fbar" style="margin-left:{left:.2f}%;'
+            f'width:{width:.2f}%" data-tip="{tip}"></div></div></div>'
+        )
+    note = (
+        f"child pid {ct.get('pid')}, trace {ct.get('trace_id') or '-'}, "
+        f"{len(spans)} span(s), busy window {total / 1e6:.3f}s"
+    )
+    if ct.get("dropped"):
+        note += f" — {ct['dropped']} span(s) dropped (ring saturated)"
+    return (
+        '<div class="frontier"><h2>supervised child</h2>'
+        + "".join(rows)
+        + f'<div class="fnote">{html.escape(note)} &mdash; bars are the '
+        f"child process's own spans, offset within its busy window</div>"
+        "</div>"
+    )
+
+
 def _op_class(op: Op) -> str:
     if op.pending:
         return "pending"
@@ -510,6 +562,9 @@ def render_html(
     if panel:
         pieces.append(panel)
     panel = _shard_panel(result)
+    if panel:
+        pieces.append(panel)
+    panel = _child_panel(result)
     if panel:
         pieces.append(panel)
     body = "\n".join(pieces)

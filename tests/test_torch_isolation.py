@@ -6,7 +6,9 @@ CPU fallback.
   ``sys.modules``, and so do a small ``collect_history`` run, a launch
   of batched lanes and a search sharded over a mesh;
 - the supervising side of the device escalation (``checker.resilient``,
-  ``service``, ``obs``) leaves ``torch`` out of ``sys.modules`` too;
+  ``service``, ``obs``) leaves ``torch`` out of ``sys.modules`` too, and so
+  does a daemon under ``device="off"`` or ``"supervised"`` that answers
+  submits (the supervised one through a real escalation);
 - no port source (nor chip_smoke.py) imports them;
 - the entry points refuse to run when CUDA is asked for and absent, and
   so does the CLI's ``auto`` ladder when it escalates (exit 64, never a
@@ -105,6 +107,19 @@ def test_importing_the_port_loads_no_jax():
         "service.devicepool",
         "service.scheduler",
         "service.supervise",
+        "version",
+        "utils.seglog",
+        "obs.log",
+        "obs.health",
+        "obs.sentinel",
+        "service.protocol",
+        "service.overload",
+        "service.queue",
+        "service.cache",
+        "service.progress",
+        "service.fastprep",
+        "service.client",
+        "service.daemon",
     ):
         assert f"s2_verification_tpu_torch.{m}" in mods
     proc = _fresh_interpreter(f"for m in {mods!r}:\n    importlib.import_module(m)\n")
@@ -118,6 +133,39 @@ def test_the_supervising_side_loads_no_torch():
     proc = _fresh_interpreter(
         "for m in ('checker.resilient', 'service', 'service.supervise', 'obs'):\n"
         "    importlib.import_module('s2_verification_tpu_torch.' + m)\n"
+        "assert 'torch' not in sys.modules, sorted(m for m in sys.modules if m.startswith('torch'))\n"
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_the_daemon_loads_no_torch_unless_it_escalates_inline(tmp_path):
+    # A device-off daemon and a supervised one answer submits — the
+    # supervised one through a real escalation whose child runs the search
+    # on the CPU — and the daemon's own process never loads torch; the
+    # CLI's serve and submit entry points don't either.
+    sock = tmp_path / "v.sock"
+    proc = _fresh_interpreter(
+        "import io\n"
+        "from s2_verification_tpu_torch import cli\n"
+        "from s2_verification_tpu_torch.checker.oracle import CheckOutcome, CheckResult\n"
+        "from s2_verification_tpu_torch.collector.adversarial import adversarial_events\n"
+        "from s2_verification_tpu_torch.service import scheduler\n"
+        "from s2_verification_tpu_torch.service.client import VerifydClient\n"
+        "from s2_verification_tpu_torch.service.daemon import Verifyd, VerifydConfig\n"
+        "from s2_verification_tpu_torch.utils import events as ev\n"
+        "buf = io.StringIO()\n"
+        "ev.write_history(adversarial_events(5, batch=3, seed=1), buf)\n"
+        f"sock = {str(sock)!r}\n"
+        "for mode in ('off', 'supervised'):\n"
+        "    if mode == 'supervised':\n"
+        "        scheduler._cpu_check = lambda h, b, **kw: (CheckResult(CheckOutcome.UNKNOWN), 'native')\n"
+        "    cfg = VerifydConfig(socket_path=sock, device=mode, torch_device='cpu', no_viz=True,\n"
+        f"                        spool_dir={str(tmp_path / 'spool')!r})\n"
+        "    with Verifyd(cfg):\n"
+        "        r = VerifydClient(sock, timeout=120).submit(buf.getvalue())\n"
+        "    assert r['verdict'] == 0, r\n"
+        "    assert r['backend'] == ('native' if mode == 'off' else 'device-supervised'), r\n"
+        "assert cli.main(['submit', '-file', '/nonexistent.jsonl', '-socket', sock]) == 64\n"
         "assert 'torch' not in sys.modules, sorted(m for m in sys.modules if m.startswith('torch'))\n"
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr

@@ -12,13 +12,17 @@ CLI's ``-device-rows``.
 - ``check -device cpu -device-rows N -stats`` exits as the JAX CLI does with
   the same counters, ``N`` reaches the exhaustive phase, and the oracle
   backend warns and ignores it.
+- ``VerifydConfig`` has every field of the JAX package's with its default,
+  plus only ``torch_device``; ``serve`` and ``submit`` take the JAX flags
+  with their defaults.
 - Every keyword of the JAX ``check_batch_native`` and ``check_batch_vmap``
   that the port takes gives the JAX engines' lane verdicts and layers
   (the daemon's ``skip``, ``on_lane``, ``progress``, ``profile`` and
-  ``prune`` come back with the port's daemon); ``check_native(enc=)``
+  ``prune`` come back with ``serve --batching``); ``check_native(enc=)``
   takes a padded encoding and answers as the JAX engine does.
 """
 
+import dataclasses
 import importlib
 import inspect
 import json
@@ -277,3 +281,39 @@ def test_supervised_device_check_adds_only_device():
     p = set(inspect.signature(psupervise.supervised_device_check).parameters)
     assert p - j == {"device"}
     assert inspect.signature(psupervise.supervised_device_check).parameters["device"].default is None
+
+
+# -- the daemon's config --------------------------------------------------------
+
+jdaemon = importlib.import_module("s2_verification_tpu.service.daemon")
+pdaemon = importlib.import_module("s2_verification_tpu_torch.service.daemon")
+JAX_CONFIG_FIELDS = [f.name for f in dataclasses.fields(jdaemon.VerifydConfig)]
+
+
+@pytest.mark.parametrize("name", JAX_CONFIG_FIELDS)
+def test_verifyd_config_has_every_jax_field_with_its_default(name):
+    """``VerifydConfig`` has each field of the JAX package's, with the same
+    default (``extra``'s factory makes an equal empty dict)."""
+    jf = {f.name: f for f in dataclasses.fields(jdaemon.VerifydConfig)}[name]
+    pf = {f.name: f for f in dataclasses.fields(pdaemon.VerifydConfig)}[name]
+    assert pf.default == jf.default
+    assert (pf.default_factory is dataclasses.MISSING) == (jf.default_factory is dataclasses.MISSING)
+    if jf.default_factory is not dataclasses.MISSING:
+        assert pf.default_factory() == jf.default_factory()
+
+
+def test_verifyd_config_adds_only_the_torch_device():
+    p = {f.name for f in dataclasses.fields(pdaemon.VerifydConfig)}
+    assert p - set(JAX_CONFIG_FIELDS) == {"torch_device"}
+    assert pdaemon.VerifydConfig(socket_path="s").torch_device is None
+
+
+def test_serve_and_submit_take_the_jax_flags_and_defaults():
+    """Each flag of the JAX ``serve`` and ``submit`` parses to the JAX
+    default in the port (``serve`` adds ``--torch-device``)."""
+    for argv, added in ((["serve", "-socket", "S"], {"torch_device"}), (["submit", "-file", "F", "-socket", "S"], set())):
+        jargs = vars(jcli.build_parser().parse_args(argv))
+        pargs = vars(pcli.build_parser().parse_args(argv))
+        jargs.pop("fn"), pargs.pop("fn")
+        assert set(pargs) - set(jargs) == added
+        assert {k: pargs[k] for k in jargs} == jargs

@@ -7,9 +7,13 @@ then what only the port has: the lazy ``g++`` / ``nvcc`` library builds
 recorded in ``INTROSPECTOR`` in place of ``jax.jit`` compiles, and a
 card-memory sampler that never creates a CUDA context.
 
-The JAX cases that need ``health``, ``log``, ``flight``, ``dashboard``,
-``httpd`` or a daemon stay behind, and so do the two cases of
-``observe_jit`` (a decorator the port has no site for).  The compile
+Since the port has its daemon, the SLO-health, structured-logger, daemon
+and client/daemon trace-id cases of ``tests/test_obs.py`` and
+``test_obs_v2.py`` run over both packages too; the daemon case drops its
+``/metrics`` scrape, and the cases that need ``httpd``, ``dashboard``,
+``flight``, ``tsdb``, ``alerts`` or ``archive`` stay behind (ROADMAP.md
+queue 1), as do the two cases of ``observe_jit`` (a decorator the port
+has no site for).  The compile
 tracker's cases drive ``record_call`` / ``record_compile`` directly, as
 ``observe_jit`` does, so they run over both packages.
 """
@@ -42,6 +46,10 @@ def obs(request):
             ("metrics", "obs.metrics"),
             ("introspect", "obs.introspect"),
             ("stats", "service.stats"),
+            ("health", "obs.health"),
+            ("log", "obs.log"),
+            ("daemon", "service.daemon"),
+            ("client", "service.client"),
         )
     })
 
@@ -553,6 +561,313 @@ def test_resource_sampler_thread_starts_and_stops(obs):
     finally:
         s.close()
     assert s._thread is None
+
+
+# -- the SLO health engine (test_obs_v2.py) ------------------------------------
+
+
+def _event(name, t, wall_s=0.1, **kw):
+    return {"ev": name, "t": t, "wall_s": wall_s, "queue_wait_s": 0.0, **kw}
+
+
+def test_slo_window_math_with_injected_clock(obs):
+    now = [10_000.0]
+    h = obs.health.SLOHealth(time_fn=lambda: now[0])
+    # 20 good in the last minute; 10 bad 3 minutes ago (outside 1m,
+    # inside 5m and 30m).
+    for i in range(20):
+        h.observe_event(_event("done", 10_000 - 30 + i, wall_s=0.2))
+    for i in range(10):
+        h.observe_event(_event("job_error", 10_000 - 180 + i))
+    snap = h.snapshot()
+    w1, w5 = snap["windows"]["1m"], snap["windows"]["5m"]
+    assert w1["good"] == 20 and w1["bad"] == 0
+    assert w1["availability"] == 1.0 and w1["burn_rate"] == 0.0
+    assert w5["good"] == 20 and w5["bad"] == 10
+    assert w5["availability"] == pytest.approx(20 / 30, abs=1e-6)
+    # burn = error_rate / (1 - target) = (1/3) / 0.01
+    assert w5["burn_rate"] == pytest.approx((10 / 30) / 0.01, abs=0.01)
+    # Latency quantiles come from the fixed buckets; all goods took 0.2s,
+    # so p95 lands in the bucket containing 0.2.
+    assert 0.0 < w1["latency"]["p95"] <= 1.0
+    # Fast burn (1m) is clean, but the 3-minute-old errors still burn the
+    # 30m window at 33× — the slow-burn alert is exactly what catches a
+    # burst that has aged out of the short window.
+    assert not snap["healthy"]
+    assert [r["kind"] for r in snap["reasons"]] == ["slow_burn"]
+    assert snap["windows"]["30m"]["burn_rate"] == pytest.approx(
+        (10 / 30) / 0.01, abs=0.01
+    )
+
+
+def test_slo_fast_burn_trips_only_past_min_events(obs):
+    now = [5_000.0]
+    h = obs.health.SLOHealth(time_fn=lambda: now[0])
+    # 5 errors: under min_events → cold-start guard holds, still healthy.
+    for i in range(5):
+        h.observe_event(_event("job_error", 5_000 - 10 + i))
+    assert h.snapshot()["healthy"]
+    assert h.check_breach() is None
+    # 10th error crosses the guard: burn 100 ≥ 14.4 → degraded.
+    for i in range(5):
+        h.observe_event(_event("job_error", 5_000 - 5 + i))
+    snap = h.snapshot()
+    assert not snap["healthy"]
+    kinds = {r["kind"] for r in snap["reasons"]}
+    assert "fast_burn" in kinds
+
+
+def test_breach_is_edge_triggered_and_rearms_on_recovery(obs):
+    now = [7_000.0]
+    h = obs.health.SLOHealth(time_fn=lambda: now[0])
+    for i in range(12):
+        h.observe_event(_event("job_error", 7_000 - 12 + i))
+    first = h.check_breach()
+    assert first is not None and first["reasons"]
+    assert h.check_breach() is None  # still breached: no re-fire
+    # Recovery: the bad minute ages out of every window.
+    now[0] += 2_000.0
+    for i in range(12):
+        h.observe_event(_event("done", now[0] - 12 + i))
+    assert h.check_breach() is None  # healthy again: re-armed, no fire
+    # A second burst fires a second edge.
+    now[0] += 2_000.0
+    for i in range(12):
+        h.observe_event(_event("job_error", now[0] - 12 + i))
+    assert h.check_breach() is not None
+    assert h.snapshot()["breaches"] == 2
+
+
+def test_latency_degradation_is_a_healthz_reason_not_a_breach(obs):
+    now = [9_000.0]
+    h = obs.health.SLOHealth(
+        obs.health.SLOConfig(latency_target_s=0.5), time_fn=lambda: now[0]
+    )
+    for i in range(15):
+        h.observe_event(_event("done", 9_000 - 15 + i, wall_s=30.0))
+    healthy, body = h.healthz()
+    assert not healthy and body["status"] == "degraded"
+    assert any(r["kind"] == "latency" for r in body["reasons"])
+    # Latency alone never fires the burn-rate breach event.
+    assert h.check_breach() is None
+
+
+def test_stats_emits_slo_breach_event_once_per_edge(tmp_path, obs):
+    sink = io.StringIO()
+    reg = obs.metrics.MetricsRegistry()
+    health = obs.health.SLOHealth(registry=reg)
+    stats = obs.stats.ServiceStats(sink, registry=reg, health=health)
+    for i in range(12):
+        stats.emit("job_error", job=i, reason="boom")
+    lines = [json.loads(l) for l in sink.getvalue().splitlines()]
+    breaches = [l for l in lines if l["ev"] == "slo_breach"]
+    assert len(breaches) == 1
+    assert breaches[0]["reasons"]
+    assert stats.snapshot()["slo_breaches"] == 1
+    assert not stats.snapshot()["slo"]["healthy"]
+    # More errors while already breached: no second event.
+    for i in range(5):
+        stats.emit("job_error", job=100 + i, reason="boom")
+    lines = [json.loads(l) for l in sink.getvalue().splitlines()]
+    assert len([l for l in lines if l["ev"] == "slo_breach"]) == 1
+
+
+# -- the structured logger (test_obs_v2.py) -----------------------------------
+
+
+def test_logger_json_lines_carry_bound_and_call_fields(obs):
+    buf = io.StringIO()
+    log = obs.log.StructuredLogger(buf, fmt="json", component="verifyd")
+    log.info("hello", trace_id="abc", job_id=7)
+    rec = json.loads(buf.getvalue())
+    assert rec["msg"] == "hello" and rec["level"] == "info"
+    assert rec["component"] == "verifyd"
+    assert rec["trace_id"] == "abc" and rec["job_id"] == 7
+    assert "t" in rec
+
+
+def test_logger_text_format_and_level_filter(obs):
+    buf = io.StringIO()
+    log = obs.log.StructuredLogger(buf, fmt="text", level="warning")
+    log.debug("nope")
+    log.info("nope")
+    log.warning("careful", job_id=3)
+    lines = buf.getvalue().splitlines()
+    assert len(lines) == 1
+    assert "WARNING" in lines[0] and "careful" in lines[0]
+    assert "job_id=3" in lines[0]
+
+
+def test_logger_bind_derives_correlated_child(obs):
+    buf = io.StringIO()
+    log = obs.log.StructuredLogger(buf, fmt="json")
+    child = log.bind(trace_id="tid1")
+    child.info("from-child")
+    log.info("from-parent")
+    recs = [json.loads(l) for l in buf.getvalue().splitlines()]
+    assert recs[0]["trace_id"] == "tid1"
+    assert "trace_id" not in recs[1]
+
+
+def test_logger_survives_unserializable_fields_and_dead_streams(obs):
+    buf = io.StringIO()
+    log = obs.log.StructuredLogger(buf, fmt="json")
+    log.info("weird", obj=object())  # default=str handles it
+    rec = json.loads(buf.getvalue())
+    assert rec["msg"] == "weird"
+    closed = io.StringIO()
+    closed.close()
+    obs.log.StructuredLogger(closed, fmt="text").info("lost")  # must not raise
+    assert obs.log.StructuredLogger(buf, fmt="text").fmt == "text"
+    with pytest.raises(ValueError):
+        obs.log.StructuredLogger(buf, fmt="yaml")
+
+
+# -- the daemon's trace surface and trace ids (test_obs.py, test_obs_v2.py) ------
+
+
+def _good() -> str:
+    from test_torch_service import _h_text
+    from helpers import H, fold
+
+    h = H()
+    h.append_ok(1, [111], tail=1)
+    h.read_ok(2, tail=1, stream_hash=fold([111]))
+    return _h_text(h)
+
+
+def test_daemon_metrics_trace_and_profile_surface(tmp_path, obs):
+    cfg = obs.daemon.VerifydConfig(
+        socket_path=str(tmp_path / "v.sock"),
+        out_dir=str(tmp_path / "viz"),
+        no_viz=True,
+        stats_log=None,
+        device="off",
+        profile=True,
+    )
+    with obs.daemon.Verifyd(cfg) as daemon:
+        client = obs.client.VerifydClient(cfg.socket_path)
+        rep = client.submit(_good(), client="obs-test")
+        assert rep["verdict"] == 0
+        # Per-job profile rides the reply and names the search shape.
+        prof = rep["profile"]
+        assert prof["steps"] >= 0
+        assert "timeline" in prof or "phases" in prof
+
+        # stats op: merged metrics section (no /metrics listener here:
+        # obs/httpd.py is not in the port yet).
+        snap = client.stats()
+        assert "metrics_port" not in snap and daemon.metrics_port is None
+        assert snap["metrics"]["counters"]["verifyd_jobs_submitted_total"] == 1
+
+        # The exposition the listener would serve agrees with the stats op.
+        body = daemon.registry.render()
+        assert 'verifyd_jobs_completed_total{verdict="ok"} 1' in body
+        assert "verifyd_queue_wait_seconds_bucket" in body
+        assert 'verifyd_wall_seconds_bucket{backend="' in body
+
+        # trace op: nested admit→prepare on the job track; search present.
+        trace = client.trace()
+        spans = [e for e in trace["traceEvents"] if e["ph"] == "X"]
+        names = {e["name"] for e in spans}
+        assert {"admit", "prepare", "queue_wait", "search"} <= names
+        admit = next(e for e in spans if e["name"] == "admit")
+        prep = next(e for e in spans if e["name"] == "prepare")
+        assert admit["tid"] == prep["tid"]
+        assert admit["ts"] <= prep["ts"]
+        assert prep["ts"] + prep["dur"] <= admit["ts"] + admit["dur"] + 1e-3
+        json.dumps(trace)  # Perfetto-loadable = valid JSON end to end
+
+
+def test_daemon_trace_disabled_with_zero_capacity(tmp_path, obs):
+    cfg = obs.daemon.VerifydConfig(
+        socket_path=str(tmp_path / "v.sock"),
+        out_dir=str(tmp_path / "viz"),
+        no_viz=True,
+        stats_log=None,
+        device="off",
+        trace_capacity=0,
+    )
+    with obs.daemon.Verifyd(cfg):
+        client = obs.client.VerifydClient(cfg.socket_path)
+        client.submit(_good(), client="obs-test")
+        trace = client.trace()
+        assert trace["traceEvents"] == []
+
+
+def test_old_client_against_new_daemon_gets_a_minted_trace_id(tmp_path, obs):
+    """An old client never sends the trace field; the daemon mints an id
+    (every job has exactly one) and the reply still decodes fine."""
+    cfg = obs.daemon.VerifydConfig(
+        socket_path=str(tmp_path / "v.sock"),
+        out_dir=str(tmp_path / "viz"),
+        no_viz=True,
+        stats_log=None,
+        device="off",
+    )
+    with obs.daemon.Verifyd(cfg) as daemon:
+        client = obs.client.VerifydClient(cfg.socket_path)
+        # Simulate the old wire format: strip the trace field client-side.
+        real_call = client._call
+
+        def old_call(req, timeout=None):
+            req = {k: v for k, v in req.items() if k != obs.context.TRACE_FIELD}
+            return real_call(req, timeout=timeout)
+
+        client._call = old_call
+        rep = client.submit(_good(), client="old")
+        assert rep["verdict"] == 0
+        # Daemon-minted id in the reply; the new-client setdefault did not
+        # clobber it (the daemon's word wins when present).
+        assert obs.context.valid_trace_id(rep["trace_id"])
+        spans = [
+            e for e in client.trace()["traceEvents"] if e["ph"] == "X"
+        ]
+        tids = {
+            (e.get("args") or {}).get("trace_id")
+            for e in spans
+            if (e.get("args") or {}).get("trace_id")
+        }
+        assert rep["trace_id"] in tids
+
+
+def test_new_client_against_old_daemon_fills_trace_id_client_side(tmp_path, obs):
+    """An old daemon echoes no trace_id; the client back-fills its own so
+    callers can correlate unconditionally."""
+    client = obs.client.VerifydClient(str(tmp_path / "nowhere.sock"))
+    sent = {}
+
+    def old_daemon_call(req, timeout=None):
+        sent.update(req)
+        return {"verdict": 0, "outcome": "ok"}  # pre-trace reply shape
+
+    client._call = old_daemon_call
+    rep = client.submit(_good(), client="new")
+    # The new client DID send the optional field (old daemons ignore it)…
+    tid_sent, wall_sent = obs.context.parse_trace_frame(sent[obs.context.TRACE_FIELD])
+    assert obs.context.valid_trace_id(tid_sent) and wall_sent is not None
+    # …and back-fills the reply with the id it minted.
+    assert rep["trace_id"] == tid_sent
+
+
+def test_submit_with_retry_keeps_one_trace_id_across_attempts(tmp_path, obs):
+    client = obs.client.VerifydClient(str(tmp_path / "nowhere.sock"))
+    seen = []
+
+    attempts = {"n": 0}
+
+    def flaky_call(req, timeout=None):
+        seen.append(obs.context.parse_trace_frame(req[obs.context.TRACE_FIELD])[0])
+        attempts["n"] += 1
+        if attempts["n"] < 3:
+            raise obs.client.VerifydRefused("ConnectionLost", "flaky")
+        return {"verdict": 0}
+
+    client._call = flaky_call
+    rep = client.submit_with_retry(_good(), retries=3, backoff_s=0.0)
+    assert rep["verdict"] == 0
+    assert len(seen) == 3 and len(set(seen)) == 1  # one logical request
+    assert rep["trace_id"] == seen[0]
 
 
 # -- what only the port has: builds in place of jit compiles ------------------------
