@@ -191,7 +191,27 @@ on the first failed phase:
    before admission, and SIGTERM under ``--drain-timeout 30`` with a job in
    flight: answered, exit 0; then every recorded fold call bit-exact
    against the plain fold;
-16. the kernel list, one JSON line of kernel measurements, and as the last
+16. verifyd's durability and ops layer: the port's ``serve`` as its own
+   process (through :data:`VERIFYD_WRAPPER`) on one ``--state-dir``, over
+   three boots: (a) ``--device inline --state-dir D --telemetry-dir
+   D/telemetry --metrics-port 0 --alert-url`` (a receiver this script runs
+   on 127.0.0.1) ``--alert-rule done``: k=10 past a 2 s CPU budget decides
+   on the card with :data:`K10_DEVICE_STATS` and (a)'s witness, ``/metrics``
+   answers in OpenMetrics with the fold's launch count, ``/dashboard``
+   renders, the ``tsq`` op returns the jobs series, the ``profiles`` op
+   lists the job and the receiver gets the ``done`` alert; (b) k=10's
+   client-id twin submitted and the daemon SIGKILLed once the wrapper has
+   recorded the twin's first fold call: ``doctor --state-dir`` on the
+   killed boot's files names the orphan, and the next boot charges one
+   crash to its fingerprint (below the threshold of 3), replays it first
+   onto the card again (the pinned statistics, its launches counted in the
+   daemon) and answers the twin from ``D/verdicts``; (c) after a SIGTERM
+   drain, a third boot under ``--device supervised`` (no torch in the
+   daemon) answers k=10 and the twin from ``D/verdicts`` with no fold
+   launch, no CPU rung and no child, and a cold ``tsq --telemetry-dir``
+   agrees with what its live ``tsq`` op gave; then every fold call of the
+   phase bit-exact against the plain fold;
+17. the kernel list, one JSON line of kernel measurements, and as the last
    line ``{"ok": true, "device": {...}}``.
 
 Fold times are per call, from CUDA events: ``call`` with back-to-back
@@ -379,7 +399,10 @@ sys.exit(supervise._child_main(sys.argv[4:]))
 #: the daemon launches its supervised children through this file; and the
 #: processes that search on the card (a child, an inline daemon) save every
 #: ``fold_lanes`` call's inputs to ``RECORD/folds-<role>-<pid>.pt`` when they
-#: exit.  A supervised daemon never imports torch through it.
+#: exit.  A supervised daemon never imports torch through it.  With
+#: ``VERIFYD_RECORD_LIVE`` set (phase 16), the fold calls are saved after
+#: every call instead, and ``RECORD/fold-count-<pid>`` holds their number,
+#: so a process SIGKILLed mid-search leaves its calls behind.
 VERIFYD_WRAPPER = """\
 import dataclasses, json, os, sys
 
@@ -394,16 +417,26 @@ def record_folds():
     calls, tables = [], []
     real = device.fold_lanes
 
+    live = bool(os.environ.get("VERIFYD_RECORD_LIVE"))
+
     def recording(seed, row, length, rh):
         if not tables or tables[-1][0] is not rh:
             tables.append((rh, rh.detach().cpu().clone()))
         calls.append([t.detach().cpu().clone() for t in (seed, row, length)] + [len(tables) - 1])
-        return real(seed, row, length, rh)
+        out = real(seed, row, length, rh)
+        if live:
+            save()
+            count = os.path.join(record, f"fold-count-{os.getpid()}")
+            with open(count + ".tmp", "w") as f:
+                f.write(str(len(calls)))
+            os.replace(count + ".tmp", count)
+        return out
 
     def save():
         if calls:
-            torch.save({"calls": calls, "tables": [t for _, t in tables]},
-                       os.path.join(record, f"folds-{role}-{os.getpid()}.pt"))
+            path = os.path.join(record, f"folds-{role}-{os.getpid()}.pt")
+            torch.save({"calls": calls, "tables": [t for _, t in tables]}, path + ".tmp")
+            os.replace(path + ".tmp", path)
 
     device.fold_lanes = recording
     atexit.register(save)
@@ -2027,6 +2060,98 @@ def client_twin(events, offset: int) -> list:
     return [dataclasses.replace(e, client_id=e.client_id + offset) for e in events]
 
 
+class ServeProcesses:
+    """The port's ``serve`` processes of one phase (15 or 16), run through
+    :data:`VERIFYD_WRAPPER` from ``tmp``, which holds their sockets, stats
+    logs, stderr and the wrapper's ``record`` directory.  ``common`` is
+    appended to every ``serve`` command line, ``env`` to the environment."""
+
+    def __init__(self, tmp: str, label: str, common: list, **env) -> None:
+        self.tmp, self.label, self.common = tmp, label, common
+        self.record = os.path.join(tmp, "record")
+        os.makedirs(self.record)
+        self.wrapper = os.path.join(tmp, "verifyd_wrapper.py")
+        with open(self.wrapper, "w", encoding="utf-8") as f:
+            f.write(VERIFYD_WRAPPER)
+        here = os.path.dirname(os.path.abspath(__file__))
+        self.env = dict(os.environ, TMPDIR=tmp, **env,
+                        PYTHONPATH=os.pathsep.join([here, *filter(None, [os.environ.get("PYTHONPATH")])]))
+        self.daemons: list = []
+
+    def history_file(self, name, events) -> str:
+        from s2_verification_tpu_torch.utils import events as ev
+
+        path = os.path.join(self.tmp, f"{name}.jsonl")
+        with open(path, "w", encoding="utf-8") as f:
+            ev.write_history(events, f)
+        return path
+
+    def boot(self, tag, mode, *args):
+        """One daemon; returns its namespace once it answers ``ping``."""
+        from s2_verification_tpu_torch.service.client import VerifydClient
+
+        d = type("Daemon", (), {})()
+        tmp = self.tmp
+        d.tag, d.sock, d.log = tag, os.path.join(tmp, f"{tag}.sock"), os.path.join(tmp, f"{tag}.stats.jsonl")
+        d.err = open(os.path.join(tmp, f"{tag}.stderr"), "w", encoding="utf-8")
+        t0 = time.monotonic()
+        d.proc = subprocess.Popen(
+            [sys.executable, self.wrapper, self.record, f"serve-{mode}", "serve", "-socket", d.sock, "--device",
+             mode, "--stats-log", d.log, "-out-dir", os.path.join(tmp, f"{tag}-viz"), *self.common, *args],
+            env=self.env, cwd=tmp, stdout=subprocess.DEVNULL, stderr=d.err,
+        )
+        self.daemons.append(d)
+        while not os.path.exists(d.sock):
+            if d.proc.poll() is not None or time.monotonic() - t0 > 300:
+                d.err.flush()
+                fail(f"{self.label} {tag}: serve exited {d.proc.poll()} before its socket appeared: "
+                     f"{open(d.err.name, encoding='utf-8').read()[-3000:]}")
+            time.sleep(0.05)
+        d.client = VerifydClient(d.sock, timeout=900)
+        d.pid = d.client.ping()["pid"]
+        d.boot_s = time.monotonic() - t0
+        print(f"{self.label} {tag}: `serve --device {mode} {' '.join(args)}` answered ping in {d.boot_s:.3f} s "
+              f"(pid {d.pid}, torch loaded in the daemon: {_has_torch(d.pid)})", flush=True)
+        return d
+
+    def stop(self, d) -> None:
+        d.client.shutdown()
+        rc = d.proc.wait(timeout=120)
+        d.err.close()
+        if rc != 0:
+            fail(f"{self.label} {d.tag}: serve exited {rc} after shutdown")
+
+    @staticmethod
+    def events_of(d) -> list:
+        with open(d.log, encoding="utf-8") as f:
+            return [json.loads(line) for line in f if line.strip()]
+
+    @staticmethod
+    def job_spans(d, job) -> dict:
+        """Seconds of each span on job ``job``'s track of the daemon's
+        ``trace`` op: ``cpu[native]`` (the CPU rung), ``device[MODE]``
+        (the escalation), ``prepare`` (admission's decode), ..."""
+        return {e["name"]: e["dur"] / 1e6 for e in d.client.trace()["traceEvents"]
+                if e.get("ph") == "X" and e.get("tid") == job}
+
+    def kill_all(self) -> None:
+        for d in self.daemons:
+            if d.proc.poll() is None:
+                d.proc.kill()
+                d.proc.wait(timeout=30)
+
+    def fold_calls(self, device) -> list:
+        """Every fold call the wrapper saved, on ``device`` (the card when
+        None), as ``recheck_calls`` takes them."""
+        calls = []
+        for n in sorted(os.listdir(self.record)):
+            if n.startswith("folds-") and n.endswith(".pt"):
+                saved = torch.load(os.path.join(self.record, n))
+                tables = [t.to(device or "cuda") for t in saved["tables"]]
+                calls += [[t.to(device or "cuda") for t in c[:3]] + [tables[c[3]]] for c in saved["calls"]]
+        return calls
+
+
 def run_verifyd_phase(dev_mod, fb, prepare, recheck_calls, k10_events, headline_events, lane_events,
                       lane_verdicts, refused_events, long_events, small_events, device=None, budget_s=2.0,
                       deadline_s=20.0, grace_s=2.0) -> dict:
@@ -2045,86 +2170,30 @@ def run_verifyd_phase(dev_mod, fb, prepare, recheck_calls, k10_events, headline_
     from s2_verification_tpu_torch import cli
     from s2_verification_tpu_torch.checker.stats import FrontierStats
     from s2_verification_tpu_torch.service.client import VerifydClient, VerifydError, VerifydRefused
-    from s2_verification_tpu_torch.utils import events as ev
 
     t_phase = time.monotonic()
     card = fb.card()
-    here = os.path.dirname(os.path.abspath(__file__))
     out = {"launches_by_path": {}, "walls": {}}
     torch_dev = [] if device is None else ["--torch-device", device]
-    daemons: list = []
 
     def wall(tag, seconds):
         out["walls"][tag] = seconds
         print(f"verifyd {tag}: {seconds:.3f} s wall; {card}", flush=True)
 
     with tempfile.TemporaryDirectory() as tmp:
-        record = os.path.join(tmp, "record")
-        os.makedirs(record)
-        wrapper = os.path.join(tmp, "verifyd_wrapper.py")
-        with open(wrapper, "w", encoding="utf-8") as f:
-            f.write(VERIFYD_WRAPPER)
-        env = dict(os.environ, TMPDIR=tmp,
-                   PYTHONPATH=os.pathsep.join([here, *filter(None, [os.environ.get("PYTHONPATH")])]))
+        serve = ServeProcesses(tmp, "verifyd", torch_dev)
+        record, history_file = serve.record, serve.history_file
+        boot, stop, events_of, job_spans = serve.boot, serve.stop, serve.events_of, serve.job_spans
         secret = os.path.join(tmp, "secret")
         with open(secret, "w", encoding="utf-8") as f:
             f.write("phase-15-secret\n")
-
-        def history_file(name, events):
-            path = os.path.join(tmp, f"{name}.jsonl")
-            with open(path, "w", encoding="utf-8") as f:
-                ev.write_history(events, f)
-            return path
 
         def text_of(path):
             with open(path, encoding="utf-8") as f:
                 return f.read()
 
-        def boot(tag, mode, *args):
-            """One daemon; returns its namespace once it answers ``ping``."""
-            d = type("Daemon", (), {})()
-            d.tag, d.sock, d.log = tag, os.path.join(tmp, f"{tag}.sock"), os.path.join(tmp, f"{tag}.stats.jsonl")
-            d.err = open(os.path.join(tmp, f"{tag}.stderr"), "w", encoding="utf-8")
-            t0 = time.monotonic()
-            d.proc = subprocess.Popen(
-                [sys.executable, wrapper, record, f"serve-{mode}", "serve", "-socket", d.sock, "--device", mode,
-                 "--stats-log", d.log, "-out-dir", os.path.join(tmp, f"{tag}-viz"), *torch_dev, *args],
-                env=env, cwd=tmp, stdout=subprocess.DEVNULL, stderr=d.err,
-            )
-            daemons.append(d)
-            while not os.path.exists(d.sock):
-                if d.proc.poll() is not None or time.monotonic() - t0 > 300:
-                    d.err.flush()
-                    fail(f"verifyd {tag}: serve exited {d.proc.poll()} before its socket appeared: "
-                         f"{open(d.err.name, encoding='utf-8').read()[-3000:]}")
-                time.sleep(0.05)
-            d.client = VerifydClient(d.sock, timeout=900)
-            d.pid = d.client.ping()["pid"]
-            d.boot_s = time.monotonic() - t0
-            print(f"verifyd {tag}: `serve --device {mode} {' '.join(args)}` answered ping in {d.boot_s:.3f} s "
-                  f"(pid {d.pid}, torch loaded in the daemon: {_has_torch(d.pid)})", flush=True)
-            return d
-
-        def stop(d):
-            d.client.shutdown()
-            rc = d.proc.wait(timeout=120)
-            d.err.close()
-            if rc != 0:
-                fail(f"verifyd {d.tag}: serve exited {rc} after shutdown")
-
-        def events_of(d):
-            with open(d.log, encoding="utf-8") as f:
-                return [json.loads(line) for line in f if line.strip()]
-
         def launches(d):
             return d.client.stats()["introspection"]["launches"]
-
-        def job_spans(d, job):
-            """Seconds of each span on job ``job``'s track of the daemon's
-            ``trace`` op: ``cpu[native]`` (the CPU rung), ``device[MODE]``
-            (the escalation), ``prepare`` (admission's decode), ..."""
-            return {e["name"]: e["dur"] / 1e6 for e in d.client.trace()["traceEvents"]
-                    if e.get("ph") == "X" and e.get("tid") == job}
 
         def submit_cli(d, path, *extra):
             """``submit -stats`` in this process: exit code, its JSON line,
@@ -2423,24 +2492,290 @@ def run_verifyd_phase(dev_mod, fb, prepare, recheck_calls, k10_events, headline_
                   f"clean)", flush=True)
             wall("(f) drain", time.monotonic() - t0)
         finally:
-            for d in daemons:
-                if d.proc.poll() is None:
-                    d.proc.kill()
-                    d.proc.wait(timeout=30)
+            serve.kill_all()
 
         # Every fold call the phase's device searches made, bit-exact.
-        calls = []
-        for n in sorted(os.listdir(record)):
-            if n.startswith("folds-"):
-                saved = torch.load(os.path.join(record, n))
-                tables = [t.to(device or "cuda") for t in saved["tables"]]
-                calls += [[t.to(device or "cuda") for t in c[:3]] + [tables[c[3]]] for c in saved["calls"]]
+        calls = serve.fold_calls(device)
         if device is None and not calls:
             fail("verifyd: no fold call was recorded")
         if calls:
             recheck_calls(calls, "verifyd (phase 15), children and inline daemon")
         print(f"verifyd: {len(calls)} recorded fold calls from "
               f"{sum(1 for n in os.listdir(record) if n.startswith('folds-'))} processes, bit-exact", flush=True)
+    out["seconds"] = time.monotonic() - t_phase
+    return out
+
+
+def _alert_receiver():
+    """A webhook receiver on 127.0.0.1 (an ephemeral port) that keeps the
+    JSON body of every POST; returns ``(url, bodies, server)``."""
+    import http.server
+
+    bodies: list = []
+
+    class Handler(http.server.BaseHTTPRequestHandler):
+        def do_POST(self):  # noqa: N802 (http.server API)
+            n = int(self.headers.get("Content-Length") or 0)
+            bodies.append(json.loads(self.rfile.read(n).decode("utf-8")))
+            self.send_response(200)
+            self.end_headers()
+
+        def log_message(self, *_args):
+            pass
+
+    server = http.server.ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    return f"http://127.0.0.1:{server.server_address[1]}/alert", bodies, server
+
+
+def run_durable_phase(dev_mod, fb, prepare, recheck_calls, k10_events, device=None, budget_s=2.0) -> dict:
+    """Phase 16, verifyd's durability and ops layer on the card: the port's
+    ``serve`` as its own process (through :data:`VERIFYD_WRAPPER`, fold
+    calls saved as they happen) on one state directory over three boots —
+    (a) inline, with the telemetry store, the metrics listener and an
+    alert receiver; (b) SIGKILLed mid-escalation of k=10's client-id twin,
+    ``doctor`` on what it left, and the next boot replaying the orphan on
+    the card; (c) a supervised boot answering both from the verdict
+    segments with no launch.  ``device=None`` is the card, ``"cpu"``
+    rehearses the phase on the CPU (``--torch-device cpu``).  Returns the
+    fold launches by path and the walls."""
+    import urllib.request
+
+    from s2_verification_tpu_torch.checker.stats import FrontierStats
+    from s2_verification_tpu_torch.service.cache import history_fingerprint
+    from s2_verification_tpu_torch.service.client import VerifydRefused, VerifydUnavailable
+
+    t_phase = time.monotonic()
+    card = fb.card()
+    out = {"launches_by_path": {}, "walls": {}}
+    torch_dev = [] if device is None else ["--torch-device", device]
+
+    def wall(tag, seconds):
+        out["walls"][tag] = seconds
+        print(f"durable {tag}: {seconds:.3f} s wall; {card}", flush=True)
+
+    url, alerts, receiver = _alert_receiver()
+    with tempfile.TemporaryDirectory() as tmp:
+        state = os.path.join(tmp, "state")
+        tel = os.path.join(state, "telemetry")
+        serve = ServeProcesses(tmp, "durable", [*torch_dev, "--no-viz", "--state-dir", state, "--telemetry-dir", tel,
+                                                "--telemetry-sample", "0.5", "--metrics-port", "0", "--alert-url",
+                                                url, "--alert-rule", "done", "--drain-timeout", "30"],
+                               VERIFYD_RECORD_LIVE="1")
+        record, history_file, events_of, job_spans = serve.record, serve.history_file, serve.events_of, serve.job_spans
+
+        def boot(tag, mode, *args):
+            d = serve.boot(tag, mode, *args)
+            wall(f"({tag}) boot", d.boot_s)
+            return d
+
+        def inline_launches(d):
+            return d.client.stats()["introspection"]["launches"]["inline"].get("fold_lanes", 0)
+
+        def job_record(d, job):
+            with open(os.path.join(record, f"job-{d.pid}-{job}.json"), encoding="utf-8") as f:
+                return json.load(f)
+
+        def submit(d, path, client):
+            """One submit through the port's client: its reply and wall."""
+            with open(path, encoding="utf-8") as f:
+                text = f.read()
+            t0 = time.monotonic()
+            reply = d.client.submit(text, client=client, no_viz=True)
+            return reply, time.monotonic() - t0
+
+        def same_search(rec, what):
+            got = _stats_view(FrontierStats(**rec["stats"]))
+            if rec["backend"] != "device-inline" or rec["linearization"] != ref.linearization or (
+                    rec["steps"] != ref.steps or got != _stats_view(ref.stats)):
+                fail(f"durable {what}: backend {rec['backend']}, or witness/steps/stats differ from "
+                     f"check_device_auto in this process")
+            pinned = {k: rec["stats"][k] for k in K10_DEVICE_STATS}
+            if device is None and pinned != K10_DEVICE_STATS:
+                fail(f"durable {what}: statistics {pinned} != {K10_DEVICE_STATS}")
+
+        def ledger():
+            with open(os.path.join(state, "quarantine", "quarantine.json"), encoding="utf-8") as f:
+                return json.load(f)
+
+        try:
+            path10 = history_file("k10", k10_events)
+            twin_events = client_twin(k10_events, 3000)
+            path_twin = history_file("k10-twin", twin_events)
+            twin_fp = history_fingerprint(prepare(twin_events, elide_trivial=True))
+            ref = dev_mod.check_device_auto(prepare(k10_events), checkpoint_path=os.path.join(tmp, "ref.ckpt.npz"),
+                                            profile=True, device=device)
+
+            # (a) First boot: inline, every durable and ops flag.
+            d1 = boot("a", "inline", "--time-budget", str(budget_s), "--profile")
+            n0 = inline_launches(d1)
+            line, wall_a = submit(d1, path10, "k10")
+            n_a = inline_launches(d1) - n0
+            if line["verdict"] != 0 or line["backend"] != "device-inline" or line.get("durable") is not True:
+                fail(f"durable (a): {line}")
+            same_search(job_record(d1, line["job"]), "(a)")
+            if device is None and n_a <= 0:
+                fail(f"durable (a): {n_a} fold launches counted in the daemon")
+            esc_a = job_spans(d1, line["job"])["device[inline]"]
+            port = d1.client.stats()["metrics_port"]
+            req = urllib.request.Request(f"http://127.0.0.1:{port}/metrics",
+                                         headers={"Accept": "application/openmetrics-text"})
+            with urllib.request.urlopen(req, timeout=30) as resp:
+                om = resp.read().decode()
+            want = f'verifyd_kernel_launches_total{{kernel="fold_lanes",where="inline"}} {n0 + n_a}'
+            if not om.rstrip().endswith("# EOF") or (device is None and want not in om):
+                fail(f"durable (a): /metrics is not OpenMetrics, or lacks `{want}`")
+            page = urllib.request.urlopen(f"http://127.0.0.1:{port}/dashboard", timeout=30).read().decode()
+            if "<svg" not in page:
+                fail("durable (a): /dashboard rendered no sparkline")
+            live_tsq = d1.client.tsq(metric="verifyd_jobs_completed_total")
+            series = live_tsq["series"].get('verifyd_jobs_completed_total{verdict="ok"}') or []
+            if not series or series[-1][1] != 1.0:
+                fail(f"durable (a): the tsq op's jobs series {live_tsq['series']}")
+            profiles = d1.client.profiles()["records"]
+            if [(r["job"], r["backend"], r["verdict"]) for r in profiles] != [(line["job"], "device-inline", 0)]:
+                fail(f"durable (a): the profiles op lists {profiles}")
+            t0 = time.monotonic()
+            while not any(a["labels"]["alertname"] == "done" for body in alerts for a in body):
+                if time.monotonic() - t0 > 30:
+                    fail(f"durable (a): the receiver got no `done` alert: {alerts}")
+                time.sleep(0.05)
+            print(f"durable (a): k=10 submitted: backend device-inline, durable, daemon wall_s "
+                  f"{line['wall_s']} (escalation {esc_a:.3f} s), client wall {wall_a:.3f} s; statistics == "
+                  f"K10_DEVICE_STATS and check_device_auto's; fold launches counted in the daemon {n_a} (== the "
+                  f"OpenMetrics `verifyd_kernel_launches_total`); /dashboard renders; tsq op: jobs series "
+                  f"{len(series)} point(s); profiles op: job {line['job']}; the receiver got the `done` alert",
+                  flush=True)
+            out["launches_by_path"]["adversarial k=10 in the durable inline daemon (16a)"] = n_a
+            wall("(a) inline k=10", wall_a)
+            wall("(a) inline escalation", esc_a)
+
+            # (b) The twin, SIGKILLed mid-escalation; doctor; replay.
+            count_file = os.path.join(record, f"fold-count-{d1.pid}")
+
+            def recorded():
+                try:
+                    with open(count_file, encoding="utf-8") as f:
+                        return int(f.read())
+                except (OSError, ValueError):
+                    return 0
+
+            base = recorded()
+            hung: dict = {}
+
+            def submit_twin():
+                try:
+                    hung["reply"] = submit(d1, path_twin, "twin")
+                except (VerifydRefused, VerifydUnavailable, OSError) as e:  # the kill's closed connection
+                    hung["error"] = repr(e)
+
+            th = threading.Thread(target=submit_twin)
+            t0 = time.monotonic()
+            th.start()
+            while recorded() <= base:
+                if time.monotonic() - t0 > 120 or not th.is_alive():
+                    fail(f"durable (b): the twin's first fold call never came ({hung})")
+                time.sleep(0.005)
+            d1.proc.send_signal(signal.SIGKILL)
+            d1.proc.wait(timeout=60)
+            d1.err.close()
+            th.join(timeout=60)
+            killed_after = time.monotonic() - t0
+            if "reply" in hung:
+                fail(f"durable (b): the twin was answered before the kill: {hung['reply']}")
+            kept = len(torch.load(os.path.join(record, f"folds-serve-inline-{d1.pid}.pt"))["calls"]) - base
+            t0 = time.monotonic()
+            doc = subprocess.run([sys.executable, "-m", "s2_verification_tpu_torch", "doctor", "--state-dir",
+                                  state, "--json"], env=serve.env, cwd=tmp, capture_output=True, text=True, timeout=120)
+            doctor_s = time.monotonic() - t0
+            pm = json.loads(doc.stdout)
+            orphans = [(o.get("fp"), o.get("client"), o.get("started")) for o in pm["orphans"]]
+            if doc.returncode != 1 or pm["clean_shutdown"] or orphans != [(twin_fp, "twin", True)]:
+                fail(f"durable (b): doctor exit {doc.returncode}, clean {pm['clean_shutdown']}, orphans {orphans}")
+            print(f"durable (b): SIGKILL {killed_after:.3f} s after the twin's submit, once its first fold call "
+                  f"was recorded ({kept} of the twin's calls saved); `doctor --state-dir` exit 1 (unclean) in "
+                  f"{doctor_s:.3f} s names the orphan {twin_fp} (client twin, started)", flush=True)
+            out["launches_by_path"]["k=10's twin in the inline daemon until its SIGKILL (16b)"] = kept
+
+            d2 = boot("b", "inline", "--time-budget", str(budget_s), "--profile")
+            crashes = ledger()["crashes"].get(twin_fp, {}).get("count")
+            if crashes != 1:
+                fail(f"durable (b): the ledger counts {crashes} crashes for the twin, not 1")
+            t0 = time.monotonic()
+            while d2.client.stats()["completed"] < 1:
+                if time.monotonic() - t0 > 300:
+                    fail("durable (b): the orphan never replayed")
+                time.sleep(0.05)
+            replay = [e for e in events_of(d2) if e["ev"] == "orphan"]
+            if [e["fingerprint"] for e in replay] != [twin_fp]:
+                fail(f"durable (b): orphan events {replay}")
+            job_b = replay[0]["job"]
+            same_search(job_record(d2, job_b), "(b) replay")
+            n_b = inline_launches(d2)
+            if device is None and n_b <= 0:
+                fail(f"durable (b): the replay made {n_b} fold launches in the daemon")
+            esc_b = job_spans(d2, job_b)["device[inline]"]
+            line_b, wall_hit = submit(d2, path_twin, "twin-retry")
+            if line_b["cached"] is not True or twin_fp in ledger()["crashes"]:
+                fail(f"durable (b): the twin's retry {line_b}, or its crash was not forgiven: {ledger()}")
+            print(f"durable (b): boot 2 charged 1 crash to the twin (threshold 3), replayed the orphan first "
+                  f"(job {job_b}) on the card: escalation {esc_b:.3f} s, {n_b} fold launches counted in the "
+                  f"daemon, statistics == K10_DEVICE_STATS; the twin's retry answered from D/verdicts in "
+                  f"{wall_hit:.3f} s, and the conclusive verdict forgave the crash", flush=True)
+            out["launches_by_path"]["k=10's twin replayed as an orphan after the SIGKILL (16b)"] = n_b
+            wall("(b) replay escalation", esc_b)
+            wall("(b) twin retry from the verdict segments", wall_hit)
+            d2.proc.send_signal(signal.SIGTERM)
+            rc = d2.proc.wait(timeout=120)
+            d2.err.close()
+            if rc != 0 or not any(e["ev"] == "drain_done" and e["clean"] for e in events_of(d2)):
+                fail(f"durable (b): SIGTERM drain: serve exited {rc}")
+
+            # (c) Third boot, supervised: both from the verdict segments.
+            d3 = boot("c", "supervised")
+            if _has_torch(d3.pid):
+                fail("durable (c): the supervised daemon loaded torch")
+            walls_c = []
+            for name, path in (("k=10", path10), ("twin", path_twin)):
+                line_c, took = submit(d3, path, name)
+                if line_c["cached"] is not True or line_c["verdict"] != 0:
+                    fail(f"durable (c) {name}: {line_c}")
+                walls_c.append(took)
+            snap = d3.client.stats()
+            spool = os.path.join(tmp, f"verifyd-spool-{d3.pid}")
+            if snap["completed"] != 0 or snap["introspection"]["launches"] != {"inline": {}, "children": {}} or (
+                    os.path.isdir(spool) and os.listdir(spool)) or any(n.startswith(f"job-{d3.pid}-")
+                                                                        for n in os.listdir(record)):
+                fail(f"durable (c): a job ran: completed {snap['completed']}, launches "
+                     f"{snap['introspection']['launches']}")
+            live = d3.client.tsq(metric="verifyd_jobs_completed_total", limit=100000)
+            d3.client.shutdown()
+            if d3.proc.wait(timeout=120) != 0:
+                fail("durable (c): serve exited nonzero after shutdown")
+            d3.err.close()
+            cold = subprocess.run([sys.executable, "-m", "s2_verification_tpu_torch", "tsq", "--telemetry-dir", tel,
+                                   "--metric", "verifyd_jobs_completed_total", "--limit", "100000",
+                                   "--until", repr(live["range"][1]), "--json"],
+                                  env=serve.env, cwd=tmp, capture_output=True, text=True, timeout=120)
+            said = json.loads(cold.stdout)
+            if cold.returncode != 0 or said["series"] != live["series"] or said["points"] != live["points"]:
+                fail(f"durable (c): cold tsq (exit {cold.returncode}) != the live op's answer")
+            print(f"durable (c): supervised boot answered k=10 in {walls_c[0]:.3f} s and the twin in "
+                  f"{walls_c[1]:.3f} s from D/verdicts: 0 fold launches, no CPU rung, no child; cold `tsq "
+                  f"--telemetry-dir` == the live op's {live['points']} point(s)", flush=True)
+            out["launches_by_path"]["k=10 and its twin from the verdict segments, third boot (16c)"] = 0
+            wall("(c) k=10 from the verdict segments", walls_c[0])
+            wall("(c) twin from the verdict segments", walls_c[1])
+        finally:
+            receiver.shutdown()
+            serve.kill_all()
+
+        calls = serve.fold_calls(device)
+        if device is None and len(calls) != n_a + kept + n_b:
+            fail(f"durable: {len(calls)} recorded fold calls, {n_a} + {kept} + {n_b} counted")
+        if calls:
+            recheck_calls(calls, "verifyd durability (phase 16)")
+        print(f"durable: {len(calls)} recorded fold calls, bit-exact", flush=True)
     out["seconds"] = time.monotonic() - t_phase
     return out
 
@@ -3094,6 +3429,11 @@ def main() -> int:
                                 adversarial_events(10, batch=100, seed=0, unsatisfiable=True), small)
     print(f"phase 15 (verifyd): {phase15['seconds']:.1f} s", flush=True)
     kernels[0]["launches_by_path"].update(phase15["launches_by_path"])
+
+    # -- 16. verifyd's durability and ops layer ----------------------------
+    phase16 = run_durable_phase(dev_mod, fb, prepare, recheck_calls, main_events)
+    print(f"phase 16 (verifyd durability): {phase16['seconds']:.1f} s", flush=True)
+    kernels[0]["launches_by_path"].update(phase16["launches_by_path"])
 
     print(f"kernels: {', '.join(k['name'] for k in kernels)}", flush=True)
     print(f"total {time.monotonic() - t_start:.1f} s", flush=True)

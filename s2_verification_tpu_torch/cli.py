@@ -1,18 +1,28 @@
 """Command line: ``python -m s2_verification_tpu_torch check -file=H.jsonl``,
-``collect``, ``serve`` and ``submit``.
+``collect``, ``serve``, ``submit``, ``doctor``, ``tsq``, ``quarantine`` and
+``profiles``.
 
 ``serve`` runs verifyd, the resident verification daemon (service/), on a
 unix socket and optionally an authenticated TCP listener (``--tcp`` + a
 shared secret), with the JAX package's flags and defaults and one more,
 ``--torch-device`` (the device of the inline and supervised escalations;
-the card unless it names another).  Flags whose modules the port does not
-have yet (``--state-dir``, ``--telemetry-dir``, ``--metrics-port``,
-``--alert-url``/``--alert-rule``, ``--prefix``, ``--batching``) exit 64
-naming the module.  ``submit`` sends one history to a running daemon of
+the card unless it names another).  ``--state-dir`` makes it durable
+(journal, verdict segments, quarantine ledger, flight ring, profile
+archive and telemetry, in the JAX package's formats), ``--metrics-port``
+serves ``/metrics`` and ``/dashboard``, ``--alert-url`` delivers alerts.
+Flags whose modules the port does not have yet (``--prefix``,
+``--batching``) exit 64 naming the module.  ``submit`` sends one history to a running daemon of
 either package and exits with the ``check`` exit code of its verdict (75
 queue full after retries, 69 no daemon ever answered, 76 a daemon refused
 after retries, 64 a history it could not decode).  Neither loads
 ``torch`` unless the daemon escalates inline.
+
+``doctor``, ``tsq``, ``quarantine`` and ``profiles`` read a state
+directory either package's daemon wrote: live through ``--socket`` (the
+``tsq``, ``quarantine`` and ``profiles`` ops), or cold from the directory
+of a dead daemon (``--state-dir``, ``--telemetry-dir``), with the JAX
+package's flags and exit codes.  ``doctor`` is cold only and exits 0 on a
+clean shutdown, 1 on an unclean death.
 
 ``collect`` records a history against the in-process fault-injecting fake
 S2 (``collector/``), with the JAX package's flags and defaults, writes
@@ -746,6 +756,432 @@ def _cmd_submit(args: argparse.Namespace) -> int:
     return verdict if verdict in (0, 1, 2) else USAGE_EXIT
 
 
+def _cmd_doctor(args: argparse.Namespace) -> int:
+    """Read-only post-mortem of a (dead) daemon's --state-dir."""
+    from .obs.flight import postmortem, render_postmortem
+
+    if not os.path.isdir(args.state_dir):
+        log.error("state dir %s does not exist", args.state_dir)
+        return USAGE_EXIT
+    pm = postmortem(args.state_dir, tail=max(1, args.tail))
+    if args.json:
+        import json as _json
+
+        print(_json.dumps(pm, default=str), flush=True)
+    else:
+        print(render_postmortem(pm, tail=max(1, args.tail)), end="", flush=True)
+    # Exit codes mirror the verdict: 0 clean shutdown, 1 unclean death —
+    # scriptable ("did the last run die?") without parsing the report.
+    return 0 if pm["clean_shutdown"] else 1
+
+
+def _cmd_tsq(args: argparse.Namespace) -> int:
+    """Query telemetry history: live off a daemon/router (--socket, the
+    ``tsq`` op) or cold off a telemetry directory — same store, same
+    answer, the daemon doesn't even have to be alive."""
+    import json as _json
+
+    labels: dict[str, str] = {}
+    for spec in args.label or []:
+        key, sep, val = spec.partition("=")
+        if not sep or not key:
+            log.error("bad --label %r: expected KEY=VALUE", spec)
+            return USAGE_EXIT
+        labels[key] = val
+
+    if args.socket:
+        from .service.client import (
+            VerifydClient,
+            VerifydError,
+            VerifydUnavailable,
+        )
+        from .service.protocol import EXIT_PROTOCOL, EXIT_UNAVAILABLE
+
+        try:
+            client = VerifydClient(args.socket, secret=_read_secret(args))
+            reply = client.tsq(
+                res=args.res,
+                metric=args.metric or None,
+                labels=labels or None,
+                since=args.since,
+                until=args.until,
+                limit=args.limit,
+                info=args.info,
+            )
+        except ValueError as e:
+            log.error("%s", e)
+            return USAGE_EXIT
+        except VerifydUnavailable as e:
+            log.error("cannot reach verifyd on %s: %s", args.socket, e.msg)
+            return EXIT_UNAVAILABLE
+        except VerifydError as e:
+            log.error("tsq refused: %s", e)
+            return EXIT_PROTOCOL
+    else:
+        from .obs.tsdb import default_dir, query, telemetry_info
+
+        tdir = args.telemetry_dir or (
+            default_dir(args.state_dir) if args.state_dir else None
+        )
+        if not tdir:
+            log.error(
+                "tsq needs --socket (live) or --telemetry-dir / "
+                "--state-dir (cold)"
+            )
+            return USAGE_EXIT
+        if not os.path.isdir(tdir):
+            log.error("telemetry dir %s does not exist", tdir)
+            return USAGE_EXIT
+        if args.info:
+            reply = telemetry_info(tdir)
+        else:
+            reply = query(
+                tdir,
+                res=args.res,
+                metric=args.metric or None,
+                labels=labels or None,
+                since=args.since,
+                until=args.until,
+                limit=args.limit,
+            )
+
+    if args.json:
+        print(_json.dumps(reply, sort_keys=True), flush=True)
+        return 0
+
+    if args.info:
+        print(f"telemetry store: {reply.get('dir', args.socket)}")
+        for res, info in sorted((reply.get("resolutions") or {}).items()):
+            rec = info.get("recovery") or {}
+            print(
+                f"  {res:<3s} {info.get('records', 0):>6} record(s) "
+                f"{info.get('series', 0):>4} series "
+                f"{info.get('bytes', 0):>9}B  "
+                f"torn tail {rec.get('torn_tail_bytes', 0)}B, "
+                f"{rec.get('bad_segments', 0)} bad segment(s)"
+            )
+        return 0
+
+    series = reply.get("series") or {}
+    if args.rate:
+        # Cumulative counters → per-second rates.  Counters reset to 0
+        # at every daemon boot, so a negative delta marks a restart, not
+        # a decrease — clamp it to 0 instead of plotting nonsense.
+        for key, pts in series.items():
+            rated = []
+            for (t0, v0), (t1, v1) in zip(pts, pts[1:]):
+                dt = t1 - t0
+                if dt > 0:
+                    rated.append([t1, max(0.0, (v1 - v0) / dt)])
+            series[key] = rated
+
+    if args.csv:
+        import csv as _csv
+
+        w = _csv.writer(sys.stdout)
+        w.writerow(["series", "t", "value"])
+        for key in sorted(series):
+            for t, v in series[key]:
+                w.writerow([key, t, v])
+        return 0
+
+    rng = reply.get("range") or [None, None]
+    span = (
+        f"{_fmt_wall(rng[0])} .. {_fmt_wall(rng[1])}"
+        if rng[0] is not None
+        else "(empty)"
+    )
+    print(
+        f"res={reply.get('res')}  {len(series)} series, "
+        f"{reply.get('points', 0)} point(s)  {span}"
+        + ("  [rate/s]" if args.rate else "")
+    )
+    for key in sorted(series):
+        vals = [p[1] for p in series[key]]
+        if not vals:
+            continue
+        print(
+            f"  {_spark(vals, args.width)}  "
+            f"n={len(vals):<4d} min={min(vals):<10.6g} "
+            f"max={max(vals):<10.6g} last={vals[-1]:<10.6g} {key}"
+        )
+    if not series:
+        print("  no matching series")
+    return 0
+
+
+def _fmt_wall(t) -> str:
+    try:
+        return time.strftime("%H:%M:%S", time.localtime(float(t)))
+    except (TypeError, ValueError, OverflowError):
+        return "?"
+
+
+def _print_quarantine_entries(entries: list, threshold) -> None:
+    if not entries:
+        print("quarantine empty", flush=True)
+        return
+    print(f"{'FINGERPRINT':36.36s} {'CRASHES':>7s} {'SINCE':20s} KINDS")
+    import time as _time
+
+    for ent in entries:
+        since = ent.get("since")
+        when = (
+            _time.strftime("%Y-%m-%dT%H:%M:%S", _time.gmtime(float(since)))
+            if since
+            else "?"
+        )
+        kinds = ",".join(
+            f"{k}={v}" for k, v in sorted((ent.get("kinds") or {}).items())
+        )
+        print(
+            f"{str(ent.get('fingerprint', '?')):36.36s} "
+            f"{ent.get('crashes', '?'):>7} {when:20s} {kinds}"
+        )
+    print(
+        f"-- {len(entries)} quarantined (threshold {threshold}); "
+        "release with: quarantine release FINGERPRINT",
+        flush=True,
+    )
+
+
+def _cmd_quarantine(args: argparse.Namespace) -> int:
+    """Poison-job quarantine: list / inspect / release, against a live
+    daemon (socket) or a dead one's --state-dir (cold file read; release
+    cold requires the daemon to be stopped)."""
+    import json as _json
+
+    action = args.quarantine_cmd
+    fp = getattr(args, "fingerprint", None)
+    if not args.state_dir and not args.socket:
+        log.error("quarantine %s needs --socket or --state-dir", action)
+        return USAGE_EXIT
+    if args.state_dir:
+        from .service.overload import QuarantineStore
+
+        store = QuarantineStore(os.path.join(args.state_dir, "quarantine"))
+        if action == "list":
+            _print_quarantine_entries(store.list(), store.threshold)
+            return 0
+        if action == "inspect":
+            info = store.get(fp)
+            if info is None:
+                log.error("%s is not quarantined", fp)
+                return 1
+            print(_json.dumps(info, sort_keys=True), flush=True)
+            return 0
+        released = store.release(fp)
+        print(_json.dumps({"released": released, "fingerprint": fp}), flush=True)
+        return 0 if released else 1
+
+    from .service.client import (
+        VerifydClient,
+        VerifydError,
+        VerifydUnavailable,
+    )
+    from .service.protocol import EXIT_PROTOCOL, EXIT_UNAVAILABLE
+
+    try:
+        client = VerifydClient(args.socket, secret=_read_secret(args))
+    except ValueError as e:
+        log.error("%s", e)
+        return USAGE_EXIT
+    try:
+        reply = client.quarantine(action, fp)
+    except VerifydUnavailable as e:
+        log.error("cannot reach verifyd on %s: %s", args.socket, e.msg)
+        return EXIT_UNAVAILABLE
+    except VerifydError as e:
+        log.error("quarantine %s refused: %s", action, e)
+        return EXIT_PROTOCOL
+    except (OSError, TimeoutError) as e:
+        log.error("cannot reach verifyd on %s: %s", args.socket, e)
+        return EXIT_UNAVAILABLE
+    if action == "list":
+        _print_quarantine_entries(
+            reply.get("entries", []), reply.get("threshold", "?")
+        )
+        return 0
+    print(_json.dumps(reply, sort_keys=True), flush=True)
+    if action == "release" and not reply.get("released"):
+        return 1
+    return 0
+
+
+#: export column order — stable so downstream scripts can rely on it.
+_PROFILE_COLUMNS = (
+    "t",
+    "job",
+    "client",
+    "shape",
+    "backend",
+    "verdict",
+    "wall_s",
+    "queue_wait_s",
+    "lease_wait_s",
+    "ops",
+    "shards",
+    "fp",
+)
+
+
+def _profile_filters(args: argparse.Namespace) -> dict:
+    return {
+        k: v
+        for k, v in {
+            "shape": args.shape,
+            "backend": args.backend,
+            "client": args.client,
+            "verdict": args.verdict,
+            "since": args.since,
+            "slowest": args.slowest,
+            "limit": args.limit,
+        }.items()
+        if v is not None
+    }
+
+
+def _csv_cell(value) -> str:
+    """One RFC-4180-safe cell: containers (the ``shards`` summary, op
+    breakdowns) become JSON — their Python reprs hold commas and quotes
+    that round-trip badly — and everything else is stringified for the
+    writer to quote as needed."""
+    import json as _json
+
+    if isinstance(value, (dict, list, tuple)):
+        return _json.dumps(value, sort_keys=True, default=str)
+    if value is None:
+        return ""
+    return str(value)
+
+
+def _export_profiles(records: list[dict], path, fmt: str) -> None:
+    import json as _json
+
+    if fmt == "jsonl":
+        for rec in records:
+            path.write(_json.dumps(rec, sort_keys=True))
+            path.write("\n")
+        return
+    import csv as _csv
+
+    # Explicit dialect: QUOTE_MINIMAL wraps any cell holding a comma,
+    # quote, or newline (doubling embedded quotes per RFC 4180), and the
+    # fixed "\n" terminator keeps stdout export ("-", opened without
+    # newline="") from emitting \r\r\n on platforms that translate.
+    w = _csv.writer(path, quoting=_csv.QUOTE_MINIMAL, lineterminator="\n")
+    w.writerow(_PROFILE_COLUMNS)
+    for rec in records:
+        w.writerow([_csv_cell(rec.get(col, "")) for col in _PROFILE_COLUMNS])
+
+
+def _cmd_profiles(args: argparse.Namespace) -> int:
+    """Query the durable job-profile archive, live or cold."""
+    filters = _profile_filters(args)
+    if args.socket:
+        from .service.client import (
+            VerifydClient,
+            VerifydError,
+            VerifydUnavailable,
+        )
+        from .service.protocol import EXIT_PROTOCOL, EXIT_UNAVAILABLE
+
+        try:
+            client = VerifydClient(args.socket, secret=_read_secret(args))
+        except ValueError as e:
+            log.error("%s", e)
+            return USAGE_EXIT
+        try:
+            reply = client.profiles(**filters)
+        except VerifydUnavailable as e:
+            log.error("cannot reach verifyd on %s: %s", args.socket, e.msg)
+            return EXIT_UNAVAILABLE
+        except VerifydError as e:
+            log.error("profile query refused: %s", e)
+            return EXIT_PROTOCOL
+        except (OSError, TimeoutError) as e:
+            log.error("cannot reach verifyd on %s: %s", args.socket, e)
+            return EXIT_UNAVAILABLE
+        records = reply.get("records", [])
+        total = reply.get("total", len(records))
+    elif args.state_dir:
+        from .obs.archive import filter_records, read_archive
+
+        if not os.path.isdir(args.state_dir):
+            log.error("state dir %s does not exist", args.state_dir)
+            return USAGE_EXIT
+        archived = read_archive(args.state_dir)
+        records = filter_records(archived, **filters)
+        total = len(archived)
+    else:
+        log.error("profiles needs --socket (live) or --state-dir (cold)")
+        return USAGE_EXIT
+
+    if args.export:
+        fmt = args.format
+        if args.export == "-":
+            _export_profiles(records, sys.stdout, fmt)
+        else:
+            newline = "" if fmt == "csv" else None
+            with open(
+                args.export, "w", encoding="utf-8", newline=newline
+            ) as f:
+                _export_profiles(records, f, fmt)
+            log.info(
+                "exported %d of %d archived profiles to %s (%s)",
+                len(records),
+                total,
+                args.export,
+                fmt,
+            )
+        return 0
+
+    if not records:
+        print(f"no matching records ({total} archived)", flush=True)
+        return 0
+    hdr = (
+        f"{'when':19s} {'job':>6s} {'client':12s} {'shape':28s} "
+        f"{'backend':18s} {'vd':>2s} {'wall_ms':>9s} {'queue_ms':>9s} "
+        f"{'lease_ms':>9s}"
+    )
+    print(hdr)
+    for rec in records:
+        when = time.strftime(
+            "%Y-%m-%d %H:%M:%S", time.localtime(float(rec.get("t", 0.0)))
+        )
+        wall = float(rec.get("wall_s") or 0.0) * 1e3
+        qw = float(rec.get("queue_wait_s") or 0.0) * 1e3
+        lw = float(rec.get("lease_wait_s") or 0.0) * 1e3
+        print(
+            f"{when:19s} {str(rec.get('job', '?')):>6s} "
+            f"{str(rec.get('client', '?')):12.12s} "
+            f"{str(rec.get('shape', '?')):28.28s} "
+            f"{str(rec.get('backend', '?')):18.18s} "
+            f"{str(rec.get('verdict', '?')):>2s} {wall:9.1f} {qw:9.1f} "
+            f"{lw:9.1f}"
+        )
+    print(f"-- {len(records)} of {total} archived records", flush=True)
+    return 0
+
+
+_SPARK_BLOCKS = "▁▂▃▄▅▆▇█"
+
+
+def _spark(values: list[float], width: int = 32) -> str:
+    """Unicode sparkline over the last ``width`` values (terminal `top`
+    aesthetics; empty history renders as spaces, flat history as ▁s)."""
+    vals = [float(v) for v in values][-width:]
+    if not vals:
+        return " " * width
+    lo, hi = min(vals), max(vals)
+    span = hi - lo
+    out = []
+    for v in vals:
+        idx = 0 if span <= 0 else int((v - lo) / span * (len(_SPARK_BLOCKS) - 1))
+        out.append(_SPARK_BLOCKS[idx])
+    return "".join(out).rjust(width)
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = _Parser(
         prog="s2_verification_tpu_torch",
@@ -983,7 +1419,7 @@ def build_parser() -> argparse.ArgumentParser:
         help="durable-state directory (verdict-cache segments + admission "
         "journal): a restarted daemon answers previously decided "
         "histories from disk and re-runs jobs that were accepted but "
-        "never answered (default: in-memory only). Not ported yet: serve exits 64 naming the module it needs",
+        "never answered (default: in-memory only).",
     )
     s.add_argument(
         "--fsync",
@@ -997,7 +1433,7 @@ def build_parser() -> argparse.ArgumentParser:
         default=None,
         metavar="PORT",
         help="serve Prometheus text metrics on http://127.0.0.1:PORT/metrics "
-        "(0 = ephemeral port, logged at startup; default: off). Not ported yet: serve exits 64 naming the module it needs",
+        "(0 = ephemeral port, logged at startup; default: off).",
     )
     s.add_argument(
         "--trace-capacity",
@@ -1057,7 +1493,7 @@ def build_parser() -> argparse.ArgumentParser:
         help="deliver alertmanager-compatible JSON webhooks (slo_breach, "
         "perf_regression, and --alert-rule matches) to this HTTP URL, "
         "with exponential-backoff retries and per-rule dedup windows "
-        "(default: off). Not ported yet: serve exits 64 naming the module it needs",
+        "(default: off).",
     )
     s.add_argument(
         "--alert-rule",
@@ -1067,7 +1503,7 @@ def build_parser() -> argparse.ArgumentParser:
         help="additional alert rule (repeatable): an event name "
         "('slo_breach'), a field threshold ('done.wall_s>30'), or a "
         "metric threshold ('metric:verifyd_job_errors_total>=5'); "
-        "named like a builtin, it overrides that builtin. Not ported yet: serve exits 64 naming the module it needs",
+        "named like a builtin, it overrides that builtin.",
     )
     s.add_argument(
         "--alert-dedup",
@@ -1128,7 +1564,7 @@ def build_parser() -> argparse.ArgumentParser:
         help="durable telemetry store root (delta-encoded registry "
         "snapshots at raw/1m/15m resolutions; the tsq command and "
         "sentinel re-seeding read it); default <state-dir>/telemetry, "
-        "disabled without a state dir. Not ported yet: serve exits 64 naming the module it needs",
+        "disabled without a state dir.",
     )
     s.add_argument(
         "--telemetry-sample",
@@ -1351,6 +1787,250 @@ def build_parser() -> argparse.ArgumentParser:
         "queue wait, cache hit) on stdout",
     )
     u.set_defaults(fn=_cmd_submit)
+
+    d = sub.add_parser(
+        "doctor",
+        help="post-mortem a dead verifyd's --state-dir: flight-recorder "
+        "tail, orphaned journal entries, open device leases, slowest "
+        "spans, and the SLO picture at death",
+    )
+    d.add_argument(
+        "--state-dir",
+        required=True,
+        help="the dead daemon's durable-state directory",
+    )
+    d.add_argument(
+        "--tail",
+        type=int,
+        default=20,
+        help="flight-recorder records to show (default 20)",
+    )
+    d.add_argument(
+        "--json",
+        action="store_true",
+        help="emit the full post-mortem as JSON instead of the report",
+    )
+    d.set_defaults(fn=_cmd_doctor)
+
+    tq = sub.add_parser(
+        "tsq",
+        help="query durable telemetry history: per-series points with "
+        "sparklines, live off a daemon/router socket or cold off a "
+        "telemetry directory (same store, same answer)",
+    )
+    tq.add_argument(
+        "-socket",
+        "--socket",
+        default=None,
+        help="live path: a running daemon/router (unix-socket path, or "
+        "HOST:PORT with --secret-file / VERIFYD_SECRET)",
+    )
+    tq.add_argument(
+        "--secret-file",
+        default=None,
+        help="shared-secret file for a TCP --socket",
+    )
+    tq.add_argument(
+        "--telemetry-dir",
+        default=None,
+        metavar="DIR",
+        help="cold path: read the rings straight from a telemetry dir "
+        "(works while the daemon is dead)",
+    )
+    tq.add_argument(
+        "--state-dir",
+        default=None,
+        metavar="DIR",
+        help="cold-path shorthand: DIR/telemetry",
+    )
+    tq.add_argument(
+        "--res",
+        choices=("raw", "1m", "15m"),
+        default="raw",
+        help="resolution ring to read (default raw)",
+    )
+    tq.add_argument(
+        "--metric",
+        default=None,
+        metavar="SUBSTR",
+        help="series-name substring filter (e.g. queue_depth)",
+    )
+    tq.add_argument(
+        "--label",
+        action="append",
+        default=None,
+        metavar="KEY=VALUE",
+        help="label equality filter (repeatable; all must match)",
+    )
+    tq.add_argument(
+        "--since",
+        type=float,
+        default=None,
+        metavar="EPOCH",
+        help="range start (unix seconds)",
+    )
+    tq.add_argument(
+        "--until",
+        type=float,
+        default=None,
+        metavar="EPOCH",
+        help="range end (unix seconds)",
+    )
+    tq.add_argument(
+        "--limit",
+        type=int,
+        default=None,
+        metavar="N",
+        help="points kept per series, from the tail (default 360 live, "
+        "720 cold)",
+    )
+    tq.add_argument(
+        "--rate",
+        action="store_true",
+        help="render cumulative counters as per-second rates (negative "
+        "deltas from restarts clamp to 0)",
+    )
+    tq.add_argument(
+        "--info",
+        action="store_true",
+        help="ring inventory (records, series, bytes, recovery) instead "
+        "of points",
+    )
+    tq.add_argument(
+        "--width",
+        type=int,
+        default=48,
+        metavar="COLS",
+        help="sparkline width (default 48)",
+    )
+    tq.add_argument(
+        "--json", action="store_true", help="emit the raw reply JSON"
+    )
+    tq.add_argument(
+        "--csv",
+        action="store_true",
+        help="emit series,t,value rows instead of the sparkline table",
+    )
+    tq.set_defaults(fn=_cmd_tsq)
+
+    qp = sub.add_parser(
+        "quarantine",
+        help="poison-job quarantine: list / inspect / release fingerprints "
+        "a live daemon (--socket) or a dead one's --state-dir holds",
+    )
+    qsub = qp.add_subparsers(dest="quarantine_cmd", required=True)
+
+    def _quarantine_common(p: argparse.ArgumentParser) -> None:
+        p.add_argument(
+            "-socket",
+            "--socket",
+            default=None,
+            help="a running daemon: unix-socket path, or HOST:PORT for "
+            "the authenticated TCP transport (needs --secret-file or "
+            "VERIFYD_SECRET)",
+        )
+        p.add_argument(
+            "--state-dir",
+            default=None,
+            help="cold path: read the quarantine ledger straight from a "
+            "state dir (release this way only with the daemon stopped)",
+        )
+        p.add_argument(
+            "--secret-file",
+            default=None,
+            help="shared-secret file for the TCP transport",
+        )
+        p.set_defaults(fn=_cmd_quarantine)
+
+    ql = qsub.add_parser("list", help="show quarantined fingerprints")
+    _quarantine_common(ql)
+    qi = qsub.add_parser(
+        "inspect", help="full crash ledger for one fingerprint"
+    )
+    qi.add_argument("fingerprint", help="fingerprint to inspect")
+    _quarantine_common(qi)
+    qr = qsub.add_parser(
+        "release",
+        help="operator override: un-quarantine a fingerprint and reset "
+        "its crash count (the next submit runs it again)",
+    )
+    qr.add_argument("fingerprint", help="fingerprint to release")
+    _quarantine_common(qr)
+
+    pr = sub.add_parser(
+        "profiles",
+        help="query the durable job-profile archive (live --socket or "
+        "cold --state-dir): filter, rank by wall time, export CSV/JSONL",
+    )
+    pr.add_argument(
+        "-socket",
+        "--socket",
+        default=None,
+        help="query a running daemon: unix-socket path, or HOST:PORT for "
+        "the authenticated TCP transport (needs --secret-file or "
+        "VERIFYD_SECRET)",
+    )
+    pr.add_argument(
+        "--state-dir",
+        default=None,
+        help="read a (dead) daemon's archive cold from its durable-state "
+        "directory — no daemon needed",
+    )
+    pr.add_argument(
+        "--secret-file",
+        default=None,
+        help="file holding the TCP shared secret (whitespace-stripped); "
+        "falls back to the VERIFYD_SECRET environment variable",
+    )
+    pr.add_argument("--shape", default=None, help="exact shape_key match")
+    pr.add_argument(
+        "--backend",
+        default=None,
+        help="backend prefix match (e.g. 'device' matches device-mesh[4])",
+    )
+    pr.add_argument("--client", default=None, help="exact client identity")
+    pr.add_argument(
+        "--verdict",
+        type=int,
+        default=None,
+        help="verdict exit code (0 linearizable / 1 illegal / 2 unknown)",
+    )
+    pr.add_argument(
+        "--since",
+        type=float,
+        default=None,
+        metavar="EPOCH_S",
+        help="records at or after this epoch-seconds timestamp",
+    )
+    pr.add_argument(
+        "--slowest",
+        type=int,
+        default=None,
+        metavar="N",
+        help="N slowest by wall time (overrides --limit)",
+    )
+    pr.add_argument(
+        "--limit",
+        type=int,
+        default=None,
+        metavar="N",
+        help="newest N records (default 100 when neither --slowest nor "
+        "--limit is given)",
+    )
+    pr.add_argument(
+        "--export",
+        default=None,
+        metavar="FILE",
+        help="write matching records to FILE ('-' = stdout) instead of "
+        "the table",
+    )
+    pr.add_argument(
+        "--format",
+        default="jsonl",
+        choices=["jsonl", "csv"],
+        help="--export format (default jsonl)",
+    )
+    pr.set_defaults(fn=_cmd_profiles)
 
     return p
 

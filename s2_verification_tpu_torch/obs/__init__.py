@@ -20,13 +20,30 @@ in-memory daemon and the supervised device escalation need:
                    burn rates, the breach events.
 - ``sentinel``   — per-shape EWMA wall-time baselines that report a
                    drift as ``perf_regression``.
+- ``httpd``      — stdlib-only HTTP listener serving GET /metrics, a real
+                   /healthz (200 ok / 503 degraded), /slo, /sentinel and
+                   /dashboard.
+- ``flight``     — flight recorder: bounded on-disk ring of recent events
+                   + spans (seglog-backed) and the doctor's post-mortem.
+- ``alerts``     — rule-driven AlertEngine delivering alertmanager-
+                   compatible webhooks (backoff + jitter, dedup/re-arm).
+- ``archive``    — durable per-job profile archive + deduplicated history
+                   corpus over seglog.
+- ``dashboard``  — live self-contained HTML dashboard sampled from the
+                   metric families.
+- ``tsdb``       — durable multi-resolution time-series store over seglog
+                   (the ``tsq`` op and CLI, sentinel re-seeding).
 
-The JAX package's httpd, flight, alerts, archive, dashboard, tsdb and
-federate modules are not ported yet (ROADMAP.md, queue 1).  Everything
-here is stdlib-only and never imports ``torch``.
+The JAX package's ``federate`` (the router's fleet plane) is not ported
+yet (ROADMAP.md, queue 1 item 6).  Everything here is stdlib-only and
+never imports ``torch``.
 """
 
+from .alerts import AlertEngine, AlertRule, builtin_rules, parse_rule
+from .archive import ProfileArchive, filter_records, read_archive, read_corpus
 from .context import new_trace_id, valid_trace_id
+from .dashboard import Dashboard
+from .flight import FlightRecorder, postmortem, read_flight, render_postmortem
 from .introspect import (
     INTROSPECTOR,
     JitIntrospector,
@@ -38,27 +55,46 @@ from .introspect import (
 from .health import SLOConfig, SLOHealth
 from .log import StructuredHandler, StructuredLogger
 from .metrics import Counter, Gauge, Histogram, MetricsRegistry
-from .sentinel import PerfSentinel, SentinelConfig
+from .sentinel import PerfSentinel, SentinelConfig, seed_from_telemetry
 from .trace import Tracer
+from .tsdb import TelemetryStore, last_values, query, telemetry_info
 
 __all__ = [
+    "AlertEngine",
+    "AlertRule",
     "Counter",
+    "Dashboard",
+    "FlightRecorder",
     "Gauge",
     "Histogram",
     "INTROSPECTOR",
     "JitIntrospector",
     "MetricsRegistry",
     "PerfSentinel",
+    "ProfileArchive",
     "ResourceSampler",
     "SLOConfig",
     "SLOHealth",
     "SentinelConfig",
     "StructuredHandler",
     "StructuredLogger",
+    "TelemetryStore",
     "Tracer",
+    "builtin_rules",
+    "filter_records",
     "get_job_context",
     "job_context",
+    "last_values",
     "new_trace_id",
+    "parse_rule",
+    "postmortem",
+    "query",
+    "read_archive",
+    "read_corpus",
+    "read_flight",
     "record_build",
+    "render_postmortem",
+    "seed_from_telemetry",
+    "telemetry_info",
     "valid_trace_id",
 ]

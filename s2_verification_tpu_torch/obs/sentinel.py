@@ -27,10 +27,10 @@ Tuning rationale:
 - **floor**: sub-``floor_s`` walls are scheduler-noise dominated on a
   warm shape and never judged.
 
-The port's copy of the JAX package's ``obs/sentinel.py``, without
-``seed_from_telemetry``: re-seeding baselines across a restart reads the
-telemetry store (``obs/tsdb.py``), which the port does not have yet
-(ROADMAP.md, queue 1).  The daemon calls it only with a telemetry store.
+Exposed via ``GET /sentinel`` on the obs httpd and the ``stats`` op's
+``sentinel`` section.  The port's copy of the JAX package's
+``obs/sentinel.py``.  :func:`seed_from_telemetry` re-seeds the baselines across a restart from
+the telemetry store (``obs/tsdb.py``); the daemon calls it only with one.
 """
 
 from __future__ import annotations
@@ -42,7 +42,7 @@ from typing import Any, Callable, Dict, Optional
 
 from .metrics import MetricsRegistry
 
-__all__ = ["PerfSentinel", "SentinelConfig", "ewma_drift"]
+__all__ = ["PerfSentinel", "SentinelConfig", "ewma_drift", "seed_from_telemetry"]
 
 
 @dataclass(frozen=True)
@@ -268,3 +268,29 @@ class PerfSentinel:
             "shapes": shapes,
         }
 
+
+def seed_from_telemetry(
+    sentinel: PerfSentinel, values: Dict[str, float]
+) -> int:
+    """Seed baselines + latch state from a flattened telemetry snapshot
+    (``obs.tsdb.last_values`` / ``TelemetryStore.boot_values``).  Returns
+    how many shapes were restored — the ``telemetry_loaded`` event
+    reports it."""
+    from .tsdb import parse_series_key
+
+    baselines: Dict[str, float] = {}
+    latched: Dict[str, bool] = {}
+    for key, value in values.items():
+        name, labels = parse_series_key(key)
+        shape = labels.get("shape")
+        if not shape:
+            continue
+        if name == "verifyd_perf_baseline_wall_seconds":
+            baselines[shape] = value
+        elif name == "verifyd_perf_regression_fired":
+            latched[shape] = value >= 0.5
+    seeded = 0
+    for shape, wall in sorted(baselines.items()):
+        if sentinel.seed(shape, wall, fired=latched.get(shape, False)):
+            seeded += 1
+    return seeded

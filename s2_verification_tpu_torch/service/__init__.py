@@ -3,8 +3,7 @@
 The one-shot CLI pays process start, history decode, backend selection
 and (for the device search) the ``torch`` import, a CUDA context and the
 kernels' builds on every ``check``; the daemon amortizes them across
-requests.  The port's copy of the JAX package's ``service`` package,
-in-memory:
+requests.  The port's copy of the JAX package's ``service`` package:
 
 - :mod:`.queue`      — bounded admission queue with per-client priority and
                        explicit backpressure (reject-with-retry-after).
@@ -15,7 +14,10 @@ in-memory:
                        search in a supervised child or inline.
 - :mod:`.cache`      — verdict cache keyed by the canonical chain-hash
                        fingerprint of the prepared history: duplicates are
-                       answered in O(1).
+                       answered in O(1); spilled to segments under
+                       ``--state-dir``.
+- :mod:`.journal`    — write-ahead journal of accepted jobs over the
+                       segment log: a killed daemon's orphans replay.
 - :mod:`.fastprep`   — fused single-pass admission, falling back to the
                        layered decoder with identical errors.
 - :mod:`.progress`   — the per-job heartbeat table the ``watch`` op reads.
@@ -36,10 +38,9 @@ in-memory:
 
 :mod:`.daemon` ties them together behind a unix-domain socket (and an
 optional authenticated TCP listener); :mod:`.client` is the submit side.
-The durability layer (journal, spilled verdict cache, quarantine ledger),
-cross-job batching, prefix resume, the router and the distributed search
-are not ported yet; the daemon refuses the flags and ops that need them
-by name.  Nothing here imports ``torch`` until an inline escalation runs:
+Cross-job batching, prefix resume, the router and the distributed
+search are not ported yet; the daemon refuses the flags and ops that
+need them by name.  Nothing here imports ``torch`` until an inline escalation runs:
 a supervised daemon never touches a card.  As in the JAX package,
 :mod:`.supervise` is imported by name (it is also the child's ``-m``
 entry point).

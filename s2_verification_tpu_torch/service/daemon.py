@@ -1,7 +1,6 @@
 """verifyd: the resident verification daemon.
 
-The port's copy of the JAX package's ``service/daemon.py``, in-memory:
-serves the :mod:`.protocol` over a unix-domain socket and, optionally, an
+The port's copy of the JAX package's ``service/daemon.py``: serves the :mod:`.protocol` over a unix-domain socket and, optionally, an
 HMAC-authenticated TCP listener (``VerifydConfig.tcp`` + ``secret``) so
 collectors on other machines can submit.  Like the collector's loopback
 S2 server (``collector/socket_s2.py``), the asyncio acceptor runs a
@@ -20,12 +19,23 @@ runs it here, on ``torch_device`` (``None`` = the card), the one field
 the port adds to the JAX config.  A supervised or device-off daemon never
 imports ``torch``.
 
-Not ported yet, and refused by name: the durability and ops layer
-(``--state-dir`` with its journal, flight recorder, profile archive,
-telemetry store and quarantine; ``--telemetry-dir``; ``--metrics-port``
-with its HTTP listener and dashboard; ``--alert-url``), prefix resume
-(``--prefix``, the ``follow`` op), cross-job batching (``--batching``) and
-the distributed-search ops (``grant``, ``delta``, ``partition_done``).  A
+Durability (``VerifydConfig.state_dir``), as in the JAX daemon and in
+its on-disk formats: the verdict cache spills to CRC-checked segment
+files (``<state_dir>/verdicts/``), admission write-ahead records go to a
+journal (``<state_dir>/journal/``), crashes per fingerprint to the
+quarantine ledger (``<state_dir>/quarantine/``), and the flight recorder,
+profile archive and telemetry store keep their rings beside them.
+Startup replays the verdicts and the journal — previously decided
+fingerprints answer warm without a checker, and accepted-but-unanswered
+jobs from a crashed run are re-admitted (``orphan`` stats events) after
+the poison accounting.  A state dir either package's daemon wrote is
+read by the other's.  The ops layer: ``--metrics-port`` (``/metrics``,
+``/healthz``, ``/slo``, ``/sentinel``, ``/dashboard``), ``--alert-url``,
+and the ``tsq``, ``profiles`` and ``quarantine`` ops.
+
+Not ported yet, and refused by name: prefix resume (``--prefix``, the
+``follow`` op), cross-job batching (``--batching``) and the
+distributed-search ops (``grant``, ``delta``, ``partition_done``).  A
 config that needs one raises ``NotImplementedError`` when the daemon is
 built; an op that needs one is answered with an error frame.
 """
@@ -47,23 +57,38 @@ from dataclasses import dataclass, field
 
 from .. import version as _version
 from ..checker.entries import prepare
+from ..obs.alerts import AlertEngine, builtin_rules, parse_rule
+from ..obs.archive import ARCHIVE_SUBDIR, ProfileArchive
 from ..obs.context import TRACE_FIELD, new_trace_id, parse_trace_frame
+from ..obs.dashboard import Dashboard
+from ..obs.flight import FLIGHT_SUBDIR, FlightRecorder
 from ..obs.health import SLOConfig, SLOHealth
+from ..obs.httpd import MetricsServer
 from ..obs.introspect import INTROSPECTOR, ResourceSampler
 from ..obs.log import StructuredLogger
 from ..obs.metrics import MetricsRegistry
-from ..obs.sentinel import PerfSentinel, SentinelConfig
+from ..obs.sentinel import PerfSentinel, SentinelConfig, seed_from_telemetry
 from ..obs.trace import Tracer
+from ..obs.tsdb import TelemetryStore
+from ..obs.tsdb import default_dir as telemetry_default_dir
+from ..obs.tsdb import tsq_request
 from ..utils import events as ev
 from .cache import VerdictCache, history_fingerprint
 from .fastprep import FastPrepFallback, fast_prepare
-from .overload import AdmissionController, CancelToken
+from .journal import JobJournal
+from .overload import (
+    AdmissionController,
+    CancelToken,
+    DegradedWriter,
+    QuarantineStore,
+)
 from .protocol import (
     ERR_AUTH,
     ERR_DEADLINE,
     ERR_DECODE,
     ERR_FRAME,
     ERR_INTERNAL,
+    ERR_QUARANTINED,
     ERR_QUEUE_FULL,
     ERR_SHUTTING_DOWN,
     ERR_TOO_LARGE,
@@ -88,7 +113,6 @@ log = logging.getLogger("s2_verification_tpu_torch.verifyd")
 
 #: the roadmap items the unported daemon features wait for (ROADMAP.md,
 #: queue 1)
-_DURABILITY = "ROADMAP.md queue 1 item 3b, verifyd durability and ops"
 _PREFIX = "ROADMAP.md queue 1 item 5, incremental verification"
 _BATCHING = "ROADMAP.md queue 1 item 4, continuous batching"
 _FLEET = "ROADMAP.md queue 1 item 6, the fleet tier"
@@ -124,15 +148,18 @@ class VerifydConfig:
     conn_deadline_s: float = 30.0
     #: graceful-drain budget (``serve --drain-timeout``): on SIGTERM or a
     #: drain-flagged shutdown op, stop admitting, let queued + in-flight
-    #: jobs finish up to this many seconds, then stop.  0 keeps the
-    #: immediate stop
+    #: jobs finish up to this many seconds, close the journal cleanly,
+    #: then stop.  0 keeps the immediate stop
     drain_timeout_s: float = 0.0
-    #: durable-state root; not ported yet (refused when set)
+    #: durable-state root (verdict segments + admission journal +
+    #: quarantine ledger + flight ring + profile archive); None =
+    #: in-memory only
     state_dir: str | None = None
-    #: fsync every durable append; only meaningful with ``state_dir``
+    #: fsync every durable append (survives machine crash, not just
+    #: process death); off by default — SIGKILL safety needs only flush
     fsync: bool = False
-    #: Prometheus /metrics HTTP listener port; not ported yet (refused
-    #: when set)
+    #: Prometheus /metrics HTTP listener port; None = no listener, 0 =
+    #: ephemeral (bound port on :attr:`Verifyd.metrics_port`)
     metrics_port: int | None = None
     #: span-ring capacity for the in-process tracer (`trace` op / CLI
     #: export); 0 disables tracing entirely
@@ -154,10 +181,14 @@ class VerifydConfig:
     slo_target: float = 0.99
     #: end-to-end latency target (p95 on the short window)
     slo_latency_target_s: float = 5.0
-    #: alert webhook URL; not ported yet (refused when set)
+    #: alert webhook URL (alertmanager-compatible POST target); None
+    #: disables the alert engine entirely
     alert_url: str | None = None
-    #: extra --alert-rule specs; not ported yet (refused when set)
+    #: extra --alert-rule specs (see obs/alerts.parse_rule); the
+    #: slo_breach + perf_regression built-ins always apply
     alert_rules: tuple = ()
+    #: per-rule alert dedup window (a flapping signal pages once per
+    #: window; the rest count as suppressed)
     alert_dedup_s: float = 300.0
     alert_retries: int = 4
     alert_backoff_s: float = 0.5
@@ -175,12 +206,17 @@ class VerifydConfig:
     #: latched retrace_storm trip point: a shape rebuilding one build
     #: site more than this many times emits the event once
     retrace_storm_threshold: int = 5
-    #: /dashboard tick; only meaningful with ``metrics_port``
+    #: /dashboard scrape-ring tick (sparkline resolution); <= 0 disables
+    #: the dashboard even when the metrics listener is up
     dashboard_sample_s: float = 2.0
+    #: retained dashboard ticks (sparkline history length)
     dashboard_capacity: int = 240
-    #: durable telemetry store root; not ported yet (refused when set)
+    #: durable telemetry store root; None = <state_dir>/telemetry when a
+    #: state dir is set, else disabled (the ``tsq`` op / CLI and sentinel
+    #: re-seeding read it)
     telemetry_dir: str | None = None
-    #: telemetry sampling cadence; only meaningful with a telemetry store
+    #: telemetry sampling cadence (raw ring tick; the 1m/15m rings
+    #: downsample from it); <= 0 disables recording entirely
     telemetry_sample_s: float = 2.0
     #: RSS watermark for the admission controller, as a fraction of
     #: MemTotal: submits arriving past it are shed with an honest
@@ -189,7 +225,8 @@ class VerifydConfig:
     #: SIGTERM→SIGKILL grace for cancelled supervised children (also the
     #: slack a 2 s-deadline job gets to actually free its worker)
     deadline_grace_s: float = 2.0
-    #: crash count before quarantine; only meaningful with ``state_dir``
+    #: process deaths / child kills per fingerprint before quarantine;
+    #: only meaningful with ``state_dir``
     quarantine_threshold: int = 3
     #: fused single-pass admission (service/fastprep.py): parse, pair,
     #: validate and prepare in one walk, falling back to the layered
@@ -226,13 +263,6 @@ def _refuse_unported(cfg: VerifydConfig) -> None:
     """``NotImplementedError`` naming the module for each configured
     feature whose modules the port does not have yet."""
     wants = (
-        (cfg.state_dir, "--state-dir", "service/journal.py, obs/flight.py, obs/archive.py, "
-         "obs/tsdb.py and the QuarantineStore's ledger", _DURABILITY),
-        (cfg.telemetry_dir, "--telemetry-dir", "obs/tsdb.py", _DURABILITY),
-        (cfg.metrics_port is not None, "--metrics-port", "obs/httpd.py and obs/dashboard.py",
-         _DURABILITY),
-        (cfg.alert_url or cfg.alert_rules, "--alert-url / --alert-rule", "obs/alerts.py",
-         _DURABILITY),
         (cfg.prefix_enabled, "--prefix", "service/prefixstore.py and checker/prefix.py", _PREFIX),
         (cfg.batching, "--batching", "service/batcher.py", _BATCHING),
     )
@@ -301,6 +331,17 @@ class Verifyd:
             ),
             registry=self.registry,
         )
+        self.flight = None
+        self.archive = None
+        if config.state_dir:
+            self.flight = FlightRecorder(
+                os.path.join(config.state_dir, FLIGHT_SUBDIR), fsync=config.fsync
+            )
+            self.tracer.span_hook = self.flight.record_span
+            self.archive = ProfileArchive(
+                os.path.join(config.state_dir, ARCHIVE_SUBDIR),
+                fsync=config.fsync,
+            )
         self.sentinel = None
         if config.sentinel_band > 0:
             self.sentinel = PerfSentinel(
@@ -310,29 +351,152 @@ class Verifyd:
                 ),
                 registry=self.registry,
             )
+        self.alerts = None
+        if config.alert_url:
+            # User rules extend (never replace) the built-ins; a repeated
+            # spec keeps one state slot.
+            rules = {r.name: r for r in builtin_rules()}
+            for spec in config.alert_rules:
+                rule = parse_rule(spec)
+                rules[rule.name] = rule
+            self.alerts = AlertEngine(
+                config.alert_url,
+                rules.values(),
+                registry=self.registry,
+                recorder=self.flight,
+                retries=config.alert_retries,
+                backoff_s=config.alert_backoff_s,
+                dedup_s=config.alert_dedup_s,
+            )
         self.stats = ServiceStats(
             sink,
             registry=self.registry,
             health=self.health,
+            recorder=self.flight,
             logger=stats_logger,
+            alerts=self.alerts,
+            archive=self.archive,
             sentinel=self.sentinel,
         )
         # Runtime introspection: point the process-global build tracker at
-        # this daemon's registry + event stream, and arm the resource
-        # sampler feeding the gauges.
+        # this daemon's registry + event stream (retrace_storm rides the
+        # stream into the alert engine like every other signal), and arm
+        # the resource sampler feeding gauges + the flight ring.
         INTROSPECTOR.attach(
             registry=self.registry,
             stats=self.stats,
             storm_threshold=config.retrace_storm_threshold,
         )
+        # Disk-full degradation: every persistent writer routes its appends
+        # through a DegradedWriter, so ENOSPC degrades the feature (dropped
+        # flight/archive records, memory-only cache, non-durable journal)
+        # instead of taking the daemon down.  flight/archive are built
+        # before stats exists, so their writers attach post-hoc.
+        if self.flight is not None:
+            self.flight.writer = DegradedWriter("flight", self.stats)
+        if self.archive is not None:
+            self.archive.writer = DegradedWriter("archive", self.stats)
         self.sampler = None
         if config.resource_sample_s > 0:
             self.sampler = ResourceSampler(
                 self.registry,
                 interval_s=config.resource_sample_s,
                 capacity=config.resource_capacity,
+                recorder=self.flight,
             )
-        self.cache = VerdictCache(config.cache_capacity)
+        self.dashboard = None
+        # Kernel launches (``launch_counts``) as a counter family, brought
+        # up to date before each /metrics render and stats reply.
+        self._m_launches = self.registry.counter(
+            "verifyd_kernel_launches_total",
+            "Kernel launches on this daemon's escalations (where: inline = "
+            "this process, children = reported by supervised children)",
+            labelnames=("kernel", "where"),
+        )
+        self._launch_metric_lock = threading.Lock()
+        # Durable telemetry: periodic registry snapshots delta-encoded
+        # into multi-resolution seglog rings.  Built after stats (the
+        # degraded-writer + telemetry_loaded sinks) and after the
+        # sentinel, whose baselines the previous run's history re-seeds —
+        # a slowdown across a restart still fires perf_regression.
+        self.telemetry = None
+        self._telemetry_dir = None
+        if config.telemetry_sample_s > 0:
+            tdir = config.telemetry_dir or (
+                telemetry_default_dir(config.state_dir)
+                if config.state_dir
+                else None
+            )
+            if tdir:
+                self._telemetry_dir = tdir
+                self.telemetry = TelemetryStore(
+                    tdir,
+                    self.registry,
+                    sample_s=config.telemetry_sample_s,
+                    fsync=config.fsync,
+                )
+                self.telemetry.writer = DegradedWriter("telemetry", self.stats)
+                seeded = 0
+                if self.sentinel is not None:
+                    _boot_t, boot_values = self.telemetry.boot_values()
+                    seeded = seed_from_telemetry(self.sentinel, boot_values)
+                recs = self.telemetry.recovery_summary().values()
+                self.stats.emit(
+                    "telemetry_loaded",
+                    dir=tdir,
+                    records=sum(r["records"] for r in recs),
+                    segments=sum(r["segments"] for r in recs),
+                    torn_tail_bytes=sum(r["torn_tail_bytes"] for r in recs),
+                    bad_segments=sum(r["bad_segments"] for r in recs),
+                    baselines_seeded=seeded,
+                )
+        verdict_dir = (
+            os.path.join(config.state_dir, "verdicts") if config.state_dir else None
+        )
+        self._cache_writer = (
+            DegradedWriter("cache", self.stats) if verdict_dir is not None else None
+        )
+        self.cache = VerdictCache(
+            config.cache_capacity,
+            verdict_dir,
+            fsync=config.fsync,
+            writer=self._cache_writer,
+        )
+        if verdict_dir is not None:
+            rec = self.cache.recovery
+            self.stats.emit(
+                "cache_loaded",
+                entries=self.cache.loaded,
+                segments=rec.segments if rec else 0,
+                torn_tail_bytes=rec.torn_tail_bytes if rec else 0,
+                bad_segments=rec.bad_segments if rec else 0,
+            )
+        self.journal = (
+            JobJournal(os.path.join(config.state_dir, "journal"), fsync=config.fsync)
+            if config.state_dir
+            else None
+        )
+        self._journal_writer = None
+        if self.journal is not None:
+            # Journal ENOSPC is the one degradation the client must *see*:
+            # replies carry durable=false, /healthz goes unhealthy with the
+            # reason, and the writer_degraded alert fires.  Recovery (disk
+            # freed, reprobe write succeeds) re-arms durability and clears
+            # the health reason.
+            self._journal_writer = DegradedWriter(
+                "journal",
+                self.stats,
+                on_degrade=lambda e: self.health.set_degraded("journal", error=e),
+                on_recover=lambda: self.health.clear_degraded("journal"),
+            )
+        self.quarantine = None
+        if config.state_dir:
+            self.quarantine = QuarantineStore(
+                os.path.join(config.state_dir, "quarantine"),
+                threshold=config.quarantine_threshold,
+                stats=self.stats,
+            )
+            self.stats.set_quarantine_size(len(self.quarantine))
         self.queue = AdmissionQueue(
             config.queue_depth, retry_hint=self.stats.retry_after_hint
         )
@@ -370,10 +534,13 @@ class Verifyd:
             device_rows=config.device_rows,
             attempt_timeout_s=config.attempt_timeout_s,
             max_restarts=config.max_restarts,
+            journal=self.journal,
             tracer=self.tracer,
             profile=config.profile,
             device_pool=self.device_pool,
             lease_timeout_s=config.lease_timeout_s,
+            journal_writer=self._journal_writer,
+            quarantine=self.quarantine,
             cancel_grace_s=config.deadline_grace_s,
             progress=self.progress,
             prune=config.prune,
@@ -395,14 +562,41 @@ class Verifyd:
         self._startup_error: BaseException | None = None
         #: bound port of the TCP listener (set before __enter__ returns)
         self.tcp_port: int | None = None
-        #: the /metrics listener is not ported; always None
+        #: bound port of the /metrics listener (set in __enter__)
         self.metrics_port: int | None = None
+        self._metrics_server: MetricsServer | None = None
 
     # -- lifecycle ----------------------------------------------------------
 
     def __enter__(self) -> "Verifyd":
         if self.sampler is not None:
             self.sampler.start()
+        if self.telemetry is not None:
+            self.telemetry.start()
+        if self.cfg.metrics_port is not None:
+            if self.cfg.dashboard_sample_s > 0:
+                self.dashboard = Dashboard(
+                    self.registry,
+                    health=self.health,
+                    sampler=self.sampler,
+                    interval_s=self.cfg.dashboard_sample_s,
+                    capacity=self.cfg.dashboard_capacity,
+                    progress_fn=(
+                        self.progress.rows
+                        if self.progress is not None
+                        else None
+                    ),
+                ).start()
+            self._metrics_server = MetricsServer(
+                self.registry,
+                self.cfg.metrics_port,
+                health=self.health,
+                sentinel=self.sentinel,
+                dashboard=self.dashboard,
+                refresh=self._refresh_launch_metrics,
+            )
+            self.metrics_port = self._metrics_server.port
+        self._recover_orphans()
         self.scheduler.start(self.cfg.workers)
         self.stats.emit(
             "serve_start",
@@ -432,24 +626,122 @@ class Verifyd:
         if self._thread is not None:
             self._thread.join(timeout=10)
         self.scheduler.stop()
+        if self._metrics_server is not None:
+            self._metrics_server.close()
+        if self.dashboard is not None:
+            self.dashboard.close()
         if self.sampler is not None:
+            # Final sample first: the flight ring's last resource record
+            # should reflect the moment of shutdown, not a second before.
             with contextlib.suppress(Exception):
                 self.sampler.sample_once()
             self.sampler.close()
+        if self.telemetry is not None:
+            # Close takes a final sample and flushes the pending coarse
+            # buckets, so the history's last point is the shutdown state.
+            with contextlib.suppress(Exception):
+                self._refresh_launch_metrics()
+                self.telemetry.close()
         self.stats.emit("serve_stop", **self.stats.snapshot())
         self.dump_flight("shutdown")
+        if self.alerts is not None:
+            # Drain pending deliveries while the flight ring can still
+            # absorb alert_failed markers.
+            self.alerts.close()
+        if self.flight is not None:
+            self.flight.close()
+        if self.archive is not None:
+            self.archive.close()
         self.cache.close()
+        if self.journal is not None:
+            self.journal.close()
         if self._stats_file is not None:
             with contextlib.suppress(OSError):
                 self._stats_file.close()
         with contextlib.suppress(FileNotFoundError):
             os.remove(self.cfg.socket_path)
 
+    def _recover_orphans(self) -> None:
+        """Journal replay: re-admit jobs a previous run accepted but never
+        answered.  Runs before the acceptor and the workers start, so
+        recovered jobs are first in line; their verdicts land in the
+        (durable) cache, which is what answers the submitter's retry."""
+        if self.journal is None:
+            return
+        for rec in self.journal.orphans():
+            text = rec.get("history", "")
+            fp = str(rec.get("fp") or "")
+            if self.quarantine is not None and fp:
+                # Poison accounting BEFORE re-admission: an orphan a worker
+                # had *started* (journal "run" record) when the process
+                # died is one crash against its fingerprint.  Queued-only
+                # orphans are innocent bystanders — replayed for free.
+                if rec.get("started"):
+                    self.quarantine.note_crash(fp, kind="boot")
+                if self.quarantine.is_quarantined(fp):
+                    self.stats.emit(
+                        "orphan_quarantined",
+                        fingerprint=fp,
+                        client=rec.get("client"),
+                        crashes=self.quarantine.crash_count(fp),
+                    )
+                    continue  # compact() below drops the accept for good
+            try:
+                events = list(ev.iter_history(text))
+                hist = prepare(events, elide_trivial=True)
+            except (ev.DecodeError, ValueError) as e:
+                self.stats.emit(
+                    "orphan_invalid",
+                    fingerprint=rec.get("fp"),
+                    client=rec.get("client"),
+                    reason=str(e)[:200],
+                )
+                continue
+            job = Job(
+                id=next(self._job_ids),
+                client=str(rec.get("client") or "anon"),
+                priority=int(rec.get("priority") or 10),
+                shape=shape_key(hist),
+                fingerprint=history_fingerprint(hist),
+                events=events,
+                hist=hist,
+                no_viz=True,  # the submitter is gone; re-run for the verdict
+                trace_id=new_trace_id(),
+            )
+            self.journal.accept(
+                job=job.id,
+                fingerprint=job.fingerprint,
+                client=job.client,
+                priority=job.priority,
+                history=text,
+            )
+            if self.archive is not None:
+                self.archive.add_history(job.fingerprint, text)
+            job.enqueued_at = self.tracer.now()
+            try:
+                self.queue.put(job)
+            except QueueFull:
+                # Reported, not silent — and the journal still holds the
+                # accept, so the *next* restart retries the re-admission.
+                self.stats.emit(
+                    "orphan_dropped", job=job.id, fingerprint=job.fingerprint
+                )
+                continue
+            self.stats.emit(
+                "orphan",
+                job=job.id,
+                fingerprint=job.fingerprint,
+                client=job.client,
+                from_boot=rec.get("boot"),
+            )
+        self.journal.compact()
+
     def dump_flight(self, reason: str) -> None:
-        """The JAX daemon's flight-recorder marker (shutdown path, SIGTERM
-        handler).  The flight recorder needs ``--state-dir``, which the
-        port does not have yet, so this is a no-op, as it is in the JAX
-        daemon without a state dir."""
+        """Write a flight-recorder marker with the SLO picture at this
+        instant (shutdown path, SIGTERM handler).  Safe without a state
+        dir (no-op) and safe to call more than once."""
+        if self.flight is not None:
+            self.flight.dump(reason, slo=self.health.snapshot())
 
     def request_drain(self, timeout_s: float | None = None) -> float:
         """Graceful drain, then stop (drain-flagged shutdown op, SIGTERM
@@ -460,7 +752,8 @@ class Verifyd:
         background thread waits until every dispatched submit has its
         reply written, the queue is empty, and no worker holds an active
         job (or the budget runs out), and finally triggers the normal
-        stop path.  Cache hits keep answering throughout: they touch no
+        stop path, which closes the journal and verdict segments
+        cleanly.  Cache hits keep answering throughout: they touch no
         queue slot and cost nothing.  Returns the effective budget.
         """
         t = float(
@@ -690,6 +983,17 @@ class Verifyd:
             "children": dict(self.scheduler.child_launches),
         }
 
+    def _refresh_launch_metrics(self) -> None:
+        """Bring ``verifyd_kernel_launches_total`` up to
+        :meth:`launch_counts` (before every /metrics render, stats reply
+        and the telemetry store's final sample)."""
+        with self._launch_metric_lock:
+            for where, counts in self.launch_counts().items():
+                for kernel, n in counts.items():
+                    delta = n - self._m_launches.value(kernel=kernel, where=where)
+                    if delta > 0:
+                        self._m_launches.inc(delta, kernel=kernel, where=where)
+
     async def _dispatch(
         self, req: dict, reader: asyncio.StreamReader | None = None
     ) -> dict:
@@ -708,8 +1012,11 @@ class Verifyd:
                 snap = self.stats.snapshot()
                 snap["queue_depth_now"] = len(self.queue)
                 snap["cache_entries"] = len(self.cache)
+                if self.metrics_port is not None:
+                    snap["metrics_port"] = self.metrics_port
                 if self.device_pool is not None:
                     snap["device_pool"] = self.device_pool.snapshot()
+                self._refresh_launch_metrics()
                 introspection: dict = {
                     "jit": INTROSPECTOR.snapshot(),
                     "launches": self.launch_counts(),
@@ -719,11 +1026,62 @@ class Verifyd:
                 snap["introspection"] = introspection
                 if self.progress is not None:
                     snap["progress"] = self.progress.rows()
+                if self.telemetry is not None:
+                    snap["telemetry"] = {
+                        "dir": self._telemetry_dir,
+                        "sample_s": self.cfg.telemetry_sample_s,
+                        "recovery": self.telemetry.recovery_summary(),
+                    }
                 return ok(snap)
+            if op == "tsq":
+                if self._telemetry_dir is None:
+                    return err(
+                        ERR_DECODE,
+                        "no telemetry store (daemon runs without "
+                        "--state-dir or --telemetry-dir)",
+                    )
+                payload, bad = tsq_request(
+                    self._telemetry_dir, req, store=self.telemetry
+                )
+                if bad is not None:
+                    return err(ERR_DECODE, bad)
+                return ok(payload)
             if op == "watch":
                 return self._watch(req)
             if op == "trace":
                 return ok(self.tracer.export())
+            if op == "profiles":
+                if self.archive is None:
+                    return err(
+                        ERR_DECODE,
+                        "no profile archive (daemon runs without --state-dir)",
+                    )
+                filters = {}
+                for key in ("shape", "backend", "client"):
+                    if req.get(key) is not None:
+                        filters[key] = str(req[key])
+                for key in ("verdict", "slowest", "limit"):
+                    if req.get(key) is not None:
+                        try:
+                            filters[key] = int(req[key])
+                        except (TypeError, ValueError):
+                            return err(
+                                ERR_DECODE, f"{key} must be an int"
+                            )
+                if req.get("since") is not None:
+                    try:
+                        filters["since"] = float(req["since"])
+                    except (TypeError, ValueError):
+                        return err(ERR_DECODE, "since must be a number")
+                # Bound the reply frame unless the caller chose a cut.
+                if "limit" not in filters and "slowest" not in filters:
+                    filters["limit"] = 100
+                return ok(
+                    {
+                        "records": self.archive.query(**filters),
+                        "total": len(self.archive),
+                    }
+                )
             if op == "shutdown":
                 if req.get("drain"):
                     tmo = req.get("timeout")
@@ -741,6 +1099,38 @@ class Verifyd:
                     )
                 self.request_stop()
                 return ok({"stopping": True})
+            if op == "quarantine":
+                if self.quarantine is None:
+                    return err(
+                        ERR_DECODE,
+                        "no quarantine store (daemon runs without --state-dir)",
+                    )
+                action = str(req.get("action") or "list")
+                if action == "list":
+                    return ok(
+                        {
+                            "entries": self.quarantine.list(),
+                            "threshold": self.quarantine.threshold,
+                        }
+                    )
+                fp = str(req.get("fingerprint") or "")
+                if not fp:
+                    return err(
+                        ERR_DECODE, f"quarantine {action!r} needs a fingerprint"
+                    )
+                if action == "inspect":
+                    info = self.quarantine.get(fp)
+                    if info is None:
+                        return err(ERR_DECODE, f"{fp!r} is not quarantined")
+                    return ok(info)
+                if action == "release":
+                    return ok(
+                        {
+                            "released": self.quarantine.release(fp),
+                            "fingerprint": fp,
+                        }
+                    )
+                return err(ERR_DECODE, f"unknown quarantine action {action!r}")
             if op == "submit":
                 return await self._submit(req, reader)
             refused = _UNPORTED_OPS.get(op)
@@ -753,7 +1143,7 @@ class Verifyd:
 
     def _emit_progress(self, row: dict) -> None:
         """JobProgress heartbeat hook → the ``search_progress`` event
-        (metrics and the stats log ride the normal emit path)."""
+        (flight ring, metrics, archive all ride the normal emit path)."""
         self.stats.emit(
             "search_progress",
             job=row["job"],
@@ -831,7 +1221,8 @@ class Verifyd:
         if records is not None:
             # Structured submission: the client ships the event records as
             # a JSON array instead of a JSONL string, skipping one
-            # serialize/parse round-trip on the hot path.
+            # serialize/parse round-trip on the hot path.  The journal and
+            # corpus archive still get canonical JSONL (``wire_text``).
             if not isinstance(records, list) or not records:
                 self.stats.emit("decode_error", reason="bad records")
                 return err(
@@ -929,8 +1320,29 @@ class Verifyd:
             cached.update(cached=True, queue_wait_s=0.0, trace_id=trace_id)
             return ok(cached)
 
-        # Admission gates, in cost order: dead deadline, then pressure
-        # shedding with an honest retry_after.
+        # Admission gates, in cost order, all BEFORE the journal sees the
+        # job (a shed admission owes the client nothing on replay):
+        # quarantine (definite — the router must not fail it over), dead
+        # deadline, then pressure shedding with an honest retry_after.
+        if self.quarantine is not None and self.quarantine.is_quarantined(
+            fingerprint
+        ):
+            info = self.quarantine.get(fingerprint) or {}
+            self.stats.emit(
+                "quarantine_reject",
+                client=client,
+                fingerprint=fingerprint,
+                crashes=info.get("crashes", 0),
+                trace_id=trace_id,
+            )
+            return err(
+                ERR_QUARANTINED,
+                f"fingerprint {fingerprint[:12]} is quarantined after "
+                f"{info.get('crashes', 0)} crash(es); "
+                "`python -m s2_verification_tpu_torch quarantine release` re-admits it",
+                fingerprint=fingerprint,
+                crashes=info.get("crashes", 0),
+            )
         shape = shape_key(hist)
         if deadline is not None and deadline <= 0:
             self.stats.emit(
@@ -996,9 +1408,31 @@ class Verifyd:
                 self._loop.call_soon_threadsafe(_finish)
 
         job.resolve = _resolve
+        # Write-ahead: the accept record lands before the queue sees the
+        # job, so a daemon killed in between owes (and replays) the job
+        # rather than silently dropping an admission the client saw.  The
+        # append runs through the journal's DegradedWriter: on a full
+        # disk the job still runs, but the reply says durable=false.
+        durable = False
+        if self.journal is not None:
+            _, durable = self._journal_writer.run(
+                lambda: self.journal.accept(
+                    job=job.id,
+                    fingerprint=fingerprint,
+                    client=client,
+                    priority=priority,
+                    history=text,
+                )
+            )
+        if self.archive is not None:
+            # One corpus entry per fingerprint: the archived workload is
+            # replayable even after the stats sink is long gone.
+            self.archive.add_history(fingerprint, text)
         try:
             depth = self.queue.put(job)
         except QueueFull as e:
+            if self.journal is not None:
+                self._journal_writer.run(lambda: self.journal.reject(job.id))
             self.stats.emit(
                 "reject",
                 client=client,
@@ -1013,6 +1447,8 @@ class Verifyd:
                 depth=e.depth,
             )
         except RuntimeError as e:  # queue closed: daemon is stopping
+            if self.journal is not None:
+                self._journal_writer.run(lambda: self.journal.reject(job.id))
             return err(ERR_SHUTTING_DOWN, str(e))
         job.enqueued_at = self.tracer.now()
         self.stats.emit(
@@ -1057,7 +1493,13 @@ class Verifyd:
                     "trace_id": trace_id,
                 },
             )
-        return await self._await_reply(fut, job, reader)
+        reply = await self._await_reply(fut, job, reader)
+        if self.journal is not None and isinstance(reply.get("ok"), dict):
+            # Honest durability: false when the accept record never hit
+            # disk OR the journal degraded while the job ran (the done
+            # record is then also non-durable).
+            reply["ok"]["durable"] = durable and not self._journal_writer.degraded
+        return reply
 
     async def _await_reply(
         self,
@@ -1094,10 +1536,6 @@ class Verifyd:
 #: ops the JAX daemon serves whose modules the port does not have yet:
 #: each is answered with an error frame naming them
 _UNPORTED_OPS = {
-    "tsq": f"the telemetry store, obs/tsdb.py, which the port does not have yet ({_DURABILITY})",
-    "profiles": f"the profile archive, obs/archive.py, which the port does not have yet ({_DURABILITY})",
-    "quarantine": "the quarantine ledger under --state-dir (service/journal.py), which the port "
-                  f"does not have yet ({_DURABILITY})",
     "follow": "the prefix store, service/prefixstore.py and checker/prefix.py, which the port "
               f"does not have yet ({_PREFIX})",
     **{

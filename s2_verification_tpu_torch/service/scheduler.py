@@ -24,6 +24,12 @@ imports ``torch`` until an inline escalation runs: a supervised or
 device-off daemon never holds a card.  The JAX scheduler's prefix-resume
 path (``--prefix``) and cross-job batching (``--batching``) are not
 ported; the daemon refuses both when it is built.
+
+With a ``journal`` (``serve --state-dir``) every job leaves the JAX
+scheduler's records: ``run`` before its search, ``done`` after its
+verdict (or its error, cancel or cache answer); with a ``quarantine``
+ledger a conclusive verdict forgives the fingerprint's crashes and a
+supervised child that died with no cancel of ours to blame counts one.
 """
 
 from __future__ import annotations
@@ -149,10 +155,13 @@ class Scheduler:
         device_rows: int | None = None,
         attempt_timeout_s: float = 900.0,
         max_restarts: int = 2,
+        journal=None,
         tracer: Tracer = NULL_TRACER,
         profile: bool = False,
         device_pool=None,
         lease_timeout_s: float = 120.0,
+        journal_writer=None,
+        quarantine=None,
         cancel_grace_s: float = 2.0,
         progress=None,
         prune: bool = False,
@@ -175,6 +184,7 @@ class Scheduler:
         self.device_rows = device_rows
         self.attempt_timeout_s = attempt_timeout_s
         self.max_restarts = max_restarts
+        self.journal = journal
         self.tracer = tracer
         self.profile = profile
         #: device-lease allocator (service/devicepool.py); None = the
@@ -183,6 +193,12 @@ class Scheduler:
         #: how long an escalation waits for a lease under contention
         #: before falling back to the unsharded path
         self.lease_timeout_s = lease_timeout_s
+        #: DegradedWriter guarding journal appends (None = raw journal);
+        #: lets an ENOSPC'd disk degrade durability instead of erroring
+        self.journal_writer = journal_writer
+        #: poison-job ledger (overload.QuarantineStore); child kills feed
+        #: it live, conclusive verdicts forgive accumulated crashes
+        self.quarantine = quarantine
         #: SIGTERM→SIGKILL grace for cancelled supervised children
         self.cancel_grace_s = cancel_grace_s
         #: per-job progress table (service/progress.JobProgress); None
@@ -236,6 +252,9 @@ class Scheduler:
                 except Exception as e:  # one bad job must not kill the worker
                     log.exception("job %d failed", job.id)
                     reply = err("InternalError", repr(e), job=job.id)
+                    # Close the journal record even on failure: a poison
+                    # job must not re-run on every restart forever.
+                    self._mark_done(job, verdict=None, outcome="error")
                     if self.progress is not None:
                         self.progress.finish(job.id, outcome="error")
                     # Balance the `start` event so in-flight accounting
@@ -248,11 +267,36 @@ class Scheduler:
                     )
                 job.resolve(reply)
 
+    def _journal_append(self, job: Job, fn) -> None:
+        """Route a journal append through the DegradedWriter when one is
+        armed (disk-full degrades durability instead of raising)."""
+        if self.journal_writer is not None:
+            self.journal_writer.run(fn)
+            return
+        try:
+            fn()
+        except (OSError, ValueError):
+            log.exception("job %d: journal append failed", job.id)
+
+    def _mark_done(self, job: Job, *, verdict: int | None, outcome: str) -> None:
+        if self.journal is None:
+            return
+        self._journal_append(
+            job,
+            lambda: self.journal.done(
+                job=job.id,
+                fingerprint=job.fingerprint,
+                verdict=verdict,
+                outcome=outcome,
+            ),
+        )
+
     def _cancel_reply(
         self, job: Job, reason: str, queue_wait: float, *, started: bool
     ) -> dict:
-        """Answer a cancelled job: count it and return the definite
-        error."""
+        """Answer a cancelled job: close its journal record (the client
+        got — or abandoned — its reply; nothing is owed a replay), count
+        it, and return the definite error."""
         if self.progress is not None:
             self.progress.finish(job.id, outcome="cancelled")
         self.stats.emit(
@@ -264,6 +308,7 @@ class Scheduler:
             queue_wait_s=round(queue_wait, 4),
             trace_id=job.trace_id,
         )
+        self._mark_done(job, verdict=None, outcome="cancelled")
         cls = ERR_DEADLINE if reason == "deadline" else ERR_CANCELLED
         return err(
             cls,
@@ -312,8 +357,23 @@ class Scheduler:
                 queue_wait_s=round(queue_wait, 4),
                 trace_id=job.trace_id,
             )
+            self._mark_done(
+                job,
+                verdict=cached.get("verdict"),
+                outcome=str(cached.get("outcome", "cached")),
+            )
             return ok(cached), queue_wait, False
 
+        # Run record before the search: it is what lets boot-time orphan
+        # recovery distinguish a poison job (started, then the process
+        # died) from one that innocently sat in the queue.
+        if self.journal is not None:
+            self._journal_append(
+                job,
+                lambda: self.journal.started(
+                    job=job.id, fingerprint=job.fingerprint
+                ),
+            )
         warm = self.stats.note_shape(job.shape)
         self.stats.emit(
             "start",
@@ -394,6 +454,9 @@ class Scheduler:
             return self._cancel_reply(job, reason, queue_wait, started=True)
         if self.progress is not None:
             self.progress.finish(job.id, outcome=res.outcome.value)
+        if self.quarantine is not None and res.outcome != CheckOutcome.UNKNOWN:
+            # A conclusive verdict forgives accumulated crash counts.
+            self.quarantine.note_success(job.fingerprint)
 
         artifact = None
         if not job.no_viz:
@@ -422,6 +485,11 @@ class Scheduler:
         # healthier device or a bigger budget and deserves a fresh run.
         if res.outcome != CheckOutcome.UNKNOWN:
             self.cache.put(job.fingerprint, payload)
+        # Done-mark after the cache put: a crash in between re-runs the
+        # job (at-least-once), and the rerun answers from the cache.
+        self._mark_done(
+            job, verdict=payload["verdict"], outcome=res.outcome.value
+        )
         done_fields = dict(
             job=job.id,
             client=job.client,
@@ -708,6 +776,15 @@ class Scheduler:
                 speculate_depth=self.speculate_depth,
                 device=self.torch_device,
             )
+            if (
+                dres is None
+                and self.quarantine is not None
+                and job.cancel.check() is None
+            ):
+                # The child died (or wedged past its kill timeout) with
+                # no cancellation of ours to blame: one live crash
+                # charged to this fingerprint in the poison ledger.
+                self.quarantine.note_crash(job.fingerprint, kind="child")
             return dres, backend
         finally:
             if lease is not None:

@@ -1,9 +1,9 @@
 """End-to-end deadlines in the port's daemon: the five daemon cases of
 ``tests/test_deadline.py`` (the token, admission refusal, queue expiry,
 mid-search cancellation on the CPU path and in a supervised child), each
-run over both packages.  The JAX package's supervised case also checks its
-poison ledger, which needs ``--state-dir``; the port runs it without one.
-The two router cases wait for the port's router (ROADMAP.md queue 1
+run over both packages.  The supervised case also checks the poison
+ledger under ``--state-dir``: a cancel of ours charges no crash.  The two
+router cases wait for the port's router (ROADMAP.md queue 1
 item 6).
 
 Every case asserts the observable promises of cooperative cancellation:
@@ -221,9 +221,10 @@ def test_deadline_frees_supervised_child_and_lease(tmp_path, monkeypatch, pkg):
         attempt_timeout_s=60.0,
         time_budget_s=0.05,
         deadline_grace_s=1.0,
-        # The JAX daemon's poison ledger lives under --state-dir, which the
-        # port does not have yet; the port's child runs on the CPU.
-        **({"state_dir": str(tmp_path / "state")} if pkg.root == JAX else {"torch_device": "cpu"}),
+        # The poison ledger lives under --state-dir; the port's child runs
+        # on the CPU.
+        state_dir=str(tmp_path / "state"),
+        **({} if pkg.root == JAX else {"torch_device": "cpu"}),
     )
     with pkg.daemon.Verifyd(cfg) as daemon:
         client = pkg.client.VerifydClient(cfg.socket_path, timeout=60)
@@ -238,8 +239,7 @@ def test_deadline_frees_supervised_child_and_lease(tmp_path, monkeypatch, pkg):
         assert daemon.device_pool.snapshot()["in_use"] == 0
         assert _cancelled(daemon, "deadline") == 1
         # Our own SIGTERM is not a crash: the poison ledger stays clean.
-        if pkg.root == JAX:
-            assert daemon.quarantine.crash_count(_fingerprint(pkg, text)) == 0
+        assert daemon.quarantine.crash_count(_fingerprint(pkg, text)) == 0
     cancels = [e for e in _events(tmp_path) if e["ev"] == "job_cancelled"]
     assert len(cancels) == 1
     assert cancels[0]["reason"] == "deadline" and cancels[0]["started"] is True

@@ -120,6 +120,13 @@ def test_importing_the_port_loads_no_jax():
         "service.fastprep",
         "service.client",
         "service.daemon",
+        "service.journal",
+        "obs.flight",
+        "obs.archive",
+        "obs.tsdb",
+        "obs.alerts",
+        "obs.httpd",
+        "obs.dashboard",
     ):
         assert f"s2_verification_tpu_torch.{m}" in mods
     proc = _fresh_interpreter(f"for m in {mods!r}:\n    importlib.import_module(m)\n")
@@ -141,8 +148,9 @@ def test_the_supervising_side_loads_no_torch():
 def test_the_daemon_loads_no_torch_unless_it_escalates_inline(tmp_path):
     # A device-off daemon and a supervised one answer submits — the
     # supervised one through a real escalation whose child runs the search
-    # on the CPU — and the daemon's own process never loads torch; the
-    # CLI's serve and submit entry points don't either.
+    # on the CPU — with their durable state, metrics listener and
+    # telemetry on, and the daemon's own process never loads torch; the
+    # CLI's serve, submit and cold doctor entry points don't either.
     sock = tmp_path / "v.sock"
     proc = _fresh_interpreter(
         "import io\n"
@@ -160,12 +168,14 @@ def test_the_daemon_loads_no_torch_unless_it_escalates_inline(tmp_path):
         "    if mode == 'supervised':\n"
         "        scheduler._cpu_check = lambda h, b, **kw: (CheckResult(CheckOutcome.UNKNOWN), 'native')\n"
         "    cfg = VerifydConfig(socket_path=sock, device=mode, torch_device='cpu', no_viz=True,\n"
-        f"                        spool_dir={str(tmp_path / 'spool')!r})\n"
+        f"                        spool_dir={str(tmp_path / 'spool')!r},\n"
+        f"                        state_dir={str(tmp_path / 'state')!r} + mode, metrics_port=0)\n"
         "    with Verifyd(cfg):\n"
         "        r = VerifydClient(sock, timeout=120).submit(buf.getvalue())\n"
         "    assert r['verdict'] == 0, r\n"
         "    assert r['backend'] == ('native' if mode == 'off' else 'device-supervised'), r\n"
         "assert cli.main(['submit', '-file', '/nonexistent.jsonl', '-socket', sock]) == 64\n"
+        f"assert cli.main(['doctor', '--state-dir', {str(tmp_path / 'state')!r} + 'off']) == 0\n"
         "assert 'torch' not in sys.modules, sorted(m for m in sys.modules if m.startswith('torch'))\n"
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr

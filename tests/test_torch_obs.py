@@ -8,24 +8,36 @@ recorded in ``INTROSPECTOR`` in place of ``jax.jit`` compiles, and a
 card-memory sampler that never creates a CUDA context.
 
 Since the port has its daemon, the SLO-health, structured-logger, daemon
-and client/daemon trace-id cases of ``tests/test_obs.py`` and
-``test_obs_v2.py`` run over both packages too; the daemon case drops its
-``/metrics`` scrape, and the cases that need ``httpd``, ``dashboard``,
-``flight``, ``tsdb``, ``alerts`` or ``archive`` stay behind (ROADMAP.md
-queue 1), as do the two cases of ``observe_jit`` (a decorator the port
-has no site for).  The compile
+(with its ``/metrics`` scrape) and client/daemon trace-id cases of
+``tests/test_obs.py`` and ``test_obs_v2.py`` run over both packages too,
+as do the two cases of ``observe_jit`` in the port's form: the compile
 tracker's cases drive ``record_call`` / ``record_compile`` directly, as
-``observe_jit`` does, so they run over both packages.
+``observe_jit`` does (a decorator the port has no site for).
+
+The durability and ops layer, over both packages: the flight recorder's
+bounded ring and the doctor's post-mortem (``tests/test_doctor.py``, its
+SIGKILLed daemons included, the telemetry one of ``test_obs_v4.py``
+too), the ``/metrics``, ``/healthz``, ``/slo`` listener and the
+``/dashboard`` (``test_obs.py``, ``test_obs_v2.py``, ``test_obs_v3.py``,
+the port's kernel-launch family beside them; the ``dash`` frame waits for
+the ``dash`` command, ROADMAP.md queue 1 item 7), the profiles CSV export,
+and the telemetry store through a daemon (``test_obs_v4.py``: the
+sentinel seeded at boot, the ``tsq`` op, its refusal without a store).
 """
 
 from __future__ import annotations
 
 import importlib
 import io
+import csv
 import json
+import os
 import subprocess
 import sys
 import threading
+import time
+import urllib.error
+import urllib.request
 from pathlib import Path
 from types import SimpleNamespace
 
@@ -50,6 +62,11 @@ def obs(request):
             ("log", "obs.log"),
             ("daemon", "service.daemon"),
             ("client", "service.client"),
+            ("flight", "obs.flight"),
+            ("httpd", "obs.httpd"),
+            ("dashboard", "obs.dashboard"),
+            ("tsdb", "obs.tsdb"),
+            ("cli", "cli"),
         )
     })
 
@@ -743,6 +760,7 @@ def test_daemon_metrics_trace_and_profile_surface(tmp_path, obs):
         no_viz=True,
         stats_log=None,
         device="off",
+        metrics_port=0,
         profile=True,
     )
     with obs.daemon.Verifyd(cfg) as daemon:
@@ -754,14 +772,14 @@ def test_daemon_metrics_trace_and_profile_surface(tmp_path, obs):
         assert prof["steps"] >= 0
         assert "timeline" in prof or "phases" in prof
 
-        # stats op: merged metrics section (no /metrics listener here:
-        # obs/httpd.py is not in the port yet).
+        # stats op: merged metrics section + advertised port.
         snap = client.stats()
-        assert "metrics_port" not in snap and daemon.metrics_port is None
+        assert snap["metrics_port"] == daemon.metrics_port
         assert snap["metrics"]["counters"]["verifyd_jobs_submitted_total"] == 1
 
-        # The exposition the listener would serve agrees with the stats op.
-        body = daemon.registry.render()
+        # /metrics scrape agrees with the stats op.
+        url = f"http://127.0.0.1:{daemon.metrics_port}/metrics"
+        body = urllib.request.urlopen(url, timeout=5).read().decode()
         assert 'verifyd_jobs_completed_total{verdict="ok"} 1' in body
         assert "verifyd_queue_wait_seconds_bucket" in body
         assert 'verifyd_wall_seconds_bucket{backend="' in body
@@ -918,3 +936,488 @@ def test_device_memory_never_creates_a_cuda_context():
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+# -- flight recorder, doctor, httpd, dashboard, tsq (test_doctor.py,
+# -- test_obs.py, test_obs_v2.py, test_obs_v3.py, test_obs_v4.py) ------------
+
+
+def test_flight_ring_is_bounded_and_replayable(tmp_path, obs):
+    rec = obs.flight.FlightRecorder(
+        os.path.join(str(tmp_path), obs.flight.FLIGHT_SUBDIR), max_segment_bytes=512, max_segments=2
+    )
+    for i in range(500):
+        rec.record_event({"ev": "done", "t": 1000.0 + i, "job": i})
+    rec.dump("shutdown")
+    rec.close()
+    records = obs.flight.read_flight(str(tmp_path))
+    # Drop-oldest: the ring kept a bounded tail that ends with the dump.
+    assert 0 < len(records) < 500
+    assert records[-1] == {
+        "k": "dump",
+        "t": records[-1]["t"],
+        "reason": "shutdown",
+    }
+    jobs = [r["job"] for r in records if r["k"] == "ev"]
+    assert jobs == sorted(jobs) and jobs[-1] == 499  # newest survives
+
+
+def test_recorder_ignores_non_x_spans_and_survives_close(tmp_path, obs):
+    rec = obs.flight.FlightRecorder(os.path.join(str(tmp_path), obs.flight.FLIGHT_SUBDIR))
+    rec.record_span({"ph": "M", "name": "thread_name"})  # metadata: skipped
+    rec.record_span({"ph": "X", "name": "s", "ts": 1.0, "dur": 2.0, "tid": 3})
+    rec.close()
+    rec.record_event({"ev": "late"})  # after close: silently dropped
+    records = obs.flight.read_flight(str(tmp_path))
+    assert [r["k"] for r in records] == ["span"]
+    assert records[0]["name"] == "s"
+
+
+def test_read_flight_tolerates_missing_ring(tmp_path, obs):
+    assert obs.flight.read_flight(str(tmp_path / "never-existed")) == []
+
+
+def test_postmortem_reconstructs_breach_leases_and_unclean_death(tmp_path, obs):
+    rec = obs.flight.FlightRecorder(os.path.join(str(tmp_path), obs.flight.FLIGHT_SUBDIR))
+    # Timestamps must be wall-adjacent: dump/span records stamp real wall
+    # time, and the replay evaluates windows at the LAST recorded instant.
+    t = time.time() - 30.0
+    rec.record_event({"ev": "lease_grant", "t": t, "job": 5, "devices": [0, 1]})
+    rec.record_event({"ev": "lease_grant", "t": t + 1, "job": 6, "devices": [2]})
+    rec.record_event({"ev": "lease_release", "t": t + 2, "job": 5})
+    for i in range(12):
+        rec.record_event({"ev": "job_error", "t": t + 3 + i, "job": 10 + i})
+    rec.record_span(
+        {"ph": "X", "name": "search", "ts": 0.0, "dur": 9e6, "tid": 5}
+    )
+    rec.dump(
+        "slo_breach",
+        breach={"reasons": [{"kind": "fast_burn", "burn_rate": 100.0,
+                             "window": "1m"}]},
+    )
+    # No shutdown dump: the daemon died mid-flight.
+    rec.close()
+
+    pm = obs.flight.postmortem(str(tmp_path))
+    assert not pm["clean_shutdown"]
+    assert len(pm["breaches"]) == 1
+    # job 6's grant was never released → open at death.
+    assert [l["job"] for l in pm["open_leases"]] == [6]
+    assert pm["slowest_spans"][0]["name"] == "search"
+    # SLO replayed from the recorded events at the moment of death.
+    assert not pm["slo_at_death"]["healthy"]
+
+    report = obs.flight.render_postmortem(pm)
+    assert "UNCLEAN DEATH" in report
+    assert "SLO breaches recorded" in report
+    assert "fast_burn" in report
+    assert "leases open at death: 1" in report
+    assert "flight tail" in report
+
+
+def test_postmortem_on_clean_daemon_shutdown(tmp_path, obs):
+    cfg = obs.daemon.VerifydConfig(
+        socket_path=str(tmp_path / "v.sock"),
+        out_dir=str(tmp_path / "viz"),
+        no_viz=True,
+        stats_log=None,
+        device="off",
+        state_dir=str(tmp_path / "state"),
+    )
+    with obs.daemon.Verifyd(cfg) as daemon:
+        client = obs.client.VerifydClient(cfg.socket_path)
+        assert client.submit(_good(), client="doc")["verdict"] == 0
+    pm = obs.flight.postmortem(cfg.state_dir)
+    assert pm["clean_shutdown"]
+    assert pm["last_record"]["reason"] == "shutdown"
+    # The shutdown dump carries the SLO snapshot at that instant.
+    assert "slo" in pm["last_record"]
+    assert pm["events"] > 0 and pm["spans"] > 0
+    assert "clean shutdown" in obs.flight.render_postmortem(pm)
+
+
+def test_doctor_on_missing_state_dir_is_a_usage_error(tmp_path, obs):
+    rc = obs.cli.main(["doctor", "--state-dir", str(tmp_path / "nope")])
+    assert rc == 64  # EX_USAGE
+
+
+def test_metrics_server_serves_exposition_and_404(obs):
+    r = obs.metrics.MetricsRegistry()
+    r.counter("hits_total", "Hits").inc()
+    srv = obs.httpd.MetricsServer(r, port=0)
+    try:
+        resp = urllib.request.urlopen(srv.url, timeout=5)  # …/metrics
+        assert "version=0.0.4" in resp.headers["Content-Type"]
+        assert "hits_total 1" in resp.read().decode()
+        with pytest.raises(urllib.error.HTTPError) as ei:
+            urllib.request.urlopen(
+                f"http://{srv.host}:{srv.port}/nope", timeout=5
+            )
+        assert ei.value.code == 404
+    finally:
+        srv.close()
+
+
+def test_healthz_flips_503_with_reasons_and_slo_serves_snapshot(obs):
+    reg = obs.metrics.MetricsRegistry()
+    health = obs.health.SLOHealth(registry=reg)
+    srv = obs.httpd.MetricsServer(reg, port=0, health=health)
+    try:
+        base = f"http://127.0.0.1:{srv.port}"
+        resp = urllib.request.urlopen(base + "/healthz", timeout=5)
+        assert resp.status == 200
+        assert json.loads(resp.read())["status"] == "ok"
+
+        slo = json.loads(
+            urllib.request.urlopen(base + "/slo", timeout=5).read()
+        )
+        assert slo["healthy"] and set(slo["windows"]) == {"1m", "5m", "30m"}
+
+        for i in range(12):
+            health.observe_event({"ev": "job_error"})
+        with pytest.raises(urllib.error.HTTPError) as exc:
+            urllib.request.urlopen(base + "/healthz", timeout=5)
+        assert exc.value.code == 503
+        body = json.loads(exc.value.read())
+        assert body["status"] == "degraded" and body["reasons"]
+
+        # /metrics refresh pushed the degraded state into the gauges.
+        scrape = (
+            urllib.request.urlopen(base + "/metrics", timeout=5)
+            .read()
+            .decode()
+        )
+        assert "verifyd_slo_healthy 0" in scrape
+        assert "verifyd_slo_burn_rate" in scrape
+    finally:
+        srv.close()
+
+
+def test_metrics_server_without_health_keeps_legacy_healthz(obs):
+    reg = obs.metrics.MetricsRegistry()
+    srv = obs.httpd.MetricsServer(reg, port=0)
+    try:
+        resp = urllib.request.urlopen(
+            f"http://127.0.0.1:{srv.port}/healthz", timeout=5
+        )
+        assert resp.status == 200
+        assert resp.read() == b"ok\n"
+    finally:
+        srv.close()
+
+
+def test_resource_sampler_feeds_the_flight_recorder(tmp_path, obs):
+    rec = obs.flight.FlightRecorder(str(tmp_path / "flight"))
+    s = obs.introspect.ResourceSampler(None, interval_s=60.0, recorder=rec)
+    s.sample_once()
+    s.sample_once()
+    rec.close()
+    pm = obs.flight.postmortem(str(tmp_path))
+    assert pm["resource_samples"] == 2
+    assert pm["resources"][-1]["rss_bytes"] > 0
+    report = obs.flight.render_postmortem(pm)
+    assert "resource timeline" in report
+    assert "rss=" in report
+
+
+def test_dashboard_and_introspection_over_a_live_daemon(tmp_path, obs):
+    cfg = obs.daemon.VerifydConfig(
+        socket_path=str(tmp_path / "v.sock"),
+        out_dir=str(tmp_path / "viz"),
+        no_viz=True,
+        stats_log=None,
+        device="off",
+        metrics_port=0,
+        resource_sample_s=0.1,
+        dashboard_sample_s=0.1,
+    )
+    with obs.daemon.Verifyd(cfg) as daemon:
+        client = obs.client.VerifydClient(cfg.socket_path)
+        assert client.submit(_good(), client="v3")["verdict"] == 0
+        # Let the dashboard thread take at least one post-job sample.
+        for _ in range(100):
+            if daemon.dashboard.payload()["retained"] >= 2:
+                break
+            threading.Event().wait(0.05)
+        port = daemon.metrics_port
+
+        html = (
+            urllib.request.urlopen(
+                "http://127.0.0.1:%d/dashboard" % port, timeout=5
+            )
+            .read()
+            .decode()
+        )
+        assert html.startswith("<!DOCTYPE html>")
+        assert "<svg" in html and "polyline" in html
+        assert "throughput" in html and "host RSS" in html
+
+        feed = json.loads(
+            urllib.request.urlopen(
+                "http://127.0.0.1:%d/dashboard.json" % port, timeout=5
+            ).read()
+        )
+        assert feed["retained"] >= 2
+        assert set(feed["series"]) >= {"throughput", "queue_depth", "rss_mb"}
+        assert len(feed["series"]["rss_mb"]) == feed["retained"]
+        assert any(v > 0 for v in feed["series"]["rss_mb"])
+
+        # Content negotiation: the OpenMetrics variant ends with EOF, the
+        # classic variant never contains it.
+        req = urllib.request.Request(
+            "http://127.0.0.1:%d/metrics" % port,
+            headers={"Accept": "application/openmetrics-text"},
+        )
+        with urllib.request.urlopen(req, timeout=5) as resp:
+            assert resp.headers["Content-Type"] == obs.metrics.OPENMETRICS_CONTENT_TYPE
+            om = resp.read().decode()
+        assert om.rstrip().endswith("# EOF")
+        assert 'trace_id="' in om  # the served job left an exemplar
+        classic = (
+            urllib.request.urlopen(
+                "http://127.0.0.1:%d/metrics" % port, timeout=5
+            )
+            .read()
+            .decode()
+        )
+        assert "# EOF" not in classic
+
+        # The stats op carries the introspection section.
+        snap = client.stats()
+        intro = snap["introspection"]
+        assert "jit" in intro and "storm_threshold" in intro["jit"]
+        assert intro["resources"]["last"]["rss_bytes"] > 0
+
+        # The port's stats op adds the kernel launches, and /metrics
+        # carries their family.
+        if obs.daemon.__name__.startswith("s2_verification_tpu_torch."):
+            assert set(intro["launches"]) == {"inline", "children"}
+            assert "# TYPE verifyd_kernel_launches_total counter" in classic
+
+
+def test_dashboard_routes_404_without_a_dashboard(tmp_path, obs):
+    cfg = obs.daemon.VerifydConfig(
+        socket_path=str(tmp_path / "v.sock"),
+        out_dir=str(tmp_path / "viz"),
+        no_viz=True,
+        stats_log=None,
+        device="off",
+        metrics_port=0,
+        dashboard_sample_s=0.0,  # explicit opt-out
+    )
+    with obs.daemon.Verifyd(cfg) as daemon:
+        try:
+            urllib.request.urlopen(
+                "http://127.0.0.1:%d/dashboard" % daemon.metrics_port,
+                timeout=5,
+            )
+        except urllib.error.HTTPError as e:
+            assert e.code == 404
+        else:  # pragma: no cover
+            raise AssertionError("expected 404")
+
+
+def test_dashboard_sampling_is_registry_driven(obs):
+    reg = obs.metrics.MetricsRegistry()
+    completed = reg.counter("verifyd_jobs_completed_total")
+    ts = iter(float(i) for i in range(100))
+    d = obs.dashboard.Dashboard(reg, interval_s=1.0, capacity=4, time_fn=lambda: next(ts))
+    d.sample_once()
+    completed.inc(5)
+    d.sample_once()  # 5 completions over a 1s tick → 5 jobs/s
+    assert d.payload()["series"]["throughput"][-1] == 5.0
+    for _ in range(5):
+        d.sample_once()
+    p = d.payload()
+    assert p["retained"] == 4  # bounded ring: oldest samples fell off
+    assert len(p["t"]) == 4
+    assert all(len(s) == 4 for s in p["series"].values())
+    html = d.render_html()
+    assert "<svg" in html
+    assert json.loads(d.render_json())["retained"] == 4
+
+
+def test_profiles_csv_export_quotes_commas_and_serializes_containers(obs):
+    records = [
+        {
+            "t": 1.5,
+            "job": 1,
+            "client": 'ci,"weird" bot',
+            "shape": "64x5x8,dense",
+            "backend": "device-mesh[4]",
+            "verdict": 0,
+            "wall_s": 0.25,
+            "queue_wait_s": 0.01,
+            "lease_wait_s": 0.0,
+            "ops": 64,
+            "shards": {"n": 4, "note": 'a,b "c"'},
+            "fp": "ff00",
+        }
+    ]
+    buf = io.StringIO()
+    obs.cli._export_profiles(records, buf, "csv")
+    text = buf.getvalue()
+    # RFC 4180: embedded quotes doubled inside a quoted cell.
+    assert '"ci,""weird"" bot"' in text
+    rows = list(csv.reader(io.StringIO(text)))
+    assert rows[0] == list(obs.cli._PROFILE_COLUMNS)
+    row = dict(zip(rows[0], rows[1]))
+    assert row["client"] == 'ci,"weird" bot'
+    assert row["shape"] == "64x5x8,dense"
+    # Container cells come back as JSON, not a Python repr.
+    assert json.loads(row["shards"]) == {"n": 4, "note": 'a,b "c"'}
+
+
+def test_daemon_boots_seed_sentinel_and_serve_tsq(tmp_path, obs):
+    state_dir = str(tmp_path / "state")
+    # manufacture boot-1 history carrying a sentinel baseline
+    reg = obs.metrics.MetricsRegistry()
+    reg.gauge(
+        "verifyd_perf_baseline_wall_seconds", "b", labelnames=("shape",)
+    ).set(0.5, shape="99x9x9")
+    reg.gauge(
+        "verifyd_perf_regression_fired", "f", labelnames=("shape",)
+    ).set(0.0, shape="99x9x9")
+    store = obs.tsdb.TelemetryStore(obs.tsdb.default_dir(state_dir), reg, time_fn=lambda: 50.0)
+    store.sample_once()
+    store.close()
+
+    cfg = obs.daemon.VerifydConfig(
+        socket_path=str(tmp_path / "v.sock"),
+        out_dir=str(tmp_path / "viz"),
+        no_viz=True,
+        stats_log=None,
+        device="off",
+        state_dir=state_dir,
+        telemetry_sample_s=30.0,  # the op forces samples; no thread races
+    )
+    with obs.daemon.Verifyd(cfg) as daemon:
+        assert daemon.telemetry is not None
+        # boot 2 seeded the sentinel from boot 1's history
+        shapes = daemon.sentinel.snapshot()["shapes"]
+        assert shapes["99x9x9"]["baseline_wall_s"] == 0.5
+        # build identity is a registry fact on every daemon
+        assert "verifyd_build_info{" in daemon.registry.render()
+
+        client = obs.client.VerifydClient(cfg.socket_path)
+        assert client.submit(_good(), client="tsq")["verdict"] == 0
+        # the stats op surfaces the store
+        snap = client.stats()
+        assert snap["telemetry"]["dir"] == obs.tsdb.default_dir(state_dir)
+        # live tsq: the op samples first, so the reply always has points
+        info = client.tsq(info=True)
+        assert info["resolutions"]["raw"]["records"] >= 2  # boot-1 + live
+        out = client.tsq(metric="verifyd_build_info")
+        assert any(
+            "verifyd_build_info" in key for key in out["series"]
+        )
+        # the seeded baseline flows into boot 2's own recorded history
+        out = client.tsq(metric="verifyd_perf_baseline_wall_seconds")
+        (key,) = [k for k in out["series"] if "99x9x9" in k]
+        assert out["series"][key][-1][1] == 0.5
+        with pytest.raises(obs.client.VerifydError):
+            client.tsq(res="2h")
+
+
+def test_tsq_without_state_dir_is_a_clean_error(tmp_path, obs):
+    cfg = obs.daemon.VerifydConfig(
+        socket_path=str(tmp_path / "v.sock"),
+        out_dir=str(tmp_path / "viz"),
+        no_viz=True,
+        stats_log=None,
+        device="off",
+    )
+    with obs.daemon.Verifyd(cfg):
+        client = obs.client.VerifydClient(cfg.socket_path)
+        assert client.submit(_good(), client="x")["verdict"] == 0
+        with pytest.raises(obs.client.VerifydError, match="no telemetry store"):
+            client.tsq(info=True)
+
+
+#: a daemon of ``{pkg}`` whose first 12 jobs fail (tripping the SLO's fast
+#: burn) and whose 13th hangs, accepted and never closed; the parent
+#: SIGKILLs it
+_CRASH_SCRIPT = """
+import os, sys, threading, time
+sys.path.insert(0, {repo!r})
+os.environ.setdefault("JAX_PLATFORMS", "cpu")
+
+from {pkg}.service import scheduler as sched_mod
+from {pkg}.service.daemon import Verifyd, VerifydConfig
+from {pkg}.service.client import VerifydClient, VerifydError
+
+state_dir, sock, hist_path = sys.argv[1], sys.argv[2], sys.argv[3]
+hist = open(hist_path, encoding="utf-8").read()
+
+calls = {{"n": 0}}
+def stub(h, budget, profile=False):
+    calls["n"] += 1
+    if calls["n"] <= 12:
+        raise RuntimeError("induced failure %d" % calls["n"])
+    time.sleep(600)
+sched_mod._cpu_check = stub
+
+import logging; logging.disable(logging.CRITICAL)
+cfg = VerifydConfig(socket_path=sock, state_dir=state_dir, device="off",
+                    no_viz=True, stats_log=None, workers=1, telemetry_sample_s=0.1,
+                    out_dir=os.path.join(state_dir, "viz"))
+daemon = Verifyd(cfg).__enter__()
+client = VerifydClient(sock, timeout=120)
+for i in range(12):
+    try:
+        client.submit(hist, client="burst%d" % i)
+    except VerifydError:
+        pass
+threading.Thread(target=lambda: client.submit(hist, client="hung"), daemon=True).start()
+while calls["n"] < 13 or daemon.telemetry.registry.get(
+    "verifyd_telemetry_points_total"
+).value(res="raw") < 4:
+    time.sleep(0.05)
+print("READY", flush=True)
+time.sleep(600)
+"""
+
+
+def test_doctor_reads_a_sigkilled_daemons_state_dir(tmp_path, capsys, obs):
+    """A daemon of either package SIGKILLed after an SLO breach with one job
+    hung: both packages' ``doctor`` read the state dir cold to the same
+    post-mortem and the same report — unclean death, the breach, the hung
+    orphan, the telemetry history — and cold ``tsq`` reads its rings."""
+    pkg = obs.daemon.__name__.split(".")[0]
+    state_dir, sock, hist_path = str(tmp_path / "state"), str(tmp_path / "v.sock"), tmp_path / "hist.jsonl"
+    hist_path.write_text(_good())
+    script = tmp_path / "crash.py"
+    script.write_text(_CRASH_SCRIPT.format(repo=str(ROOT), pkg=pkg))
+    proc = subprocess.Popen(
+        [sys.executable, str(script), state_dir, sock, str(hist_path)],
+        env=dict(os.environ, JAX_PLATFORMS="cpu"), stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True,
+    )
+    try:
+        line = proc.stdout.readline()
+        assert line.strip() == "READY", f"the crash script died early: {line!r}"
+        proc.kill()
+        proc.wait(timeout=30)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+        proc.stdout.close()
+    reports, pms = {}, {}
+    for name in ("s2_verification_tpu", "s2_verification_tpu_torch"):
+        capsys.readouterr()
+        assert importlib.import_module(f"{name}.cli").main(["doctor", "--state-dir", state_dir]) == 1
+        reports[name] = capsys.readouterr().out
+        pm = pms[name] = importlib.import_module(f"{name}.obs.flight").postmortem(state_dir)
+        assert not pm["clean_shutdown"] and pm["breaches"]
+        assert [o.get("client") for o in pm["orphans"]] == ["hung"]
+        assert pm["telemetry"]["resolutions"]["raw"]["records"] >= 4
+        assert not pm["slo_at_death"]["healthy"]
+    # Side by side, exact: the same post-mortem and the same report.
+    assert pms["s2_verification_tpu"] == pms["s2_verification_tpu_torch"]
+    assert reports["s2_verification_tpu"] == reports["s2_verification_tpu_torch"]
+    for out in reports.values():
+        for want in ("UNCLEAN DEATH", "SLO breaches recorded", "orphaned journal entries", "client=hung",
+                     "telemetry history", "flight tail"):
+            assert want in out, want
+    assert obs.cli.main(["tsq", "--state-dir", state_dir, "--metric", "verifyd_queue_depth"]) == 0
+    assert "verifyd_queue_depth" in capsys.readouterr().out

@@ -20,6 +20,8 @@ import pathlib
 import sys
 import textwrap
 
+import torch
+
 from s2_verification_tpu_torch.checker.device import check_device_auto
 from s2_verification_tpu_torch.checker.entries import prepare
 from s2_verification_tpu_torch.checker.resilient import DriveOutcome, default_probe_cmd, drive
@@ -27,6 +29,17 @@ from s2_verification_tpu_torch.collector.adversarial import adversarial_events
 from s2_verification_tpu_torch.utils import events as ev
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
+
+#: Thread budget.  Each pytest-xdist worker, and each child it spawns
+#: (through ``OMP_NUM_THREADS``), gets an intra-op pool sized to its share
+#: of the cores.  A pool as wide as the machine in every worker
+#: oversubscribes the host: torch's OpenMP threads spin-wait for their
+#: siblings, and a CPU search that takes seconds alone runs past the
+#: limits here.  Collection imports this module in every worker, and a
+#: run without xdist keeps the full pool.
+_THREADS = max(1, (os.cpu_count() or 1) // int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1")))
+os.environ.setdefault("OMP_NUM_THREADS", str(_THREADS))
+torch.set_num_threads(int(os.environ["OMP_NUM_THREADS"]))
 
 
 def _chip_smoke():

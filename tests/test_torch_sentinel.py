@@ -1,10 +1,12 @@
 """The perf sentinel (obs/sentinel.py) beside the JAX package's: the
-cases of ``tests/test_sentinel.py`` that need no telemetry store or alert
-engine, each run over both packages (EWMA fold math, the consecutive
-filter, latch and re-arm, the floor, per-shape independence, metrics), and
-the event stream's half of its routing case: ``done`` events through a
-``ServiceStats`` re-emit ``perf_regression`` and count it.  The routing
-into the alert engine waits for ``obs/alerts.py`` (ROADMAP.md queue 1).
+cases of ``tests/test_sentinel.py``, each run over both packages (EWMA fold
+math, the consecutive filter, latch and re-arm, the floor, per-shape
+independence, metrics), its routing case in two halves (``done`` events
+through a ``ServiceStats`` re-emit ``perf_regression`` and count it, and
+the alert engine pages on it), and the restart-surviving baselines of
+``tests/test_obs_v4.py``: ``seed_from_telemetry`` over a telemetry store
+fires a post-restart slowdown against the pre-restart baseline, keeps a
+latched shape latched, and yields to live samples.
 """
 
 import importlib
@@ -21,7 +23,8 @@ PACKAGES = ("s2_verification_tpu", "s2_verification_tpu_torch")
 def sen(request):
     return SimpleNamespace(**{
         name: importlib.import_module(f"{request.param}.{path}")
-        for name, path in (("sentinel", "obs.sentinel"), ("metrics", "obs.metrics"), ("stats", "service.stats"))
+        for name, path in (("sentinel", "obs.sentinel"), ("metrics", "obs.metrics"), ("stats", "service.stats"),
+                           ("alerts", "obs.alerts"), ("tsdb", "obs.tsdb"))
     })
 
 
@@ -147,3 +150,87 @@ def test_event_stream_reemits_perf_regression(sen):
     snap = stats.snapshot()
     assert snap["perf_regressions"] == 1
     assert snap["sentinel"]["regressions"] == 1
+
+
+def test_event_stream_routes_to_alert_engine(sen):
+    """done events → sentinel → perf_regression re-emit → counter + alert."""
+    reg = sen.metrics.MetricsRegistry()
+    fired = []
+
+    class _CaptureEngine(sen.alerts.AlertEngine):
+        def _deliver(self, alert):
+            fired.append(alert["rule"].name)
+
+    eng = _CaptureEngine("http://127.0.0.1:1/unused", registry=reg)
+    sentinel = sen.sentinel.PerfSentinel(fast(sen), registry=reg)
+    stats = sen.stats.ServiceStats(sink=None, registry=reg, sentinel=sentinel, alerts=eng)
+    try:
+        for _ in range(5):
+            stats.emit("done", shape="4x2x8", backend="native", wall_s=0.1)
+        stats.emit("done", shape="4x2x8", backend="native", wall_s=1.0)
+        stats.emit("done", shape="4x2x8", backend="native", wall_s=1.0)
+        assert eng.flush(timeout=10.0)
+        assert fired == ["perf_regression"]
+        snap = stats.snapshot()
+        assert snap["perf_regressions"] == 1
+        assert snap["sentinel"]["regressions"] == 1
+    finally:
+        eng.close()
+
+
+# -- restart-surviving baselines (test_obs_v4.py) ------------------------------
+
+
+def test_slowdown_across_restart_fires_perf_regression(tmp_path, sen):
+    """Boot 1 learns a baseline and dies; boot 2 seeds from the telemetry
+    store, so a post-restart slowdown is judged against the pre-restart
+    baseline and pages."""
+    PerfSentinel, SentinelConfig = sen.sentinel.PerfSentinel, sen.sentinel.SentinelConfig
+    tdir = str(tmp_path / "tel")
+    clock = [1000.0]
+    reg1 = sen.metrics.MetricsRegistry()
+    s1 = PerfSentinel(SentinelConfig(), registry=reg1, time_fn=lambda: clock[0])
+    for _ in range(12):
+        clock[0] += 1.0
+        assert s1.observe("64x5x8", 0.020, t=clock[0]) is None
+    store = sen.tsdb.TelemetryStore(tdir, reg1, time_fn=lambda: clock[0])
+    store.sample_once()
+    store.close()
+
+    s2 = PerfSentinel(SentinelConfig(), registry=sen.metrics.MetricsRegistry(), time_fn=lambda: clock[0])
+    _t, finals = sen.tsdb.last_values(tdir)
+    assert sen.sentinel.seed_from_telemetry(s2, finals) == 1
+    snap = s2.snapshot()["shapes"]["64x5x8"]
+    assert snap["baseline_wall_s"] == pytest.approx(0.020)
+    assert snap["samples"] > SentinelConfig().min_samples
+    reports = []
+    for _ in range(3):
+        clock[0] += 1.0
+        reports.append(s2.observe("64x5x8", 0.080, t=clock[0]))
+    assert reports[0] is None and reports[1] is None
+    assert reports[2] is not None and reports[2]["shape"] == "64x5x8"
+    assert reports[2]["baseline_wall_s"] < 0.03
+    # control: an unseeded sentinel is cold and never fires on the same three
+    s3 = PerfSentinel(SentinelConfig(), registry=sen.metrics.MetricsRegistry())
+    assert all(s3.observe("64x5x8", 0.080, t=2000.0 + i) is None for i in range(3))
+
+
+def test_latched_shape_stays_latched_across_restart(sen):
+    values = {
+        'verifyd_perf_baseline_wall_seconds{shape="8x3x4"}': 0.02,
+        'verifyd_perf_regression_fired{shape="8x3x4"}': 1.0,
+        'verifyd_perf_baseline_wall_seconds{shape="bad"}': 0.0,  # rejected
+    }
+    s = sen.sentinel.PerfSentinel(sen.sentinel.SentinelConfig(), registry=sen.metrics.MetricsRegistry())
+    assert sen.sentinel.seed_from_telemetry(s, values) == 1
+    assert s.observe("8x3x4", 0.080, t=1.0) is None  # latched: must not re-page
+    assert s.observe("8x3x4", 0.020, t=2.0) is None  # recovery re-arms
+    fired = [s.observe("8x3x4", 0.080, t=3.0 + i) for i in range(3)]
+    assert fired[2] is not None
+
+
+def test_live_samples_outrank_history(sen):
+    s = sen.sentinel.PerfSentinel(sen.sentinel.SentinelConfig(), registry=sen.metrics.MetricsRegistry())
+    s.observe("s", 0.01, t=1.0)
+    assert s.seed("s", 9.9) is False
+    assert s.snapshot()["shapes"]["s"]["baseline_wall_s"] == 0.01
