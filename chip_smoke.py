@@ -86,7 +86,7 @@ on the first failed phase:
    bit-exact;
 10. the host-RAM spill and checkpoints (``device._spill_search``,
    ``checker/checkpoint.py``), each run timed on its first call and warm
-   (but (b) and (d)),
+   (but (a), (b) and (d)),
    with its streamed layers, slabs per streamed layer, slab halvings and
    hybrid in-core segments, host syncs, seconds in ``_dedup_rows``, peak
    device memory and the host's peak RSS, and its fold calls bit-exact
@@ -211,7 +211,31 @@ on the first failed phase:
    launch, no CPU rung and no child, and a cold ``tsq --telemetry-dir``
    agrees with what its live ``tsq`` op gave; then every fold call of the
    phase bit-exact against the plain fold;
-17. the kernel list, one JSON line of kernel measurements, and as the last
+17. batching, prefix resume and the operator commands: the port's
+   ``serve`` as its own process (through :data:`VERIFYD_WRAPPER`): (a)
+   ``--device inline --batching --batch-engine vmap --time-budget 2
+   --workers 1``: the eight match-seq-num 5×200 histories of
+   :data:`PHASE17_SEEDS` (one shape key, printed) from eight client threads
+   at once, sent once the one worker has started phase 7's headline (so
+   the burst queues behind a busy worker): every verdict equal to the
+   one-shot ``check``'s, at least one vmap launch of two lanes or more,
+   every lane decided by the vmap launches (the ``batch_launch`` events:
+   lanes, decided, early exits, occupancy, wall; every reply's backend
+   ``batch-vmap``), the fold launched in the daemon, the
+   burst's wall, p50 / p95 and ops/s beside a daemon without
+   ``--batching``; (b) ``--device supervised --prefix --state-dir D
+   --time-budget 2``: ``follow`` over phase 7's headline in windows of
+   :data:`FOLLOW_WINDOW` events (every window OK and carried, no fold
+   launch), the daemon SIGKILLed after half of them and the next boot
+   carrying on from ``--frontier`` with no resync, the rest of the stream
+   answered as one window; 60% of the headline at a closed cut and then
+   the whole headline (a ``prefix_hit`` with ``resume_ops`` > 0, the
+   verdict of a cold ``check``); the main path's k=10, whose cold prefix
+   plan runs out of the budget and escalates to a supervised child (11
+   fold launches, :data:`K10_DEVICE_STATS`); (c) ``trace``, ``watch`` and
+   one ``dash`` frame against (b)'s daemon, exit 0 each; then every fold
+   call of the phase bit-exact against the plain fold;
+18. the kernel list, one JSON line of kernel measurements, and as the last
    line ``{"ok": true, "device": {...}}``.
 
 Fold times are per call, from CUDA events: ``call`` with back-to-back
@@ -480,6 +504,14 @@ if role == "serve-inline":
     record_folds()
 sys.exit(cli.main(argv))
 """
+#: phase 17 (a): ``TABLE_CONFIGS``' match-seq-num 5×200 at the seeds from
+#: 4242 up whose histories share the shape key ``1024x12x16`` (seeds
+#: 4242–4249 give three keys: 1024x8x16, 1024x12x16 and 1024x16x16), so
+#: the eight form one shape group
+PHASE17_SHAPE = ("match-seq-num", 5, 200)
+PHASE17_SEEDS = [4244, 4245, 4249, 4250, 4251, 4254, 4255, 4256]
+#: phase 17 (b): the follow window, in events
+FOLLOW_WINDOW = 2048
 #: ``scripts/table_bench.py:27-33`` without the CPU-intractable 16×2000.
 TABLE_CONFIGS = [
     ("regular", 2, 50),
@@ -1042,12 +1074,14 @@ def run_spill_phase(dev_mod, fold_cuda, xxh3, fb, prepare, adversarial_events, r
         recheck_calls(calls, tag)
         return res, first
 
-    # (a) The tier hands the unsatisfiable k=8 to the spill.
+    # (a) The tier hands the unsatisfiable k=8 to the spill.  No warm call
+    # since phase 17, for the script's time limit: with it the script took
+    # 958.6 s on an H100 at 700 W, 14.3 s of it in this warm call.
     k8 = prepare(adversarial_events(8, batch=100, seed=0, unsatisfiable=True))
     kw_a = dict(max_frontier=1 << 10, device_rows_cap=SPILL_K8_ROWS, beam=False, spill=True, collect_stats=True)
     tag = "spill (a): unsatisfiable k=8, 2^10-row bucket, tier to 2^16 rows, then the spill"
     _, first = first_and_warm(tag, lambda: dev_mod.check_device(k8, **kw_a), "illegal", TIER_K8_UNSAT_STATS,
-                              SPILL_K8_SLABS)
+                              SPILL_K8_SLABS, warm_calls=0)
     out["launches_by_path"]["unsatisfiable k=8, tier to 2^16 rows, then the spill (a)"] = first["launches"]
 
     # (b) The unsatisfiable k=9 at a 2^17-row bucket: straight into the
@@ -2780,6 +2814,315 @@ def run_durable_phase(dev_mod, fb, prepare, recheck_calls, k10_events, device=No
     return out
 
 
+def _closed_cut(lines, frac) -> int:
+    """The line count nearest ``frac`` of ``lines`` after which no call is
+    open (a cut no op spans)."""
+    from s2_verification_tpu_torch.utils import events as ev
+
+    open_ops, cuts = set(), []
+    for i, line in enumerate(lines):
+        le = ev.decode_obj(json.loads(line))
+        (open_ops.add if le.is_start else open_ops.discard)((le.client_id, le.op_id))
+        if not open_ops and 0 < i + 1 < len(lines):
+            cuts.append(i + 1)
+    return min(cuts, key=lambda c: abs(c - frac * len(lines)))
+
+
+def _quantiles(xs) -> tuple:
+    q = sorted(xs)
+    return q[len(q) // 2], q[min(len(q) - 1, int(0.95 * len(q)))]
+
+
+def run_batch_prefix_phase(dev_mod, fb, prepare, recheck_calls, k10_events, headline_events, batch_events,
+                           device=None, budget_s=2.0, window=FOLLOW_WINDOW) -> dict:
+    """Phase 17, the rest of single-node verifyd on the card: the port's
+    ``serve`` as its own process (through :data:`VERIFYD_WRAPPER`) —
+    (a) ``--batching --batch-engine vmap`` with ``--device inline``: a burst
+    of ``batch_events`` (one shape group) from as many client threads,
+    against a daemon without ``--batching``; (b) ``--device supervised
+    --prefix --state-dir D``: ``follow`` over ``headline_events`` in
+    windows of ``window`` events, SIGKILLed after half of them and carried
+    on by the next boot from the store, a 60% cut and the whole headline
+    submitted (a ``prefix_hit``), and ``k10_events``, whose cold prefix plan
+    runs out of the CPU budget and escalates to the card in a supervised
+    child; (c) ``trace``, ``watch`` and one ``dash`` frame against (b)'s
+    daemon.  ``device=None`` is the card, ``"cpu"`` rehearses the phase on
+    the CPU (``--torch-device cpu``).  Returns the fold launches by path
+    and the walls."""
+    from s2_verification_tpu_torch import cli
+    from s2_verification_tpu_torch.service.client import VerifydClient
+    from s2_verification_tpu_torch.service.prefixstore import read_cold
+    from s2_verification_tpu_torch.service.scheduler import shape_key
+
+    t_phase = time.monotonic()
+    card = fb.card()
+    out = {"launches_by_path": {}, "walls": {}}
+    torch_dev = [] if device is None else ["--torch-device", device]
+
+    def wall(tag, seconds):
+        out["walls"][tag] = seconds
+        print(f"batch-prefix {tag}: {seconds:.3f} s wall; {card}", flush=True)
+
+    def quiet_cli(argv):
+        """``cli.main(argv)`` in this process: exit code and stdout."""
+        buf = io.StringIO()
+        logger = logging.getLogger("s2_verification_tpu_torch.cli")
+        level = logger.level
+        logger.setLevel(logging.WARNING)
+        try:
+            with contextlib.redirect_stdout(buf):
+                rc = cli.main(argv)
+        finally:
+            logger.setLevel(level)
+        return rc, buf.getvalue()
+
+    def launches(d):
+        return d.client.stats()["introspection"]["launches"]
+
+    def burst(d, texts, blocker=None):
+        """Every text from its own client thread at once: replies,
+        latencies, the burst's wall.  With a ``blocker`` text, that one is
+        submitted first and the burst goes out once the daemon has started
+        it, so the burst queues behind a busy worker (its reply is
+        returned last)."""
+        replies, lat = [None] * len(texts), [0.0] * len(texts)
+        gate = threading.Barrier(len(texts) + 1)
+        held: dict = {}
+        if blocker is not None:
+            th = threading.Thread(target=lambda: held.update(
+                VerifydClient(d.sock, timeout=900).submit(blocker, client="blocker", no_viz=True)))
+            th.start()
+            t0 = time.monotonic()
+            while d.client.stats()["active"] < 1:
+                if time.monotonic() - t0 > 60 or not th.is_alive():
+                    fail(f"batch-prefix: the blocker never started on {d.tag}: {held}")
+                time.sleep(0.002)
+
+        def one(i):
+            c = VerifydClient(d.sock, timeout=900)
+            gate.wait()
+            t = time.monotonic()
+            replies[i] = c.submit(texts[i], client=f"b{i}", no_viz=True)
+            lat[i] = time.monotonic() - t
+
+        threads = [threading.Thread(target=one, args=(i,)) for i in range(len(texts))]
+        for t in threads:
+            t.start()
+        gate.wait()
+        t0 = time.monotonic()
+        for t in threads:
+            t.join(timeout=900)
+        took = time.monotonic() - t0
+        if any(t.is_alive() for t in threads) or None in replies:
+            fail(f"batch-prefix: a burst submit to {d.tag} never came back")
+        if blocker is not None:
+            th.join(timeout=900)
+        return replies, lat, took, held
+
+    with tempfile.TemporaryDirectory() as tmp:
+        serve = ServeProcesses(tmp, "batch-prefix", [*torch_dev, "--no-viz"])
+        try:
+            # (a) Batching on the card: one shape group in a burst.
+            keys = [shape_key(prepare(e, elide_trivial=True)) for e in batch_events]
+            if len(set(keys)) != 1:
+                fail(f"batch-prefix (a): the histories' shape keys differ: {keys}")
+            paths = [serve.history_file(f"b{i}", e) for i, e in enumerate(batch_events)]
+            want = [quiet_cli(["check", "-file", p, "-no-viz"])[0] for p in paths]
+            texts = []
+            for p in paths:
+                with open(p, encoding="utf-8") as f:
+                    texts.append(f.read())
+            print(f"batch-prefix (a): {len(texts)} histories, every shape key {keys[0]} (one shape group); "
+                  f"one-shot `check` exits {want}; the burst goes out once the one worker has started phase "
+                  f"7's headline (its native rung), so it queues behind a busy worker", flush=True)
+            da = serve.boot("a", "inline", "--batching", "--batch-engine", "vmap", "--time-budget", str(budget_s),
+                            "--workers", "1")
+            n0 = launches(da)["inline"].get("fold_lanes", 0)
+            with open(serve.history_file("headline", headline_events), encoding="utf-8") as f:
+                blocker = f.read()
+            replies, lat, burst_wall, held = burst(da, texts, blocker)
+            n_a = launches(da)["inline"].get("fold_lanes", 0) - n0
+            snap = da.client.stats()
+            groups = [e for e in serve.events_of(da) if e["ev"] == "batch_launch"]
+            got = [r["verdict"] for r in replies]
+            if got != want:
+                fail(f"batch-prefix (a): verdicts {got} != one-shot check's {want}")
+            if snap["batch_launches"] < 1 or max((e["lanes"] for e in groups), default=0) < 2:
+                fail(f"batch-prefix (a): {snap['batch_launches']} launches, lanes {[e['lanes'] for e in groups]}")
+            if device is None and n_a <= 0:
+                fail(f"batch-prefix (a): {n_a} fold launches in the daemon")
+            # Every lane decided by the vmap launches themselves: a lane
+            # they leave undecided falls back to the sequential portfolio,
+            # which would hold the native rung against one-shot `check`.
+            backends = sorted({r["backend"] for r in replies})
+            if sum(e["decided"] for e in groups) != len(texts) or backends != ["batch-vmap"]:
+                fail(f"batch-prefix (a): the vmap launches decided {[e['decided'] for e in groups]} of "
+                     f"{len(texts)} lanes, reply backends {backends}")
+            if held.get("verdict") != 0:
+                fail(f"batch-prefix (a): the headline ahead of the burst: {held}")
+            ops = sum(r["ops"] for r in replies)
+            p50, p95 = _quantiles(lat)
+            for e in groups:
+                print(f"batch-prefix (a): launch {e['engine']}: {e['lanes']} lanes, {e['decided']} decided, "
+                      f"{e['early_exits']} early exits, occupancy {e['occupancy']}, late join {e['late_join']}, "
+                      f"wall {e['wall_s']} s", flush=True)
+            print(f"batch-prefix (a): backends {sorted(r['backend'] for r in replies)}; burst wall "
+                  f"{burst_wall:.3f} s, {ops} ops, {ops / burst_wall:.0f} ops verified per s, submit latency p50 "
+                  f"{p50:.3f} s p95 {p95:.3f} s; {snap['batch_launches']} launches, {snap['batch_lanes']} lanes; "
+                  f"fold launches counted in the daemon {n_a}; every verdict == one-shot `check`; the headline "
+                  f"ahead of it: {held['backend']}, daemon {held['wall_s']} s", flush=True)
+            out["launches_by_path"]["8 match-seq-num 5x200 in the batching daemon's vmap launches (17a)"] = n_a
+            wall("(a) inline batching boot", da.boot_s)
+            wall("(a) burst", burst_wall)
+            serve.stop(da)
+            # The same burst through a daemon without --batching (the
+            # sequential path: its native rung decides each history, so
+            # it runs supervised, with no torch to load).
+            dp = serve.boot("a-plain", "supervised", "--time-budget", str(budget_s), "--workers", "1")
+            replies_p, lat_p, wall_p, _ = burst(dp, texts, blocker)
+            if [r["verdict"] for r in replies_p] != want:
+                fail(f"batch-prefix (a): the plain daemon's verdicts {[r['verdict'] for r in replies_p]}")
+            q50, q95 = _quantiles(lat_p)
+            print(f"batch-prefix (a): without --batching: backends {sorted({r['backend'] for r in replies_p})}; "
+                  f"burst wall {wall_p:.3f} s, {ops / wall_p:.0f} ops verified per s, p50 {q50:.3f} s p95 "
+                  f"{q95:.3f} s", flush=True)
+            wall("(a) burst without --batching", wall_p)
+            serve.stop(dp)
+
+            # (b) Prefix resume: follow, SIGKILL, carry on from the store.
+            state = os.path.join(tmp, "state")
+            buf = io.StringIO()
+            from s2_verification_tpu_torch.utils import events as ev
+
+            ev.write_history(headline_events, buf)
+            lines = [ln for ln in buf.getvalue().splitlines() if ln.strip()]
+            wins = [w for w, _ in cli._iter_follow_windows(lines, window)]
+            # The windows cut at `window` events (every one but the EOF
+            # remainder, which is answered on its own below).
+            closed, tail = wins[:-1], wins[-1]
+            half = len(closed) // 2
+
+            def follow(d, chunks, token, tag):
+                path = os.path.join(tmp, f"follow-{tag}.jsonl")
+                with open(path, "w", encoding="utf-8") as f:
+                    f.write("".join(line + "\n" for w in chunks for line in w))
+                argv = ["follow", "-file", path, "-socket", d.sock, "--stream", "headline", "--window",
+                        str(window), "-stats"] + (["--frontier", token] if token else [])
+                t0 = time.monotonic()
+                rc, text = quiet_cli(argv)
+                rows = [json.loads(line) for line in text.splitlines() if line.strip()]
+                if rc != 0 or len(rows) != len(chunks) or any(
+                        (r["verdict"], r["advanced"], r["attempt"]) != (0, True, 0) for r in rows):
+                    fail(f"batch-prefix (b) {tag}: follow exit {rc}, rows {rows}")
+                return rows, time.monotonic() - t0
+
+            prefix_flags = ["--prefix", "--state-dir", state, "--time-budget", str(budget_s), "--profile"]
+            db = serve.boot("b", "supervised", *prefix_flags)
+            rows1, fw1 = follow(db, closed[:half], None, "first")
+            token = rows1[-1]["frontier"]
+            db.proc.send_signal(signal.SIGKILL)
+            db.proc.wait(timeout=60)
+            db.err.close()
+            db2 = serve.boot("b2", "supervised", *prefix_flags)
+            loaded = [e for e in serve.events_of(db2) if e["ev"] == "prefix_loaded"]
+            rows2, fw2 = follow(db2, closed[half:], token, "second")
+            if rows2[0]["backend"] != "frontier-resume" or not loaded or loaded[0]["entries"] < half:
+                fail(f"batch-prefix (b): after the SIGKILL the follow did not resume from the store: "
+                     f"{rows2[0]}, {loaded}")
+            rest = db2.client.follow("".join(line + "\n" for line in tail), stream="headline",
+                                     frontier=rows2[-1]["frontier"])
+            if rest["verdict"] != 0:
+                fail(f"batch-prefix (b): the remaining {len(tail)} events: {rest}")
+            child = launches(db2)["children"]
+            if child or any(n.startswith("folds-child") for n in os.listdir(serve.record)):
+                fail(f"batch-prefix (b): the follow windows launched the fold: {child}")
+            window_walls = [r["wall_s"] for r in rows1 + rows2]
+            w50, w95 = _quantiles(window_walls)
+            print(f"batch-prefix (b): follow in windows of {window} events: {len(rows1)} windows "
+                  f"({rows1[-1]['ops_total']} ops) in {fw1:.3f} s, SIGKILL, boot 2 in {db2.boot_s:.3f} s "
+                  f"(prefix_loaded {loaded[0]['entries']} entries), {len(rows2)} more from --frontier "
+                  f"{token} in {fw2:.3f} s, no resync, the first `frontier-resume` in {rows2[0]['wall_s']} s "
+                  f"(daemon); every window OK and carried, window walls p50 {w50} s p95 {w95} s (daemon); "
+                  f"0 fold launches; the remaining {len(tail)} events (to EOF, one window): verdict "
+                  f"{rest['verdict']}, carried {rest['advanced']} ({rest['backend']})", flush=True)
+            out["launches_by_path"]["follow windows of the headline (17b)"] = 0
+            wall("(b) boot after the SIGKILL", db2.boot_s)
+            wall("(b) first resumed window (daemon)", rows2[0]["wall_s"])
+            wall("(b) follow windows p50 (daemon)", w50)
+            wall("(b) follow windows p95 (daemon)", w95)
+
+            path_h = serve.history_file("headline", headline_events)
+            cut = _closed_cut(lines, 0.6)
+            path_60 = os.path.join(tmp, "headline-60.jsonl")
+            with open(path_60, "w", encoding="utf-8") as f:
+                f.write("".join(line + "\n" for line in lines[:cut]))
+            cold = quiet_cli(["check", "-file", path_h, "-no-viz"])[0]
+            r60 = db2.client.submit(open(path_60, encoding="utf-8").read(), client="h60", no_viz=True)
+            t0 = time.monotonic()
+            rh = db2.client.submit(open(path_h, encoding="utf-8").read(), client="head", no_viz=True)
+            wall_h = time.monotonic() - t0
+            hits = [e for e in serve.events_of(db2) if e["ev"] == "prefix_hit"]
+            if r60["verdict"] != 0 or rh["verdict"] != cold or not hits or hits[-1]["resume_ops"] <= 0 or (
+                    not rh["backend"].startswith("frontier-resume")):
+                fail(f"batch-prefix (b): the 60% cut {r60}, the headline {rh} (cold check exit {cold}), "
+                     f"prefix_hit events {hits}")
+            print(f"batch-prefix (b): 60% of the headline ({cut} of {len(lines)} events, a closed cut): "
+                  f"{r60['backend']} {r60['wall_s']} s; the whole headline: prefix_hit, resume_ops "
+                  f"{hits[-1]['resume_ops']} of {hits[-1]['ops']}, {rh['backend']}, daemon {rh['wall_s']} s, "
+                  f"client {wall_h:.3f} s, verdict {rh['verdict']} == a cold `check`'s exit {cold}", flush=True)
+            wall("(b) the whole headline after the 60% cut", wall_h)
+
+            c0 = launches(db2)["children"].get("fold_lanes", 0)
+            t0 = time.monotonic()
+            r10 = db2.client.submit(open(serve.history_file("k10", k10_events), encoding="utf-8").read(),
+                                    client="k10", no_viz=True)
+            wall_10 = time.monotonic() - t0
+            n_10 = launches(db2)["children"].get("fold_lanes", 0) - c0
+            with open(os.path.join(serve.record, f"job-{db2.pid}-{r10['job']}.json"), encoding="utf-8") as f:
+                rec = json.load(f)
+            pinned = {k: (rec["stats"] or {}).get(k) for k in K10_DEVICE_STATS}
+            spans = serve.job_spans(db2, r10["job"])
+            if r10["verdict"] != 0 or r10["backend"] != "device-supervised" or "search.cold" not in spans:
+                fail(f"batch-prefix (b): k=10 {r10}, spans {sorted(spans)}")
+            if device is None and (n_10 != 11 or pinned != K10_DEVICE_STATS):
+                fail(f"batch-prefix (b): k=10's child made {n_10} fold launches, statistics {pinned}")
+            store = read_cold(state)
+            print(f"batch-prefix (b): k=10: its cold prefix plan (`search.cold`, {spans['search.cold']:.3f} s "
+                  f"against the {budget_s} s budget) escalated to a supervised child: backend {r10['backend']}, "
+                  f"escalation {spans.get('device[supervised]', 0):.3f} s, client {wall_10:.3f} s, {n_10} fold "
+                  f"launches, statistics {pinned}; the store: {store['entries']} entries, {store['bytes']} bytes, "
+                  f"deepest {store['deepest_ops']} ops", flush=True)
+            out["launches_by_path"]["adversarial k=10 prefix-planned, escalated in the supervised child (17b)"] = n_10
+            wall("(b) k=10 prefix-planned", wall_10)
+            wall("(b) k=10 cold prefix search", spans["search.cold"])
+
+            # (c) The operator commands against (b)'s daemon.
+            walls_c = {}
+            for name, argv in (("trace", ["trace", "-socket", db2.sock, "-out", os.path.join(tmp, "trace.json")]),
+                               ("watch", ["watch", "-socket", db2.sock, "--iterations", "1"]),
+                               ("dash", ["dash", "-socket", db2.sock, "--iterations", "1"])):
+                t0 = time.monotonic()
+                rc, text = quiet_cli(argv)
+                walls_c[name] = time.monotonic() - t0
+                if rc != 0:
+                    fail(f"batch-prefix (c): `{name}` exit {rc}")
+            with open(os.path.join(tmp, "trace.json"), encoding="utf-8") as f:
+                spans_n = len(json.load(f)["traceEvents"])
+            print(f"batch-prefix (c): `trace` ({spans_n} events), `watch` and one `dash` frame against (b)'s "
+                  f"daemon: exit 0 each, in " + ", ".join(f"{k} {v:.3f} s" for k, v in walls_c.items()), flush=True)
+            serve.stop(db2)
+        finally:
+            serve.kill_all()
+        calls = serve.fold_calls(device)
+        if device is None and len(calls) != n_a + n_10:
+            fail(f"batch-prefix: {len(calls)} recorded fold calls, {n_a} + {n_10} counted")
+        if calls:
+            recheck_calls(calls, "batching and prefix (phase 17)")
+        print(f"batch-prefix: {len(calls)} recorded fold calls, bit-exact", flush=True)
+    out["seconds"] = time.monotonic() - t_phase
+    return out
+
+
 def _stats_view(stats) -> dict:
     """Search statistics of a result, the profile timeline without its wall
     times: equal between a child and the same call in process."""
@@ -3434,6 +3777,12 @@ def main() -> int:
     phase16 = run_durable_phase(dev_mod, fb, prepare, recheck_calls, main_events)
     print(f"phase 16 (verifyd durability): {phase16['seconds']:.1f} s", flush=True)
     kernels[0]["launches_by_path"].update(phase16["launches_by_path"])
+
+    # -- 17. batching, prefix resume and the operator commands --------------
+    phase17 = run_batch_prefix_phase(dev_mod, fb, prepare, recheck_calls, main_events, headline_events,
+                                     collect_lanes(PHASE17_SHAPE, PHASE17_SEEDS))
+    print(f"phase 17 (batching and prefix resume): {phase17['seconds']:.1f} s", flush=True)
+    kernels[0]["launches_by_path"].update(phase17["launches_by_path"])
 
     print(f"kernels: {', '.join(k['name'] for k in kernels)}", flush=True)
     print(f"total {time.monotonic() - t_start:.1f} s", flush=True)

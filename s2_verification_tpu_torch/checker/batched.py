@@ -21,10 +21,11 @@ behind one result shape.
   never pruned; anything else returns ``None`` and the caller escalates
   that lane on the sequential path.  No witness is recovered.
 
-The JAX engines' ``skip``, ``on_lane``, ``progress``, ``profile`` and
-``prune`` keywords, ``BatchLane.time_budget_s`` and ``default_engine``
-serve only that package's daemon (``service/batcher.py``); they come back
-with the port's daemon.
+The daemon's batcher (``service/batcher.py``) drives both engines
+through their ``skip`` (a lane's cancel or deadline at the launch
+boundary), ``on_lane`` (answer a native lane's client as it decides),
+``progress`` (one heartbeat sink a lane), ``profile`` and ``prune``
+keywords, and picks the engine with :func:`default_engine`.
 
 The JAX launch pads its lane count to a power of two (repeating the last
 lane) to bound its compile variants.  This port compiles nothing per
@@ -38,16 +39,8 @@ import time
 from dataclasses import dataclass
 
 from ..models.encode import EncodedHistory
-from .device import (
-    STOP_ACCEPT,
-    STOP_EMPTY,
-    build_tables,
-    init_frontier,
-    resolve_device,
-    run_search_lanes,
-)
 from .entries import History
-from .native import check_native
+from .native import check_native, native_available
 from .oracle import CheckOutcome, CheckResult
 
 __all__ = [
@@ -56,6 +49,7 @@ __all__ = [
     "VMAP_LANE_CAPACITY",
     "check_batch_native",
     "check_batch_vmap",
+    "default_engine",
 ]
 
 #: Beam capacity per vmap lane.  Collector-shaped histories decide at tiny
@@ -71,6 +65,7 @@ class BatchLane:
 
     history: History
     enc: EncodedHistory
+    time_budget_s: float | None = None
 
 
 @dataclass
@@ -93,25 +88,77 @@ class LaneVerdict:
     skipped: str | None = None
 
 
-def check_batch_native(lanes: list[BatchLane]) -> list[LaneVerdict]:
-    """Run each lane through the native engine without re-encoding."""
+def default_engine() -> str:
+    """'native' when the C++ engine builds, else 'vmap'."""
+    return "native" if native_available() else "vmap"
+
+
+def check_batch_native(
+    lanes: list[BatchLane],
+    skip=None,
+    profile: bool = False,
+    on_lane=None,
+    progress=None,
+    prune: bool = False,
+) -> list[LaneVerdict]:
+    """Run each lane through the native engine without re-encoding.
+
+    ``skip(i)`` is consulted immediately before lane *i* dispatches and
+    returns a reason string to skip it (cancelled / deadline passed) or
+    ``None`` to run it.  ``on_lane(i, verdict)`` fires the moment lane *i*
+    decides, while later lanes are still to run.  ``progress`` is an
+    optional per-lane sequence of :class:`.progress.ProgressSink` (or
+    ``None``): the C call blocks, so each lane offers a baseline before its
+    search and a final sample after it.
+    """
     out: list[LaneVerdict] = []
-    for lane in lanes:
-        t0 = time.monotonic()
-        res = check_native(lane.history, enc=lane.enc)
-        out.append(LaneVerdict(res, "batch-native", time.monotonic() - t0))
+    for i, lane in enumerate(lanes):
+        sink = progress[i] if progress is not None else None
+        reason = skip(i) if skip is not None else None
+        if reason is not None:
+            v = LaneVerdict(None, "batch-native", 0.0, skipped=reason)
+        else:
+            total = len(lane.history.ops)
+            if sink is not None:
+                sink.update(ops_committed=0, total_ops=total, engine="batch-native")
+            t0 = time.monotonic()
+            res = check_native(
+                lane.history,
+                time_budget_s=lane.time_budget_s,
+                profile=profile,
+                enc=lane.enc,
+                prune=prune,
+            )
+            v = LaneVerdict(res, "batch-native", time.monotonic() - t0)
+            if sink is not None:
+                done = res.linearization if res.outcome == CheckOutcome.OK else res.deepest
+                sink.update(
+                    ops_committed=len(done or []),
+                    total_ops=total,
+                    states_expanded=res.steps,
+                    engine="batch-native",
+                    final=True,
+                )
+        out.append(v)
+        if on_lane is not None:
+            on_lane(i, v)
     return out
 
 
 def _mega_launch(tables, frontiers, max_layers):
     """The launch group's one lane-batched search (the JAX engine's
     ``jit(vmap(run_search))`` with ``allow_prune=True``)."""
+    from .device import run_search_lanes
+
     return run_search_lanes(tables, frontiers, max_layers)
 
 
 def check_batch_vmap(
     lanes: list[BatchLane],
+    skip=None,
     capacity: int = VMAP_LANE_CAPACITY,
+    progress=None,
+    prune: bool = False,
     device=None,
 ) -> list[LaneVerdict]:
     """One lane-batched frontier search over the whole launch group.
@@ -121,7 +168,18 @@ def check_batch_vmap(
     rules; undecidable lanes return ``result=None``.  ``device`` is the
     search's device, CUDA unless the caller names another
     (:func:`.device.resolve_device`).
+
+    ``skip`` and ``progress`` are as in :func:`check_batch_native`; the
+    whole group is one launch, so each live lane's sink gets a baseline
+    before it and a final sample after, with the lane's own latched layer
+    count.  ``prune`` builds each lane's tables with the verdict-exact
+    prune rules (:func:`.device.build_tables`).
+
+    Only this engine loads torch (and the device search), when it is
+    called: a native batching daemon never does.
     """
+    from .device import STOP_ACCEPT, STOP_EMPTY, build_tables, init_frontier, resolve_device
+
     dev = resolve_device(device)
     n = len(lanes)
     verdicts: list[LaneVerdict | None] = [None] * n
@@ -129,6 +187,10 @@ def check_batch_vmap(
     tables_list = []
     frontier_list = []
     for i, lane in enumerate(lanes):
+        reason = skip(i) if skip is not None else None
+        if reason is not None:
+            verdicts[i] = LaneVerdict(None, "batch-vmap", 0.0, skipped=reason)
+            continue
         enc = lane.enc
         if enc.total_remaining == 0:
             # The forced prefix consumed every op: trivially OK, as in
@@ -150,13 +212,17 @@ def check_batch_vmap(
             # More initial states than lane capacity: sequential path.
             verdicts[i] = LaneVerdict(None, "batch-vmap", 0.0, skipped="init-overflow")
             continue
-        tables_list.append(build_tables(enc, dev))
+        tables_list.append(build_tables(enc, dev, prune=prune))
         live.append(i)
 
     if not live:
         return verdicts  # type: ignore[return-value]  (all entries set)
 
     max_layers = max(lanes[i].enc.total_remaining for i in live) + 2
+    if progress is not None:
+        for i in live:
+            if progress[i] is not None:
+                progress[i].update(ops_committed=0, total_ops=len(lanes[i].history.ops), engine="batch-vmap")
     t0 = time.monotonic()
     outs = _mega_launch(tables_list, frontier_list, max_layers)
     wall = time.monotonic() - t0
@@ -169,4 +235,14 @@ def check_batch_vmap(
         else:
             res = None  # pruned dead end / layer cap: escalate this lane
         verdicts[i] = LaneVerdict(res, "batch-vmap", wall, layers=out.layers)
+        sink = progress[i] if progress is not None else None
+        if sink is not None:
+            total = len(lanes[i].history.ops)
+            sink.update(
+                ops_committed=total if out.stop_code == STOP_ACCEPT else 0,
+                total_ops=total,
+                layer=out.layers,
+                engine="batch-vmap",
+                final=True,
+            )
     return verdicts  # type: ignore[return-value]

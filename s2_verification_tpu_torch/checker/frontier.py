@@ -27,11 +27,23 @@ Key structural facts it exploits (see checker/entries.py):
 - BFS layers are exhaustive: every linearization has length N, success iff
   some configuration completes all chains, failure iff a layer is empty.
 
-The JAX engine's prefix resume and snapshot cuts (``init_counts``,
-``init_states``, ``snapshot_cuts``, ``complete_cuts``, ``state_digest``)
-and its ``progress`` sink serve that package's ``checker/prefix.py``,
-``service/distsearch.py`` and daemon, which the port does not have yet;
-they come with the slice that ports those callers.
+**Prefix resume & snapshot cuts** (the incremental-verification engine,
+see checker/prefix.py): because ops are call-ordered, a boundary after op
+K with ``max(ret of ops[:K]) < min(call of ops[K:])`` is *prefix-closed* —
+the candidate rule forces every linearization to commit exactly
+``ops[:K]`` before any later op.  ``step_set`` distributes over unions of
+state sets and the candidate/acceptance rules depend only on counts, so
+the *union* of every reachable state set at that cut is a single carried
+configuration that is verdict-equivalent to restarting from op 0:
+resume-OK iff cold-OK, provided the union is exact.  ``check_frontier``
+therefore accepts ``init_counts``/``init_states`` (resume from a carried
+cut) and ``snapshot_cuts`` (collect those unions during the search); a
+cut's union is only *complete* — and only then emitted on
+``res.snapshots`` — once every configuration in a layer has linearized
+past it, and any beam prune invalidates cuts not yet complete (a pruned
+branch could have contributed states; a subset union can produce a false
+ILLEGAL on resume, which is exactly the unsoundness the completeness rule
+exists to prevent).
 
 **Auto-close** (an optimization the reference's Porcupine search lacks):
 an indefinite-failure append whose effect branch is *dead forever* — its
@@ -49,18 +61,31 @@ from __future__ import annotations
 
 import time
 import zlib
+from bisect import bisect_left
+from typing import Iterable
 
 from ..models.stream import APPEND, INIT_STATE, StreamState, step_set
 from .entries import History, Op
 from .oracle import CheckOutcome, CheckResult
 from .stats import FrontierStats
 
-__all__ = ["check_frontier", "check_frontier_auto", "FrontierStats"]
+__all__ = ["check_frontier", "check_frontier_auto", "FrontierStats", "state_digest"]
 
 
 def _state_canon(s: StreamState) -> str:
-    """The canonical text of one stream state."""
+    """The canonical text of one stream state — the digest's sole input."""
     return f"{s.tail}:{s.stream_hash}:{s.fencing_token!r}"
+
+
+def state_digest(s: StreamState) -> int:
+    """Deterministic 32-bit digest of a single stream state.
+
+    The same canon the beam tie-break digest folds per state; exposed so
+    a distributed search can partition a frontier union into disjoint
+    digest ranges that both ends of the wire compute identically
+    (PYTHONHASHSEED-independent, like every digest in this module).
+    """
+    return zlib.crc32(_state_canon(s).encode())
 
 
 def _cfg_digest(cfg) -> int:
@@ -99,7 +124,12 @@ def check_frontier(
     collect_stats: bool = False,
     witness: bool = True,
     profile: bool = False,
+    init_counts: tuple[int, ...] | None = None,
+    init_states: Iterable[StreamState] | None = None,
+    snapshot_cuts: Iterable[int] | None = None,
+    complete_cuts: bool = False,
     time_budget_s: float | None = None,
+    progress=None,
     prune: bool = False,
 ) -> CheckResult:
     """Decide linearizability by frontier BFS.  Verdict matches the DFS.
@@ -122,14 +152,43 @@ def check_frontier(
     ``stats.timeline``, the raw material for the viz frontier panel and
     the daemon's per-job ``profile`` field.
 
+    ``init_counts``/``init_states`` resume the search from a carried cut:
+    the caller asserts the boundary was prefix-closed and the states are
+    the exact reachable-state union there (checker/prefix.py produces
+    both).  A resumed OK linearization covers only the ops searched here.
+
+    ``snapshot_cuts`` is a set of op boundaries K (each prefix-closed, as
+    computed by :func:`..checker.prefix.closed_boundaries`); on an OK
+    verdict the result carries ``res.snapshots`` — ``{K: sorted state
+    union}`` for every cut whose union completed before any prune.
+
+    ``complete_cuts=True`` holds an accept until every requested cut's
+    union is complete: the relaxed acceptance (all remaining ops are
+    indefinite appends) normally ends the search without materializing
+    those layers, which leaves a requested cut below the frontier floor
+    incomplete — an OK *without* its end union.  Distributed partition
+    searches (service/distsearch.py) need the union itself, so they pay
+    for the held layers; the verdict is unchanged, only the return is
+    deferred until the unions are exact.
+
     ``time_budget_s`` bounds the search wall clock (checked per layer);
     expiry returns UNKNOWN, matching the other engines' budget semantics.
+
+    ``progress`` is an optional :class:`.progress.ProgressSink`: each
+    layer offers ``(ops committed, total ops, frontier width, states
+    expanded)`` and the sink time-gates what actually leaves — one clock
+    read per layer on the fast path.
 
     ``prune=True`` activates the verdict-exact commutativity prunes
     (checker/prune.py): eager commit of inert / passing-filter candidates
     inside the auto-close sweep, the append rank gate, and tail-pin
     dead-configuration elimination.  All three preserve OK, ILLEGAL *and*
-    UNKNOWN (they never set ``stats.pruned``).
+    UNKNOWN (they never set ``stats.pruned``).  While ``snapshot_cuts``
+    are collecting, the rank gate and pin kill stand down — gated branches
+    never accept but can still contribute states to a cut union, and the
+    snapshot contract promises the *exact* reachable union (see
+    checker/prefix.py); eager commit reaches identical unions (filters are
+    identity where they commit) and stays active.
     """
     collect_stats = collect_stats or profile
     ops = history.ops
@@ -138,7 +197,8 @@ def check_frontier(
     stats = FrontierStats()
 
     if not ops:
-        return CheckResult(CheckOutcome.OK, linearization=[], final_states=[INIT_STATE])
+        start = sorted(init_states) if init_states else [INIT_STATE]
+        return CheckResult(CheckOutcome.OK, linearization=[], final_states=start)
 
     settable_tokens = frozenset(
         op.inp.set_fencing_token
@@ -146,25 +206,52 @@ def check_frontier(
         if op.inp.input_type == APPEND and op.inp.set_fencing_token is not None
     )
 
-    init_counts = tuple(0 for _ in range(n_chains))
-    init_cfg = (init_counts, frozenset([INIT_STATE]))
+    if init_counts is None:
+        init_counts = tuple(0 for _ in range(n_chains))
+    else:
+        init_counts = tuple(init_counts)
+    start_states = (
+        frozenset(init_states) if init_states is not None else frozenset([INIT_STATE])
+    )
+    init_cfg = (init_counts, start_states)
     frontier: dict[tuple[tuple[int, ...], frozenset[StreamState]], None] = {
         init_cfg: None
     }
+    base_sum = sum(init_counts)
+
+    # Snapshot-cut table: K -> [expected counts at the cut, state union,
+    # complete?].  The counts at a closed cut are forced (every
+    # linearization of K ops commits exactly ops[:K]), so they are derived
+    # from chain membership, and noting a config is a sum lookup plus an
+    # equality check that doubles as a self-test of closedness.
+    cuts: dict[int, list] = {}
+    for K in sorted(set(snapshot_cuts or ())):
+        if base_sum < K <= len(ops):
+            counts_k = tuple(bisect_left(chain, K) for chain in chains)
+            cuts[K] = [counts_k, set(), False]
+
+    def note_cut(counts, states) -> None:
+        cut = cuts.get(sum(counts))
+        if cut is not None and not cut[2] and counts == cut[0]:
+            cut[1].update(states)
 
     plan = None
     if prune:
         from .prune import analyze_history
 
         plan = analyze_history(history)
+    # Rank gate + pin kill vs snapshot cuts: see the docstring — both
+    # stand down while cuts are collecting so unions stay exact.
+    order_prunes = plan is not None and not cuts
     # Witness links: cfg -> (parent cfg, ops auto-closed at the parent's
     # layer, the expanded op) — walked backwards on accept to recover a
     # concrete linearization (same role as the device engine's witness log).
     parents: dict = {init_cfg: None} if witness else {}
+    target = tuple(len(c) for c in chains)
     # Deepest committed prefix across the whole search (diagnostics parity
     # with the oracle's global best, oracle.py:130).
     deep_counts = init_counts
-    deep_sum = 0
+    deep_sum = sum(init_counts)
 
     def walk(cfg) -> list[int]:
         rev: list[int] = []
@@ -272,6 +359,10 @@ def check_frontier(
                         stats.prune_commits += 1
                     else:
                         stats.auto_closed += 1
+                    if cuts:
+                        # Auto-close leaves states untouched, so each
+                        # intermediate position is a reachable cut config.
+                        note_cut(tuple(counts), states)
                     changed = True
         return tuple(counts), states, closed_ops
 
@@ -290,18 +381,48 @@ def check_frontier(
 
     deadline = None if time_budget_s is None else t_search + time_budget_s
 
-    def _done(res: CheckResult) -> CheckResult:
-        _finish_layer()
+    def _ok_result(order, final_states) -> CheckResult:
+        res = CheckResult(
+            CheckOutcome.OK,
+            linearization=order,
+            deepest=order or [],
+            final_states=final_states,
+        )
+        if cuts:
+            snaps = {
+                K: sorted(cut[1])
+                for K, cut in cuts.items()
+                if cut[2] and cut[1]
+            }
+            if snaps:
+                res.snapshots = snaps  # type: ignore[attr-defined]
         if collect_stats:
             res.stats = stats  # type: ignore[attr-defined]
         return res
+
+    #: first accepting configuration seen while ``complete_cuts`` holds
+    #: the return open (the verdict; only the unions are still cooking)
+    held: tuple | None = None
 
     layer = 0
     while True:
         layer += 1
         stats.layers = layer
+        if progress is not None:
+            progress.update(
+                ops_committed=deep_sum,
+                total_ops=len(ops),
+                frontier_width=len(frontier),
+                states_expanded=stats.expanded,
+                layer=layer,
+                engine="frontier",
+            )
         if deadline is not None and time.monotonic() > deadline:
-            return _done(CheckResult(CheckOutcome.UNKNOWN, deepest=deepest_of(deep_counts)))
+            _finish_layer()
+            res = CheckResult(CheckOutcome.UNKNOWN, deepest=deepest_of(deep_counts))
+            if collect_stats:
+                res.stats = stats  # type: ignore[attr-defined]
+            return res
         stats.max_frontier = max(stats.max_frontier, len(frontier))
         layer_states = 0
         if profile:
@@ -320,11 +441,25 @@ def check_frontier(
         close_link: dict = {}
         for counts, states in frontier:
             pre = (counts, states)
+            if cuts:
+                note_cut(counts, states)
             counts, states, closed_ops = auto_close_config(counts, states)
             key = (counts, states)
             if key not in closed:
                 closed[key] = None
                 close_link[key] = (pre, closed_ops)
+
+        if cuts:
+            # A cut is complete once no configuration can reach it again:
+            # children of this layer sit strictly above the layer's minimum
+            # post-close sum, so every cut at or below that floor is final.
+            floor = min(sum(counts) for counts, _ in closed)
+            for K, cut in cuts.items():
+                if not cut[2] and K <= floor:
+                    cut[2] = True
+            if held is not None and all(cut[2] for cut in cuts.values()):
+                _finish_layer()
+                return _ok_result(*held)
 
         for counts, states in closed:
             csum = sum(counts)
@@ -338,18 +473,21 @@ def check_frontier(
                     order = walk(pre) + closed_ops + completion(counts)
                 else:
                     order = None
-                return _done(
-                    CheckResult(
-                        CheckOutcome.OK,
-                        linearization=order,
-                        deepest=order or [],
-                        final_states=sorted(states),
-                    )
-                )
+                if complete_cuts and any(
+                    not cut[2] for cut in cuts.values()
+                ):
+                    # The verdict is decided, but a requested union is
+                    # still collecting below this configuration — hold
+                    # the return and keep expanding until it is exact.
+                    if held is None:
+                        held = (order, sorted(states))
+                    continue
+                _finish_layer()
+                return _ok_result(order, sorted(states))
 
         children: dict[tuple[tuple[int, ...], frozenset[StreamState]], None] = {}
         for counts, states in closed:
-            if plan is not None and min(s.tail for s in states) > plan.min_pin(counts):
+            if order_prunes and min(s.tail for s in states) > plan.min_pin(counts):
                 # Every state's tail has passed the smallest pin among the
                 # remaining ops: that op can never linearize from here, so
                 # no accepting extension exists — exact, unlike the beam.
@@ -357,9 +495,9 @@ def check_frontier(
                 continue
             pre, closed_ops = close_link[(counts, states)]
             _, cands = window(counts)
-            minrank = plan.min_remaining_rank(counts) if plan is not None else None
+            minrank = plan.min_remaining_rank(counts) if order_prunes else None
             for c in cands:
-                if plan is not None:
+                if order_prunes:
                     r = plan.rank.get(chains[c][counts[c]])
                     if r is not None and r > minrank:
                         # A later-ranked append before an earlier-ranked
@@ -382,12 +520,34 @@ def check_frontier(
                         parents[child] = (pre, tuple(closed_ops), chains[c][counts[c]])
 
         if not children:
+            _finish_layer()
+            if held is not None:
+                # Exhaustion: no configuration can reach any cut again,
+                # so every surviving union is final.
+                for cut in cuts.values():
+                    cut[2] = True
+                return _ok_result(*held)
             outcome = CheckOutcome.UNKNOWN if stats.pruned else CheckOutcome.ILLEGAL
-            return _done(CheckResult(outcome, deepest=deepest_of(deep_counts)))
+            res = CheckResult(outcome, deepest=deepest_of(deep_counts))
+            if collect_stats:
+                res.stats = stats  # type: ignore[attr-defined]
+            return res
         if max_frontier is not None and len(children) > max_frontier:
             if not beam:
-                return _done(CheckResult(CheckOutcome.UNKNOWN, deepest=deepest_of(deep_counts)))
+                _finish_layer()
+                res = CheckResult(
+                    CheckOutcome.UNKNOWN, deepest=deepest_of(deep_counts)
+                )
+                if collect_stats:
+                    res.stats = stats  # type: ignore[attr-defined]
+                return res
             stats.pruned = True
+            if cuts:
+                # A pruned branch could still have contributed states to a
+                # cut not yet complete; a partial union resumed later can
+                # only produce a *false ILLEGAL* — refuse those snapshots.
+                for K in [K for K, cut in cuts.items() if not cut[2]]:
+                    del cuts[K]
             ranked = sorted(
                 children, key=lambda cfg: (opens_taken(cfg[0]), _cfg_digest(cfg))
             )
@@ -403,7 +563,11 @@ def check_frontier_auto(
     collect_stats: bool = False,
     witness: bool = True,
     profile: bool = False,
+    init_counts: tuple[int, ...] | None = None,
+    init_states: Iterable[StreamState] | None = None,
+    snapshot_cuts: Iterable[int] | None = None,
     time_budget_s: float | None = None,
+    progress=None,
     prune: bool = False,
 ) -> CheckResult:
     """Beam-first frontier check with exhaustive escalation.
@@ -422,7 +586,11 @@ def check_frontier_auto(
         collect_stats=collect_stats,
         witness=witness,
         profile=profile,
+        init_counts=init_counts,
+        init_states=init_states,
+        snapshot_cuts=snapshot_cuts,
         time_budget_s=time_budget_s,
+        progress=progress,
         prune=prune,
     )
     if res.outcome != CheckOutcome.UNKNOWN:
@@ -433,6 +601,10 @@ def check_frontier_auto(
         collect_stats=collect_stats,
         witness=witness,
         profile=profile,
+        init_counts=init_counts,
+        init_states=init_states,
+        snapshot_cuts=snapshot_cuts,
         time_budget_s=time_budget_s,
+        progress=progress,
         prune=prune,
     )

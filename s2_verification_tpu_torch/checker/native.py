@@ -135,17 +135,20 @@ def _ptr(a: np.ndarray, typ):
 def check_native(
     history: History,
     time_budget_s: float | None = None,
+    _states_cap: int = _STATES_CAP,
     profile: bool = False,
-    prune: bool = False,
     enc: EncodedHistory | None = None,
     progress=None,
+    prune: bool = False,
 ) -> CheckResult:
     """Decide linearizability with the native engine (the JAX package's
-    ``check_native``; its ``_states_cap`` test hook is not ported).
+    ``check_native``).
 
     Verdict semantics match :func:`.oracle.check`, including the
     ``deepest`` linearized set on ILLEGAL/UNKNOWN; ``time_budget_s``
-    expiry is UNKNOWN.  ``profile=True`` attaches ``res.profile =
+    expiry is UNKNOWN.  ``_states_cap`` sizes the final-state output buffer
+    (a test hook: an overflow re-runs with the exact size, so it changes
+    only the allocation).  ``profile=True`` attaches ``res.profile =
     {"encode_s", "search_s", "steps", "cache_hits"}``.  ``prune=True`` hands the DFS the verdict-exact precedence tables of
     :mod:`.prune` (the append rank order and the inert mask); verdicts are
     unchanged.
@@ -205,7 +208,7 @@ def check_native(
         inert = np.zeros(max(1, n), np.uint8)
     order = np.zeros(max(1, n), np.int32)
     order_len = ct.c_int32(0)
-    states_cap = _STATES_CAP
+    states_cap = _states_cap
     st_tail = np.zeros(states_cap, np.uint32)
     st_hash = np.zeros(states_cap, np.uint64)
     st_tok = np.zeros(states_cap, np.int32)

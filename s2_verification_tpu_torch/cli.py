@@ -1,21 +1,24 @@
 """Command line: ``python -m s2_verification_tpu_torch check -file=H.jsonl``,
-``collect``, ``serve``, ``submit``, ``doctor``, ``tsq``, ``quarantine`` and
-``profiles``.
+``collect``, ``serve``, ``submit``, ``follow``, ``trace``, ``dash``,
+``watch``, ``doctor``, ``tsq``, ``quarantine`` and ``profiles``.
 
 ``serve`` runs verifyd, the resident verification daemon (service/), on a
 unix socket and optionally an authenticated TCP listener (``--tcp`` + a
 shared secret), with the JAX package's flags and defaults and one more,
-``--torch-device`` (the device of the inline and supervised escalations;
-the card unless it names another).  ``--state-dir`` makes it durable
-(journal, verdict segments, quarantine ledger, flight ring, profile
-archive and telemetry, in the JAX package's formats), ``--metrics-port``
-serves ``/metrics`` and ``/dashboard``, ``--alert-url`` delivers alerts.
-Flags whose modules the port does not have yet (``--prefix``,
-``--batching``) exit 64 naming the module.  ``submit`` sends one history to a running daemon of
+``--torch-device`` (the device of the inline and supervised escalations
+and of ``--batching --batch-engine vmap`` launch groups; the card unless
+it names another).  ``--state-dir`` makes it durable (journal, verdict
+segments, quarantine ledger, flight ring, profile archive, telemetry and,
+with ``--prefix``, the prefix store, in the JAX package's formats),
+``--metrics-port`` serves ``/metrics`` and ``/dashboard``, ``--alert-url``
+delivers alerts.  ``submit`` sends one history to a running daemon of
 either package and exits with the ``check`` exit code of its verdict (75
 queue full after retries, 69 no daemon ever answered, 76 a daemon refused
-after retries, 64 a history it could not decode).  Neither loads
-``torch`` unless the daemon escalates inline.
+after retries, 64 a history it could not decode).  ``follow`` verifies a
+growing stream window by window against a ``--prefix`` daemon, carrying
+the frontier token forward; ``trace``, ``dash`` and ``watch`` read a live
+daemon's span ring, stats and progress board.  None of them loads
+``torch`` unless the daemon escalates inline or launches a vmap group.
 
 ``doctor``, ``tsq``, ``quarantine`` and ``profiles`` read a state
 directory either package's daemon wrote: live through ``--socket`` (the
@@ -547,7 +550,7 @@ def _resolve_mesh_devices(spec: str | None, torch_device: str | None) -> int | N
 
 
 def _cmd_serve(args: argparse.Namespace) -> int:
-    from .service.daemon import Verifyd, VerifydConfig
+    from .service.daemon import Verifyd, VerifydConfig, holds_card
 
     if os.path.exists(args.socket):
         # A stale socket file from a crashed daemon only a clean exit
@@ -610,12 +613,13 @@ def _cmd_serve(args: argparse.Namespace) -> int:
         speculate_depth=args.speculate_depth,
         torch_device=args.torch_device,
     )
-    refused: tuple = (NotImplementedError,)
-    if cfg.device == "inline":
-        # The inline daemon loads torch anyway: it holds the card.
+    refused: tuple = ()
+    if holds_card(cfg):
+        # An inline or vmap-batching daemon loads torch anyway: it holds
+        # the card, and exits 64 without one.
         from .checker.device import DeviceUnavailable
 
-        refused += (DeviceUnavailable,)
+        refused = (DeviceUnavailable,)
     try:
         daemon = Verifyd(cfg)
     except refused as e:
@@ -1164,6 +1168,52 @@ def _cmd_profiles(args: argparse.Namespace) -> int:
     return 0
 
 
+def _cmd_trace(args: argparse.Namespace) -> int:
+    from .service.client import (
+        VerifydClient,
+        VerifydError,
+        VerifydUnavailable,
+    )
+    from .service.protocol import EXIT_PROTOCOL, EXIT_UNAVAILABLE
+
+    try:
+        client = VerifydClient(args.socket, secret=_read_secret(args))
+    except ValueError as e:
+        log.error("%s", e)
+        return USAGE_EXIT
+    try:
+        trace = client.trace()
+    except VerifydUnavailable as e:
+        log.error("cannot reach verifyd on %s: %s", args.socket, e.msg)
+        return EXIT_UNAVAILABLE
+    except VerifydError as e:
+        log.error("trace fetch refused: %s", e)
+        return EXIT_PROTOCOL
+    except (OSError, TimeoutError) as e:
+        log.error("cannot reach verifyd on %s: %s", args.socket, e)
+        return EXIT_UNAVAILABLE
+
+    import json as _json
+
+    warning = (trace.get("otherData") or {}).get("warning")
+    if warning:
+        log.warning("%s", warning)
+    text = _json.dumps(trace)
+    if args.out == "-":
+        print(text, flush=True)
+    else:
+        with open(args.out, "w", encoding="utf-8") as f:
+            f.write(text)
+            f.write("\n")
+        log.info(
+            "wrote %d trace events to %s (load in ui.perfetto.dev or "
+            "chrome://tracing)",
+            len(trace.get("traceEvents", [])),
+            args.out,
+        )
+    return 0
+
+
 _SPARK_BLOCKS = "▁▂▃▄▅▆▇█"
 
 
@@ -1180,6 +1230,475 @@ def _spark(values: list[float], width: int = 32) -> str:
         idx = 0 if span <= 0 else int((v - lo) / span * (len(_SPARK_BLOCKS) - 1))
         out.append(_SPARK_BLOCKS[idx])
     return "".join(out).rjust(width)
+
+
+def _cmd_dash(args: argparse.Namespace) -> int:
+    """`verifyd top`: poll the stats op and render terminal sparklines."""
+    from .service.client import (
+        VerifydClient,
+        VerifydError,
+        VerifydUnavailable,
+    )
+    from .service.protocol import EXIT_PROTOCOL, EXIT_UNAVAILABLE
+
+    try:
+        client = VerifydClient(args.socket, secret=_read_secret(args))
+    except ValueError as e:
+        log.error("%s", e)
+        return USAGE_EXIT
+
+    hist: dict[str, list[float]] = {
+        "throughput": [],
+        "queue": [],
+        "active": [],
+        "rss_mb": [],
+        "compiles": [],
+    }
+    prev_completed: float | None = None
+    prev_compiles: float | None = None
+    prev_t: float | None = None
+    n = 0
+    try:
+        while True:
+            try:
+                snap = client.stats()
+            except VerifydUnavailable as e:
+                log.error("cannot reach verifyd on %s: %s", args.socket, e.msg)
+                return EXIT_UNAVAILABLE
+            except VerifydError as e:
+                log.error("stats refused: %s", e)
+                return EXIT_PROTOCOL
+            except (OSError, TimeoutError) as e:
+                log.error("cannot reach verifyd on %s: %s", args.socket, e)
+                return EXIT_UNAVAILABLE
+            now = time.time()
+            completed = float(snap.get("completed", 0))
+            intro = snap.get("introspection") or {}
+            jit = intro.get("jit") or {}
+            compiles = float(sum((jit.get("compiles") or {}).values()))
+            if prev_t is not None and now > prev_t:
+                hist["throughput"].append(
+                    max(0.0, completed - (prev_completed or 0.0)) / (now - prev_t)
+                )
+                hist["compiles"].append(max(0.0, compiles - (prev_compiles or 0.0)))
+            prev_completed, prev_compiles, prev_t = completed, compiles, now
+            hist["queue"].append(float(snap.get("queue_depth_now", 0)))
+            hist["active"].append(float(snap.get("active", 0)))
+            res = (intro.get("resources") or {}).get("last") or {}
+            hist["rss_mb"].append(float(res.get("rss_bytes", 0) or 0) / (1 << 20))
+            for k in hist:
+                hist[k] = hist[k][-args.width :]
+
+            lines = [
+                "verifyd dash  socket=%s  uptime=%.0fs  completed=%d  "
+                "cache_hits=%d  errors=%d"
+                % (
+                    args.socket,
+                    float(snap.get("uptime_s", 0.0)),
+                    int(snap.get("completed", 0)),
+                    int(snap.get("cache_hits", 0)),
+                    int(snap.get("errors", 0)),
+                )
+            ]
+            rows = (
+                ("throughput", "jobs/s", hist["throughput"]),
+                ("queue", "depth", hist["queue"]),
+                ("active", "jobs", hist["active"]),
+                ("rss", "MiB", hist["rss_mb"]),
+                ("compiles", "per tick", hist["compiles"]),
+            )
+            for name, unit, series in rows:
+                cur = series[-1] if series else 0.0
+                lines.append(
+                    "  %-10s %s  %10.2f %s"
+                    % (name, _spark(series, args.width), cur, unit)
+                )
+            storms = int(snap.get("retrace_storms", 0))
+            if storms:
+                lines.append("  !! retrace storms latched: %d" % storms)
+            active_searches = [
+                r
+                for r in (snap.get("progress") or [])
+                if isinstance(r, dict) and not r.get("done")
+            ]
+            for r in active_searches[:8]:
+                eta = r.get("eta_s")
+                lines.append(
+                    "  >> job=%-5s %-11s %5.1f%%  %s/%s ops  eta=%s"
+                    % (
+                        r.get("job"),
+                        r.get("engine") or "?",
+                        100.0 * float(r.get("progress_ratio") or 0.0),
+                        r.get("ops_committed"),
+                        r.get("total_ops"),
+                        "%.0fs" % float(eta) if eta is not None else "?",
+                    )
+                )
+            print("\n".join(lines), flush=True)
+            n += 1
+            if args.iterations and n >= args.iterations:
+                return 0
+            time.sleep(max(0.1, args.interval))
+    except KeyboardInterrupt:
+        return 0
+
+
+def _cmd_watch(args: argparse.Namespace) -> int:
+    """`verifyd watch`: live progress board for running searches.
+
+    Polls the ``watch`` op (daemon or router — the router fans out and
+    aggregates distributed partitions) and renders one frame per poll:
+    per-job progress ratio with a climbing sparkline, committed/total
+    ops, frontier width, ops rate and the EWMA-smoothed ETA.  A named
+    selector that was visible and then answers the definite
+    ``UnknownJob`` means the job finished — that's a clean exit, not an
+    error.
+    """
+    from .service.client import (
+        VerifydClient,
+        VerifydError,
+        VerifydUnavailable,
+    )
+    from .service.protocol import (
+        ERR_UNKNOWN_JOB,
+        EXIT_PROTOCOL,
+        EXIT_UNAVAILABLE,
+    )
+
+    try:
+        client = VerifydClient(args.socket, secret=_read_secret(args))
+    except ValueError as e:
+        log.error("%s", e)
+        return USAGE_EXIT
+    import json as _json
+
+    ratios: dict[tuple, list[float]] = {}
+    seen = False
+    n = 0
+    try:
+        while True:
+            try:
+                got = client.watch(
+                    job=args.job,
+                    fingerprint=args.fingerprint,
+                    search=args.search,
+                    part=args.part,
+                )
+            except VerifydUnavailable as e:
+                log.error("cannot reach verifyd on %s: %s", args.socket, e.msg)
+                return EXIT_UNAVAILABLE
+            except VerifydError as e:
+                if e.cls == ERR_UNKNOWN_JOB:
+                    if seen:
+                        # It was on the board and now is not: it finished.
+                        log.info("watched job left the progress surface (done)")
+                        return 0
+                    log.error("nothing to watch: %s", e.msg)
+                    return EXIT_PROTOCOL
+                log.error("watch refused: %s", e)
+                return EXIT_PROTOCOL
+            except (OSError, TimeoutError) as e:
+                log.error("cannot reach verifyd on %s: %s", args.socket, e)
+                return EXIT_UNAVAILABLE
+
+            rows = [r for r in got.get("progress") or [] if isinstance(r, dict)]
+            seen = seen or bool(rows)
+            if args.json:
+                print(_json.dumps(got, sort_keys=True), flush=True)
+            else:
+                lines = [
+                    "verifyd watch  socket=%s  %d job(s)"
+                    % (args.socket, len(rows))
+                ]
+                for r in rows:
+                    key = (r.get("node"), r.get("job"))
+                    ratio = float(r.get("progress_ratio") or 0.0)
+                    ratios.setdefault(key, []).append(ratio)
+                    ratios[key] = ratios[key][-args.width :]
+                    eta = r.get("eta_s")
+                    lines.append(
+                        "  job=%-5s %-11s %s %5.1f%%  %s/%s ops  "
+                        "width=%-6s rate=%8.1f/s  eta=%s%s"
+                        % (
+                            r.get("job"),
+                            r.get("engine") or "?",
+                            _spark(ratios[key], args.width),
+                            100.0 * ratio,
+                            r.get("ops_committed"),
+                            r.get("total_ops"),
+                            r.get("frontier_width"),
+                            float(r.get("ops_rate") or 0.0),
+                            "%.0fs" % float(eta) if eta is not None else "?",
+                            "  node=%s" % r["node"] if r.get("node") else "",
+                        )
+                    )
+                dist = got.get("distributed")
+                if dist:
+                    lines.append(
+                        "  distributed %s  epoch=%s  %d partition(s)"
+                        % (
+                            str(dist.get("search", ""))[:16],
+                            dist.get("epoch"),
+                            len(dist.get("partitions") or {}),
+                        )
+                    )
+                    for part, row in sorted(
+                        (dist.get("partitions") or {}).items()
+                    ):
+                        lines.append(
+                            "    part %s  node=%s  ops=%s  stalled=%.1fs"
+                            % (
+                                part,
+                                row.get("node"),
+                                row.get("ops_committed"),
+                                float(row.get("stalled_s") or 0.0),
+                            )
+                        )
+                print("\n".join(lines), flush=True)
+            n += 1
+            if args.iterations and n >= args.iterations:
+                return 0
+            time.sleep(max(0.1, args.interval))
+    except KeyboardInterrupt:
+        return 0
+
+
+def _iter_follow_windows(lines, window_events: int):
+    """Cut a JSONL event stream into prefix-closed windows.
+
+    Yields ``(window_lines, dangling)`` chunks: a window is flushed only
+    when every call in the buffer has returned (no op spans the cut) and
+    at least ``window_events`` lines accumulated.  The final chunk
+    carries whatever remains at EOF — ``dangling`` is the set of op ids
+    still open there (a truncated tail the daemon would refuse).
+    """
+    import json as _json
+
+    from .utils import events as ev
+
+    buf: list = []
+    open_ops: set = set()
+    for raw in lines:
+        line = raw.strip()
+        if not line:
+            continue
+        le = ev.decode_obj(_json.loads(line))
+        if le.is_start:
+            open_ops.add((le.client_id, le.op_id))
+        else:
+            open_ops.discard((le.client_id, le.op_id))
+        buf.append(line)
+        if not open_ops and len(buf) >= window_events:
+            yield buf, set()
+            buf = []
+    if buf:
+        yield buf, set(open_ops)
+
+
+def _cmd_follow(args: argparse.Namespace) -> int:
+    import json as _json
+
+    from .service.client import (
+        VerifydBusy,
+        VerifydClient,
+        VerifydError,
+        VerifydRefused,
+        VerifydUnavailable,
+    )
+    from .service.protocol import (
+        ERR_FRONTIER,
+        EXIT_BUSY,
+        EXIT_PROTOCOL,
+        EXIT_UNAVAILABLE,
+    )
+    from .utils import events as ev
+
+    if args.file == "-":
+        source = sys.stdin
+        close = False
+    else:
+        try:
+            source = open(args.file, encoding="utf-8")
+            close = True
+        except OSError as e:
+            log.error("failed to read history: %s", e)
+            return USAGE_EXIT
+    try:
+        client = VerifydClient(args.socket, secret=_read_secret(args))
+    except ValueError as e:
+        log.error("%s", e)
+        if close:
+            source.close()
+        return USAGE_EXIT
+
+    frontier = args.frontier
+    committed: list = []  # every line already verified — the resync body
+    window = 0
+    attempts = 1 + max(0, args.window_retries)
+    try:
+        for chunk, dangling in _iter_follow_windows(source, args.window):
+            if dangling:
+                log.warning(
+                    "stream tail has %d call(s) with no return — an op "
+                    "would span the window cut; skipping the last %d "
+                    "line(s)",
+                    len(dangling),
+                    len(chunk),
+                )
+                break
+            text = "\n".join(chunk) + "\n"
+            # A window is only committed once its ops are actually
+            # carried into the frontier: an inconclusive verdict (e.g.
+            # deadline expiry) or a refused end-of-window snapshot
+            # leaves the frontier at the previous cut, and moving on
+            # anyway would silently drop this window's ops from the
+            # verified lineage — later windows would report OK for a
+            # stream-so-far that never included them.  Retry by
+            # resyncing (committed + chunk as a fresh lineage); if the
+            # window still won't carry, stop with the inconclusive exit
+            # code instead of following a broken lineage.
+            for attempt in range(attempts):
+                resync = attempt > 0
+                try:
+                    if not resync:
+                        try:
+                            reply = client.follow(
+                                text,
+                                stream=args.stream,
+                                frontier=frontier,
+                                client=args.client,
+                                priority=args.priority,
+                                timeout=args.timeout,
+                                deadline_s=args.deadline,
+                            )
+                        except VerifydError as e:
+                            if e.cls != ERR_FRONTIER:
+                                raise
+                            # The daemon no longer knows our frontier
+                            # (evicted, restarted without state, or a
+                            # router moved the stream): resync by
+                            # replaying the whole committed stream plus
+                            # this window as a fresh lineage.
+                            log.warning(
+                                "frontier unknown at window %d — "
+                                "resyncing with %d committed line(s)",
+                                window,
+                                len(committed),
+                            )
+                            resync = True
+                    if resync:
+                        reply = client.follow(
+                            "\n".join(committed + chunk) + "\n",
+                            stream=args.stream,
+                            frontier=None,
+                            client=args.client,
+                            priority=args.priority,
+                            timeout=args.timeout,
+                            deadline_s=args.deadline,
+                        )
+                except VerifydBusy as e:
+                    log.error(
+                        "verifyd is at capacity (%s); retry after ~%.1fs",
+                        e.msg,
+                        e.retry_after_s,
+                    )
+                    return EXIT_BUSY
+                except VerifydUnavailable as e:
+                    log.error(
+                        "cannot reach verifyd on %s: %s", args.socket, e.msg
+                    )
+                    return EXIT_UNAVAILABLE
+                except VerifydError as e:
+                    if e.cls == "DecodeError":
+                        log.error("daemon rejected the window: %s", e.msg)
+                        return USAGE_EXIT
+                    log.error("follow failed: %s", e)
+                    return EXIT_PROTOCOL
+
+                verdict = reply.get("verdict")
+                if args.stats:
+                    print(
+                        _json.dumps(
+                            {
+                                "stream": args.stream,
+                                "window": window,
+                                "attempt": attempt,
+                                "ops": reply.get("ops"),
+                                "ops_total": reply.get("ops_total"),
+                                "verdict": verdict,
+                                "backend": reply.get("backend"),
+                                "frontier": reply.get("frontier"),
+                                "advanced": reply.get("advanced"),
+                                "wall_s": reply.get("wall_s"),
+                            }
+                        ),
+                        flush=True,
+                    )
+                if verdict == 1:
+                    log.error(
+                        "stream %s is NOT linearizable at window %d "
+                        "(%d ops total)",
+                        args.stream,
+                        window,
+                        reply.get("ops_total") or 0,
+                    )
+                    return 1
+                # Carried: OK with the frontier advanced through this
+                # window's ops — or an all-trivial window, which has
+                # nothing a frontier could absorb (elided ops cannot
+                # change any later verdict).
+                if verdict == 0 and (
+                    reply.get("advanced") or not reply.get("ops")
+                ):
+                    break
+                log.warning(
+                    "window %d not carried (verdict %s, outcome %s, "
+                    "advanced=%s)%s",
+                    window,
+                    verdict,
+                    reply.get("outcome"),
+                    bool(reply.get("advanced")),
+                    "; retrying as a resync" if attempt + 1 < attempts else "",
+                )
+            else:
+                log.error(
+                    "window %d never carried into the frontier after %d "
+                    "attempt(s) — stopping (%d ops verified so far)",
+                    window,
+                    attempts,
+                    reply.get("ops_total") or len(committed),
+                )
+                return 2
+            log.info(
+                "window %d ok: %s ops carried to %s ops total (%s)",
+                window,
+                reply.get("ops"),
+                reply.get("ops_total"),
+                reply.get("backend"),
+            )
+            committed.extend(chunk)
+            if reply.get("advanced") and reply.get("frontier"):
+                frontier = reply["frontier"]
+            window += 1
+    except (ev.DecodeError, ValueError) as e:
+        log.error("undecodable stream line: %s", e)
+        return USAGE_EXIT
+    except (OSError, TimeoutError) as e:
+        log.error("cannot reach verifyd on %s: %s", args.socket, e)
+        return EXIT_UNAVAILABLE
+    finally:
+        if close:
+            source.close()
+    if window == 0:
+        log.error("stream held no closed window — nothing verified")
+        return USAGE_EXIT
+    log.info(
+        "stream %s: %d window(s) verified, frontier %s",
+        args.stream,
+        window,
+        frontier,
+    )
+    return 0
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -1620,7 +2139,7 @@ def build_parser() -> argparse.ArgumentParser:
         help="continuous cross-job batching: drain every queued job of a "
         "worker-picked shape group into one mega-launch (late-join at "
         "launch boundaries, per-lane deadlines/cancels honored, per-job "
-        "done attribution). Not ported yet: serve exits 64 naming the module it needs",
+        "done attribution)",
     )
     s.add_argument(
         "--batch-engine",
@@ -1668,7 +2187,7 @@ def build_parser() -> argparse.ArgumentParser:
         "extends a verified history resumes at the deepest cached cut "
         "instead of op 0 — and enable the 'follow' op for rolling-window "
         "stream monitoring.  Snapshots persist under --state-dir and "
-        "survive restarts. Not ported yet: serve exits 64 naming the module it needs",
+        "survive restarts.",
     )
     s.add_argument(
         "--prefix-capacity",
@@ -1703,6 +2222,156 @@ def build_parser() -> argparse.ArgumentParser:
         "(default 8)",
     )
     s.set_defaults(fn=_cmd_serve, stats=False)
+
+    t = sub.add_parser(
+        "trace",
+        help="export a running verifyd's span ring as Chrome trace_event "
+        "JSON (loads in Perfetto / chrome://tracing)",
+    )
+    t.add_argument(
+        "-socket",
+        "--socket",
+        required=True,
+        help="the daemon's unix-socket path, or HOST:PORT for the "
+        "authenticated TCP transport (needs --secret-file or "
+        "VERIFYD_SECRET)",
+    )
+    t.add_argument(
+        "--secret-file",
+        default=None,
+        help="file holding the TCP shared secret (whitespace-stripped); "
+        "falls back to the VERIFYD_SECRET environment variable",
+    )
+    t.add_argument(
+        "-out",
+        "--out",
+        default="-",
+        help="output path for the trace JSON ('-' = stdout, the default)",
+    )
+    t.set_defaults(fn=_cmd_trace)
+
+    da = sub.add_parser(
+        "dash",
+        help="live terminal dashboard over a running verifyd: sparkline "
+        "history of throughput, queue depth, active jobs, RSS, and JIT "
+        "compile activity from the stats op (the HTML twin lives at "
+        "/dashboard on --metrics-port)",
+    )
+    da.add_argument(
+        "-socket",
+        "--socket",
+        required=True,
+        help="the daemon's unix-socket path, or HOST:PORT for the "
+        "authenticated TCP transport (needs --secret-file or "
+        "VERIFYD_SECRET)",
+    )
+    da.add_argument(
+        "--secret-file",
+        default=None,
+        help="file holding the TCP shared secret (whitespace-stripped); "
+        "falls back to the VERIFYD_SECRET environment variable",
+    )
+    da.add_argument(
+        "--interval",
+        type=float,
+        default=2.0,
+        metavar="SECONDS",
+        help="seconds between polls (default 2.0)",
+    )
+    da.add_argument(
+        "--iterations",
+        type=int,
+        default=0,
+        metavar="N",
+        help="stop after N frames (default 0 = run until interrupted)",
+    )
+    da.add_argument(
+        "--width",
+        type=int,
+        default=32,
+        metavar="COLS",
+        help="sparkline width in characters (default 32)",
+    )
+    da.set_defaults(fn=_cmd_dash)
+
+    w = sub.add_parser(
+        "watch",
+        help="live progress board for running searches: per-job progress "
+        "ratio, committed/total ops, frontier width and ETA from the "
+        "watch op (point it at a daemon, or at a router to watch the "
+        "whole fleet including distributed partitions)",
+    )
+    w.add_argument(
+        "-socket",
+        "--socket",
+        required=True,
+        help="the daemon's (or router's) unix-socket path, or HOST:PORT "
+        "for the authenticated TCP transport (needs --secret-file or "
+        "VERIFYD_SECRET)",
+    )
+    w.add_argument(
+        "--secret-file",
+        default=None,
+        help="file holding the TCP shared secret (whitespace-stripped); "
+        "falls back to the VERIFYD_SECRET environment variable",
+    )
+    w.add_argument(
+        "--job",
+        type=int,
+        default=None,
+        metavar="ID",
+        help="watch one job id (definite UnknownJob when it is not "
+        "running; after it was visible, that means it finished)",
+    )
+    w.add_argument(
+        "--fingerprint",
+        default=None,
+        metavar="FP",
+        help="watch by verdict-cache fingerprint (e.g. the ppart:… key "
+        "of a distributed partition job)",
+    )
+    w.add_argument(
+        "--search",
+        default=None,
+        metavar="SEARCH",
+        help="watch every partition of a distributed search (the search "
+        "id from submit --distributed); against a router this also "
+        "shows the coordinator's per-partition aggregate",
+    )
+    w.add_argument(
+        "--part",
+        default=None,
+        metavar="RANGE",
+        help="narrow --search to one partition range",
+    )
+    w.add_argument(
+        "--json",
+        action="store_true",
+        help="emit one JSON object per poll instead of the board",
+    )
+    w.add_argument(
+        "--interval",
+        type=float,
+        default=1.0,
+        metavar="SECONDS",
+        help="seconds between polls (default 1.0)",
+    )
+    w.add_argument(
+        "--iterations",
+        type=int,
+        default=0,
+        metavar="N",
+        help="stop after N frames (default 0 = run until the watched "
+        "job finishes or interrupted)",
+    )
+    w.add_argument(
+        "--width",
+        type=int,
+        default=32,
+        metavar="COLS",
+        help="sparkline width in characters (default 32)",
+    )
+    w.set_defaults(fn=_cmd_watch)
 
     u = sub.add_parser("submit", help="submit one history to a running verifyd")
     u.add_argument(
@@ -1787,6 +2456,95 @@ def build_parser() -> argparse.ArgumentParser:
         "queue wait, cache hit) on stdout",
     )
     u.set_defaults(fn=_cmd_submit)
+
+    fo = sub.add_parser(
+        "follow",
+        help="verify a growing event stream window-by-window against a "
+        "--prefix daemon (the decided frontier is carried forward, so "
+        "each window costs its own ops)",
+    )
+    fo.add_argument(
+        "-file",
+        "--file",
+        required=True,
+        help="history JSONL path, '-' for stdin (pipe a live collector "
+        "into it)",
+    )
+    fo.add_argument(
+        "-socket",
+        "--socket",
+        required=True,
+        help="the daemon's unix-socket path, or HOST:PORT for the "
+        "authenticated TCP transport (needs --secret-file or "
+        "VERIFYD_SECRET); a router address works — streams route by "
+        "stream id",
+    )
+    fo.add_argument(
+        "--secret-file",
+        default=None,
+        help="file holding the TCP shared secret (whitespace-stripped); "
+        "falls back to the VERIFYD_SECRET environment variable",
+    )
+    fo.add_argument(
+        "--stream",
+        required=True,
+        help="stream identity: scopes the frontier lineage and (behind a "
+        "router) pins every window to one backend",
+    )
+    fo.add_argument(
+        "--frontier",
+        default=None,
+        help="resume from a frontier token printed by an earlier run "
+        "(default: start a fresh lineage at window 0)",
+    )
+    fo.add_argument(
+        "--window",
+        type=int,
+        default=256,
+        metavar="EVENTS",
+        help="events per window: a window is cut at the first point at "
+        "or after this many lines where no call is still open "
+        "(default 256)",
+    )
+    fo.add_argument("--client", default="cli", help="client identity for the queue")
+    fo.add_argument(
+        "--priority",
+        type=int,
+        default=10,
+        help="admission priority (lower = scheduled sooner; default 10)",
+    )
+    fo.add_argument(
+        "--timeout",
+        type=float,
+        default=None,
+        help="seconds to wait for each window's verdict (default: wait)",
+    )
+    fo.add_argument(
+        "--deadline",
+        type=float,
+        default=None,
+        metavar="SECONDS",
+        help="per-window end-to-end deadline forwarded to the daemon "
+        "(default: unbounded)",
+    )
+    fo.add_argument(
+        "--window-retries",
+        type=int,
+        default=2,
+        metavar="N",
+        help="resync retries for a window whose ops were not carried "
+        "into the frontier (inconclusive verdict, refused snapshot) "
+        "before exiting 2 — moving on without a carry would silently "
+        "drop the window from the verified lineage (default 2)",
+    )
+    fo.add_argument(
+        "-stats",
+        "--stats",
+        action="store_true",
+        help="print one machine-readable JSON line per window (verdict, "
+        "backend, frontier token, ops carried) on stdout",
+    )
+    fo.set_defaults(fn=_cmd_follow)
 
     d = sub.add_parser(
         "doctor",

@@ -33,12 +33,12 @@ over it.
 
 The port's copy of the JAX package's ``obs/flight.py``: the same records
 in the same ring, and the same post-mortem of a state dir either
-package's daemon wrote.  Two sections read stores whose writers the port
-does not have yet: the prefix store (``<state_dir>/prefix``, ROADMAP.md
-queue 1 item 5) and the distributed search's grant ledger
-(``<state_dir>/distsearch``, item 6).  Their keys stay, ``None`` as in a
-state dir without them, and a state dir that holds either lists it under
-``unread``.
+package's daemon wrote, the prefix store's included
+(``service/prefixstore.read_cold``).  One section reads a store whose
+writer the port does not have yet: the distributed search's grant ledger
+(``<state_dir>/distsearch``, ROADMAP.md queue 1 item 6).  Its key stays,
+``None`` as in a state dir without one, and a state dir that holds one
+lists it under ``unread``.
 """
 
 from __future__ import annotations
@@ -251,14 +251,18 @@ def postmortem(
     except (OSError, ValueError):
         pass
 
-    # The prefix store and the grant ledger wait for their writers (see
-    # the module docstring): reported as absent, and named when on disk.
-    prefix_store = None
+    # Prefix store: cold replay of the chain-hash frontier log, plus the
+    # hit/miss picture from the flight events — together they answer
+    # "was incremental verification pulling its weight when it died?".
+    from ..service.prefixstore import read_cold as read_prefix_cold
+
+    prefix_store = read_prefix_cold(state_dir)
+
+    # The grant ledger waits for its writer (see the module docstring):
+    # reported as absent, and named when on disk.
     distsearch = None
     unread = [
-        sub
-        for sub in ("prefix", "distsearch")
-        if os.path.isdir(os.path.join(state_dir, sub))
+        sub for sub in ("distsearch",) if os.path.isdir(os.path.join(state_dir, sub))
     ]
 
     # Telemetry history (obs/tsdb.py): cold read of the durable metric

@@ -28,6 +28,7 @@ package.
 
 from __future__ import annotations
 
+import atexit
 from dataclasses import dataclass
 
 import torch
@@ -49,13 +50,16 @@ class FrontierMesh:
     ``devices`` holds one device per shard of the whole mesh, in shard
     order (a device may repeat); ``rank`` and ``world`` are this process's
     place in the process group (0 and 1 without one).  A process holds the
-    ``local`` consecutive shards from ``first`` on."""
+    ``local`` consecutive shards from ``first`` on.  A mesh built on the
+    joined group (``joined``) runs its collectives on the default process
+    group, looked up at each call: it holds no reference to the group, so
+    :func:`shutdown_distributed` destroys the group while meshes live on."""
 
     axis: str
     devices: tuple
     rank: int = 0
     world: int = 1
-    group: object = None
+    joined: bool = False
 
     @property
     def size(self) -> int:
@@ -79,10 +83,10 @@ class FrontierMesh:
         process's first device (an ``all_gather`` across processes)."""
         dev = self.local_devices[0]
         mine = torch.stack([v.to(dev) for v in vecs])
-        if self.group is None:
+        if not self.joined:
             return mine
         parts = [torch.empty_like(mine) for _ in range(self.world)]
-        dist.all_gather(parts, mine, group=self.group)
+        dist.all_gather(parts, mine)
         return torch.cat(parts)
 
     def exchange(self, pieces: list[list[torch.Tensor]], sizes: list[list[int]]) -> list[list[torch.Tensor]]:
@@ -116,7 +120,7 @@ class FrontierMesh:
         comm = devs[0]
         inp = torch.cat([p.to(comm) for p in send])
         recv = torch.empty((sum(out_splits),) + tuple(proto.shape[1:]), dtype=proto.dtype, device=comm)
-        dist.all_to_all_single(recv, inp, out_splits, in_splits, group=self.group)
+        dist.all_to_all_single(recv, inp, out_splits, in_splits)
         at = 0
         for q in range(self.world):
             if q == self.rank:
@@ -157,6 +161,17 @@ def init_distributed(
         backend, init_method=f"tcp://{coordinator_address}", world_size=num_processes, rank=process_id
     )
     _JOINED.update(backend=backend, local=int(local_device_count or 1))
+    atexit.register(shutdown_distributed)
+
+
+def shutdown_distributed() -> None:
+    """Leave the process group :func:`init_distributed` joined, joining its
+    backend's threads; a no-op when no group is joined.  ``init_distributed``
+    registers it to run at interpreter exit, as ``jax.distributed`` does its
+    own shutdown, so a process's teardown never destroys a live group."""
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    _JOINED.clear()
 
 
 def multiprocess_supported() -> tuple[bool, str]:
@@ -198,7 +213,7 @@ def frontier_mesh(axis: str = "fr", devices=None) -> FrontierMesh:
     if dist.is_initialized() and _JOINED:
         world, rank = dist.get_world_size(), dist.get_rank()
         devs = tuple(_process_device(_JOINED["backend"], p) for p in range(world) for _ in range(_JOINED["local"]))
-        return FrontierMesh(axis, devs, rank=rank, world=world, group=dist.group.WORLD)
+        return FrontierMesh(axis, devs, rank=rank, world=world, joined=True)
     if not torch.cuda.is_available():
         from ..checker.device import DeviceUnavailable
 

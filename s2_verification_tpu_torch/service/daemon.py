@@ -13,11 +13,12 @@ threads do the searching and resolve each submit's deferred reply through
 ``call_soon_threadsafe``.
 
 Ops served: ``ping``, ``stats``, ``trace``, ``watch``, ``shutdown`` (and
-its drain) and ``submit`` (with deadlines and cancel).  A supervised
-escalation runs the device search in a child process; ``device="inline"``
-runs it here, on ``torch_device`` (``None`` = the card), the one field
-the port adds to the JAX config.  A supervised or device-off daemon never
-imports ``torch``.
+its drain), ``submit`` (with deadlines and cancel) and ``follow``.  A
+supervised escalation runs the device search in a child process;
+``device="inline"`` runs it here, on ``torch_device`` (``None`` = the
+card), the one field the port adds to the JAX config.  A supervised or
+device-off daemon never imports ``torch`` unless it batches with the vmap
+engine.
 
 Durability (``VerifydConfig.state_dir``), as in the JAX daemon and in
 its on-disk formats: the verdict cache spills to CRC-checked segment
@@ -33,11 +34,18 @@ read by the other's.  The ops layer: ``--metrics-port`` (``/metrics``,
 ``/healthz``, ``/slo``, ``/sentinel``, ``/dashboard``), ``--alert-url``,
 and the ``tsq``, ``profiles`` and ``quarantine`` ops.
 
-Not ported yet, and refused by name: prefix resume (``--prefix``, the
-``follow`` op), cross-job batching (``--batching``) and the
-distributed-search ops (``grant``, ``delta``, ``partition_done``).  A
-config that needs one raises ``NotImplementedError`` when the daemon is
-built; an op that needs one is answered with an error frame.
+Continuous batching (``batching``, ``service/batcher.py``) runs a shape
+group as one launch; with ``batch_engine="vmap"`` (or ``"auto"`` where the
+native engine does not build) that launch is the lane-batched search on
+``torch_device``, resolved when the daemon is built, so a batching daemon
+without a card raises ``DeviceUnavailable`` then.  Incremental
+verification (``prefix_enabled``): the prefix store
+(``service/prefixstore.py``, ``<state_dir>/prefix`` or in memory) probes
+each submit for a cached prefix and serves the ``follow`` op; its keys,
+entries and segments are the JAX package's byte for byte.
+
+Not ported yet, and refused by name: the distributed-search ops
+(``grant``, ``delta``, ``partition_done``), answered with an error frame.
 """
 
 from __future__ import annotations
@@ -82,11 +90,19 @@ from .overload import (
     DegradedWriter,
     QuarantineStore,
 )
+from .prefixstore import (
+    PREFIX_SUBDIR,
+    PrefixStore,
+    make_entry,
+    plan_for_submit,
+    plan_for_window,
+)
 from .protocol import (
     ERR_AUTH,
     ERR_DEADLINE,
     ERR_DECODE,
     ERR_FRAME,
+    ERR_FRONTIER,
     ERR_INTERNAL,
     ERR_QUARANTINED,
     ERR_QUEUE_FULL,
@@ -111,10 +127,8 @@ __all__ = ["VerifydConfig", "Verifyd"]
 
 log = logging.getLogger("s2_verification_tpu_torch.verifyd")
 
-#: the roadmap items the unported daemon features wait for (ROADMAP.md,
-#: queue 1)
-_PREFIX = "ROADMAP.md queue 1 item 5, incremental verification"
-_BATCHING = "ROADMAP.md queue 1 item 4, continuous batching"
+#: the roadmap item the unported distributed-search ops wait for
+#: (ROADMAP.md, queue 1)
 _FLEET = "ROADMAP.md queue 1 item 6, the fleet tier"
 
 
@@ -232,14 +246,27 @@ class VerifydConfig:
     #: validate and prepare in one walk, falling back to the layered
     #: decode path on any anomaly (identical errors, just slower)
     fast_admission: bool = True
-    #: continuous cross-job batching; not ported yet (refused when set)
+    #: continuous cross-job batching: shape groups run as mega-launches
+    #: (service/batcher.py) with late-join and per-lane attribution
     batching: bool = False
+    #: lane engine for mega-launches: auto | native | vmap
     batch_engine: str = "auto"
-    #: incremental prefix verification; not ported yet (refused when set)
+    #: incremental prefix verification (service/prefixstore.py): probe
+    #: incoming histories for cached prefixes, snapshot OK searches at
+    #: closed op boundaries, and serve the ``follow`` op.  Opt-in
+    #: (``serve --prefix``): planned jobs run the resumable host-frontier
+    #: engine instead of the native/oracle portfolio.
     prefix_enabled: bool = False
+    #: in-memory prefix-store entries (LRU); disk is bounded separately
+    #: by segment rotation
     prefix_capacity: int = 2048
+    #: histories below this many ops never probe or snapshot (the cold
+    #: engines already answer them faster than a store round-trip)
     prefix_min_ops: int = 4
+    #: snapshot cuts collected per OK search (probes still check every
+    #: closed boundary — lookups are cheap, snapshots are not)
     prefix_cuts: int = 8
+    #: prefix-store segment-rotation bound under <state_dir>/prefix/
     prefix_max_segments: int = 8
     #: progress-heartbeat cadence per job (checker/progress.ProgressSink
     #: time gate, the `watch` op's data source); <= 0 disables heartbeats
@@ -253,24 +280,25 @@ class VerifydConfig:
     speculate_depth: int = 0
     extra: dict = field(default_factory=dict)
     #: the port's one addition: the torch device of inline and supervised
-    #: escalations (``serve --torch-device``).  None = the card; an
-    #: inline daemon without one raises when it is built.  "cpu" runs the
-    #: device search on the CPU
+    #: escalations and of vmap launch groups (``serve --torch-device``).
+    #: None = the card; an inline or vmap-batching daemon without one
+    #: raises when it is built.  "cpu" runs the device search on the CPU
     torch_device: str | None = None
 
 
-def _refuse_unported(cfg: VerifydConfig) -> None:
-    """``NotImplementedError`` naming the module for each configured
-    feature whose modules the port does not have yet."""
-    wants = (
-        (cfg.prefix_enabled, "--prefix", "service/prefixstore.py and checker/prefix.py", _PREFIX),
-        (cfg.batching, "--batching", "service/batcher.py", _BATCHING),
-    )
-    for on, flag, modules, item in wants:
-        if on:
-            raise NotImplementedError(
-                f"verifyd {flag} needs {modules}, which the port does not have yet ({item})"
-            )
+def holds_card(cfg: VerifydConfig) -> bool:
+    """Whether the daemon's own process searches on ``torch_device``: an
+    inline escalation, or batching whose launch engine is vmap
+    (``"auto"`` picks native wherever the C++ engine builds)."""
+    if cfg.device == "inline":
+        return True
+    if not cfg.batching or cfg.batch_engine == "native":
+        return False
+    if cfg.batch_engine == "vmap":
+        return True
+    from ..checker.batched import default_engine
+
+    return default_engine() == "vmap"
 
 
 class Verifyd:
@@ -279,14 +307,14 @@ class Verifyd:
 
     def __init__(self, config: VerifydConfig) -> None:
         self.cfg = config
-        _refuse_unported(config)
         if config.tcp is not None and not config.secret:
             raise ValueError(
                 "a TCP listener requires a shared secret (VerifydConfig.secret)"
             )
-        if config.device == "inline":
-            # The inline daemon holds the card itself: without one it
-            # raises DeviceUnavailable now, never at its first escalation.
+        if holds_card(config):
+            # An inline or vmap-batching daemon holds the card itself:
+            # without one it raises DeviceUnavailable now, never at its
+            # first escalation or launch.
             from ..checker.device import resolve_device
 
             resolve_device(config.torch_device)
@@ -471,6 +499,36 @@ class Verifyd:
                 torn_tail_bytes=rec.torn_tail_bytes if rec else 0,
                 bad_segments=rec.bad_segments if rec else 0,
             )
+        self.prefix = None
+        self._prefix_writer = None
+        if config.prefix_enabled:
+            prefix_dir = (
+                os.path.join(config.state_dir, PREFIX_SUBDIR)
+                if config.state_dir
+                else None
+            )
+            self._prefix_writer = (
+                DegradedWriter("prefix", self.stats)
+                if prefix_dir is not None
+                else None
+            )
+            self.prefix = PrefixStore(
+                config.prefix_capacity,
+                prefix_dir,
+                fsync=config.fsync,
+                max_segments=config.prefix_max_segments,
+                writer=self._prefix_writer,
+            )
+            if prefix_dir is not None:
+                rec = self.prefix.recovery
+                self.stats.emit(
+                    "prefix_loaded",
+                    entries=self.prefix.loaded,
+                    bytes=self.prefix.bytes,
+                    segments=rec.segments if rec else 0,
+                    torn_tail_bytes=rec.torn_tail_bytes if rec else 0,
+                    bad_segments=rec.bad_segments if rec else 0,
+                )
         self.journal = (
             JobJournal(os.path.join(config.state_dir, "journal"), fsync=config.fsync)
             if config.state_dir
@@ -545,6 +603,9 @@ class Verifyd:
             progress=self.progress,
             prune=config.prune,
             speculate_depth=config.speculate_depth,
+            batching=config.batching,
+            batch_engine=config.batch_engine,
+            prefix_store=self.prefix,
             torch_device=config.torch_device,
         )
         self._job_ids = itertools.count(1)
@@ -653,6 +714,8 @@ class Verifyd:
         if self.archive is not None:
             self.archive.close()
         self.cache.close()
+        if self.prefix is not None:
+            self.prefix.close()
         if self.journal is not None:
             self.journal.close()
         if self._stats_file is not None:
@@ -941,10 +1004,11 @@ class Verifyd:
                             resp = err(ERR_AUTH, "missing or invalid frame auth")
                             close_after = True
                         else:
-                            if req.get("op") == "submit":
-                                # Drain counts a submit until its reply is
-                                # *written* — an accepted job whose verdict
-                                # never reached the client is a lost job.
+                            if req.get("op") in ("submit", "follow"):
+                                # Drain counts a submit (or follow window)
+                                # until its reply is *written* — an accepted
+                                # job whose verdict never reached the client
+                                # is a lost job.
                                 # Every _handle coroutine runs on the accept
                                 # loop, so +=/-= never interleave; the drain
                                 # poller thread only reads the counter.
@@ -1133,6 +1197,8 @@ class Verifyd:
                 return err(ERR_DECODE, f"unknown quarantine action {action!r}")
             if op == "submit":
                 return await self._submit(req, reader)
+            if op == "follow":
+                return await self._follow(req, reader)
             refused = _UNPORTED_OPS.get(op)
             if refused is not None:
                 return err(ERR_DECODE, f"op {op!r} needs {refused}")
@@ -1382,6 +1448,52 @@ class Verifyd:
                 depth=len(self.queue),
             )
 
+        # Prefix probe (service/prefixstore.py): fold the chain-hash
+        # frontier of the incoming history, ask the store for the deepest
+        # cached cut, and plan where the search snapshots next.  Planned
+        # jobs run the resumable host-frontier engine in the scheduler.
+        plan = None
+        if self.prefix is not None:
+            plan = plan_for_submit(
+                self.prefix,
+                hist,
+                max_cuts=self.cfg.prefix_cuts,
+                min_ops=self.cfg.prefix_min_ops,
+            )
+            if plan is not None:
+                plan.total_events = len(events)
+                if plan.carry is not None:
+                    self.stats.emit(
+                        "prefix_hit",
+                        client=client,
+                        resume_ops=plan.resume_ops,
+                        ops=len(hist.ops),
+                        depth_frac=round(
+                            plan.resume_ops / max(1, len(hist.ops)), 4
+                        ),
+                        probed=plan.probed,
+                        trace_id=trace_id,
+                    )
+                    # A resumed search replays no linearization prefix: the
+                    # witness would be partial, so the artifact is skipped.
+                    no_viz = True
+                else:
+                    self.stats.emit(
+                        "prefix_miss",
+                        client=client,
+                        ops=len(hist.ops),
+                        probed=plan.probed,
+                        trace_id=trace_id,
+                    )
+                if plan.refused:
+                    self.stats.emit(
+                        "prefix_refused",
+                        op="submit",
+                        reason=plan.refused,
+                        client=client,
+                        trace_id=trace_id,
+                    )
+
         cancel = CancelToken(
             time.monotonic() + deadline if deadline is not None else None
         )
@@ -1396,6 +1508,7 @@ class Verifyd:
             no_viz=no_viz,
             trace_id=trace_id,
             cancel=cancel,
+            prefix=plan,
         )
         fut: asyncio.Future = self._loop.create_future()
 
@@ -1532,14 +1645,242 @@ class Verifyd:
                         trace_id=job.trace_id,
                     )
 
+    async def _follow(
+        self, req: dict, reader: asyncio.StreamReader | None = None
+    ) -> dict:
+        """One window of a followed stream: verify the delta against the
+        carried frontier and advance the durable frontier on OK.
+
+        The window verdict is **window-scoped** — it answers "is the
+        stream still linearizable given the committed prefix", not "is
+        this standalone history linearizable" — so it never enters the
+        verdict cache, the journal, or any router edge cache; the reply
+        carries ``scope="window"`` precisely so caches can refuse it.
+        A window with in-flight ops still gets a verdict, but the
+        frontier does not advance (``advanced=false``): the client
+        resends those events once their finishes arrive.
+        """
+        t_recv = self.tracer.now()
+        trace_id, _ = parse_trace_frame(req.get(TRACE_FIELD))
+        if trace_id is None:
+            trace_id = new_trace_id()
+        if self.prefix is None:
+            return err(
+                ERR_DECODE,
+                "follow needs the prefix store (start verifyd with --prefix)",
+            )
+        stream = str(req.get("stream") or "")
+        if not stream:
+            return err(ERR_DECODE, "follow needs a non-empty 'stream' id")
+        token = req.get("frontier")
+        entry = None
+        if token is not None:
+            token = str(token)
+            entry = self.prefix.get(token)
+            if entry is None:
+                # Evicted, never durable, or from another fleet member's
+                # store: the client resyncs by submitting the full history.
+                self.stats.emit(
+                    "prefix_refused",
+                    op="follow",
+                    reason="unknown_frontier",
+                    stream=stream,
+                    trace_id=trace_id,
+                )
+                return err(
+                    ERR_FRONTIER,
+                    f"frontier {token!r} is not in the store (evicted or "
+                    "never durable); resubmit the full history",
+                    frontier=token,
+                )
+        client = str(req.get("client") or "anon")
+        try:
+            priority = int(req.get("priority", 10))
+        except (TypeError, ValueError):
+            return err(
+                ERR_DECODE, f"priority must be an int, got {req.get('priority')!r}"
+            )
+        deadline = req.get("deadline")
+        if deadline is not None:
+            try:
+                deadline = float(deadline)
+            except (TypeError, ValueError):
+                return err(
+                    ERR_DECODE, f"deadline must be a number, got {deadline!r}"
+                )
+        decoded = self._decode_history(
+            req.get("history"), req.get("records"), client
+        )
+        if isinstance(decoded, dict):
+            return decoded
+        _text, events, hist = decoded
+        try:
+            plan = plan_for_window(hist, token=token, entry=entry, stream=stream)
+        except ValueError as e:
+            return err(ERR_FRONTIER, str(e), frontier=token)
+        plan.total_events = len(events)
+        n = len(hist.ops)
+        if plan.refused:
+            self.stats.emit(
+                "prefix_refused",
+                op="follow",
+                reason=plan.refused,
+                stream=stream,
+                window=plan.window,
+                trace_id=trace_id,
+            )
+        if n == 0:
+            # An all-trivial window: nothing to search (trivial ops cannot
+            # change a verdict — checker/entries.py), so it is vacuously
+            # OK; the frontier re-keys at the same cut with the event
+            # horizon advanced, unless ops were left dangling.
+            advanced = False
+            if token is not None and not plan.refused:
+                new_entry = make_entry(
+                    plan.carry,
+                    events=plan.base_events + len(events),
+                    stream=stream,
+                    window=plan.window,
+                )
+                try:
+                    self.prefix.put(token, new_entry)
+                    advanced = True
+                except ValueError:
+                    log.exception("follow re-key refused for %r", token)
+            self.stats.emit(
+                "window_done",
+                stream=stream,
+                window=plan.window,
+                verdict=0,
+                advanced=advanced,
+                ops_total=plan.base_ops,
+                trace_id=trace_id,
+            )
+            # Numeric verdict like every searched window (VERDICT_EXIT):
+            # clients compare ``verdict == 0``, and a string here would
+            # make them treat a vacuously-OK window as inconclusive.
+            return ok(
+                {
+                    "verdict": 0,
+                    "outcome": "OK",
+                    "backend": "frontier-trivial",
+                    "scope": "window",
+                    "stream": stream,
+                    "window": plan.window,
+                    "ops": 0,
+                    "ops_total": plan.base_ops,
+                    "frontier": token,
+                    "advanced": advanced,
+                    "trace_id": trace_id,
+                }
+            )
+        shape = shape_key(hist)
+        cancel = CancelToken(
+            time.monotonic() + deadline if deadline is not None else None
+        )
+        # The job "fingerprint" is the window's cut key (``pv2:...``) — a
+        # namespace the verdict cache never stores, so the scheduler's
+        # pre-start cache check always misses for window jobs.
+        fingerprint = plan.snap_keys.get(n) or f"pwindow:{stream}/{plan.window}"
+        job = Job(
+            id=next(self._job_ids),
+            client=client,
+            priority=priority,
+            shape=shape,
+            fingerprint=fingerprint,
+            events=events,
+            hist=hist,
+            no_viz=True,  # a window has no standalone witness to draw
+            trace_id=trace_id,
+            cancel=cancel,
+            prefix=plan,
+        )
+        fut: asyncio.Future = self._loop.create_future()
+
+        def _resolve(reply: dict) -> None:
+            def _finish() -> None:
+                if not fut.done():
+                    fut.set_result(reply)
+
+            with contextlib.suppress(RuntimeError):  # loop already closed
+                self._loop.call_soon_threadsafe(_finish)
+
+        job.resolve = _resolve
+        try:
+            depth = self.queue.put(job)
+        except QueueFull as e:
+            self.stats.emit(
+                "reject",
+                client=client,
+                priority=priority,
+                depth=e.depth,
+                retry_after_s=e.retry_after_s,
+            )
+            return err(
+                ERR_QUEUE_FULL,
+                str(e),
+                retry_after_s=e.retry_after_s,
+                depth=e.depth,
+            )
+        except RuntimeError as e:  # queue closed: daemon is stopping
+            return err(ERR_SHUTTING_DOWN, str(e))
+        job.enqueued_at = self.tracer.now()
+        self.stats.emit(
+            "admit",
+            job=job.id,
+            client=client,
+            priority=priority,
+            shape=job.shape,
+            depth=depth,
+            trace_id=trace_id,
+        )
+        self.stats.set_queue_depth(depth)
+        if self.tracer.enabled:
+            self.tracer.name_track(
+                job.id, f"follow {stream}#{plan.window} ({client})"
+            )
+            self.tracer.add_span(
+                "admit",
+                t_recv,
+                job.enqueued_at,
+                tid=job.id,
+                args={
+                    "client": client,
+                    "stream": stream,
+                    "window": plan.window,
+                    "trace_id": trace_id,
+                },
+            )
+        reply = await self._await_reply(fut, job, reader)
+        body = reply.get("ok")
+        if isinstance(body, dict):
+            new_key = plan.snap_keys.get(n)
+            # The frontier only advances when the worker actually stored
+            # the end-of-window snapshot (OK verdict, complete cut).
+            advanced = bool(new_key) and new_key in self.prefix
+            body.update(
+                stream=stream,
+                window=plan.window,
+                ops=n,
+                ops_total=plan.base_ops + n,
+                frontier=new_key if advanced else token,
+                advanced=advanced,
+            )
+            self.stats.emit(
+                "window_done",
+                stream=stream,
+                window=plan.window,
+                verdict=body.get("verdict"),
+                advanced=advanced,
+                ops_total=plan.base_ops + n,
+                trace_id=trace_id,
+            )
+        return reply
+
 
 #: ops the JAX daemon serves whose modules the port does not have yet:
 #: each is answered with an error frame naming them
 _UNPORTED_OPS = {
-    "follow": "the prefix store, service/prefixstore.py and checker/prefix.py, which the port "
-              f"does not have yet ({_PREFIX})",
-    **{
-        op: f"the distributed search, service/distsearch.py, which the port does not have yet ({_FLEET})"
-        for op in ("grant", "delta", "partition_done")
-    },
+    op: f"the distributed search, service/distsearch.py, which the port does not have yet ({_FLEET})"
+    for op in ("grant", "delta", "partition_done")
 }

@@ -66,6 +66,11 @@ class Job:
     #: called exactly once with the reply dict (thread-safe trampoline
     #: into the daemon's event loop)
     resolve: Callable[[dict], None] = lambda _reply: None
+    #: prefix-resume plan (service/prefixstore.PrefixPlan): carried
+    #: frontier state + snapshot cut keys.  None = the cold path.
+    #: ``kind == "window"`` jobs are follow deltas whose verdicts are
+    #: window-scoped: never journaled, never verdict-cached.
+    prefix: Any = None
     #: live progress heartbeat sink (checker/progress.ProgressSink),
     #: attached by scheduler._prestart; None = heartbeats disabled
     progress_sink: Any = None

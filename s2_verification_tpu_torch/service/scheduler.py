@@ -20,10 +20,17 @@ the client can always rerun one-shot with ``-time-budget 0``.
 
 ``torch_device`` names the device of both escalations (``None`` = the
 card; ``"cpu"`` runs the device search on the CPU).  Nothing here
-imports ``torch`` until an inline escalation runs: a supervised or
-device-off daemon never holds a card.  The JAX scheduler's prefix-resume
-path (``--prefix``) and cross-job batching (``--batching``) are not
-ported; the daemon refuses both when it is built.
+imports ``torch`` until an inline escalation or a vmap launch group runs:
+a supervised or device-off daemon never holds a card.
+
+With ``batching`` a worker hands each picked shape group of two or more
+jobs to the batcher (``service/batcher.py``), which runs it as one launch
+of ``batch_engine`` (``native``, or ``vmap``: one lane-batched search on
+``torch_device``).  With a ``prefix_store`` (``serve --prefix``) a job
+carrying a :class:`~.prefixstore.PrefixPlan` runs the resumable host
+frontier search from the plan's carry and writes its snapshot cuts to the
+store; a follow window's verdict is window-scoped (never cached, never
+journaled, never escalated).
 
 With a ``journal`` (``serve --state-dir``) every job leaves the JAX
 scheduler's records: ``run`` before its search, ``done`` after its
@@ -163,6 +170,9 @@ class Scheduler:
         journal_writer=None,
         quarantine=None,
         cancel_grace_s: float = 2.0,
+        batching: bool = False,
+        batch_engine: str = "auto",
+        prefix_store=None,
         progress=None,
         prune: bool = False,
         speculate_depth: int = 0,
@@ -170,6 +180,8 @@ class Scheduler:
     ) -> None:
         if device not in ("supervised", "inline", "off"):
             raise ValueError(f"unknown device escalation mode {device!r}")
+        if batch_engine not in ("auto", "native", "vmap"):
+            raise ValueError(f"unknown batch engine {batch_engine!r}")
         self.queue = queue
         self.cache = cache
         self.stats = stats
@@ -201,6 +213,14 @@ class Scheduler:
         self.quarantine = quarantine
         #: SIGTERM→SIGKILL grace for cancelled supervised children
         self.cancel_grace_s = cancel_grace_s
+        #: continuous cross-job batching: shape groups of >= 2 jobs run
+        #: as one mega-launch (service/batcher.py) instead of job by job
+        self.batching = batching
+        self.batch_engine = batch_engine
+        #: prefix store (service/prefixstore.PrefixStore); jobs carrying a
+        #: PrefixPlan run the resumable host-frontier path and write their
+        #: snapshot cuts here on OK
+        self.prefix_store = prefix_store
         #: per-job progress table (service/progress.JobProgress); None
         #: disables heartbeats — every job then runs exactly as before
         self.progress = progress
@@ -219,6 +239,11 @@ class Scheduler:
         self._launch_lock = threading.Lock()
         self._threads: list[threading.Thread] = []
         self._stopping = False
+        self._batcher = None
+        if batching:
+            from .batcher import Batcher
+
+            self._batcher = Batcher(self, engine=batch_engine)
 
     # -- lifecycle ----------------------------------------------------------
 
@@ -246,6 +271,21 @@ class Scheduler:
                     return
                 continue
             self.stats.set_queue_depth(len(self.queue))
+            if self._batcher is not None and len(batch) > 1:
+                # Prefix-planned jobs peel off before a mega-launch: the
+                # batched engines search cold from op 0, which is wrong
+                # for window-scoped follow jobs (their carry IS the
+                # prefix) and wastes the resume for extensions.
+                grouped = [j for j in batch if j.prefix is None]
+                batch = [j for j in batch if j.prefix is not None]
+                if len(grouped) > 1:
+                    # Mega-launch: the whole shape group (plus
+                    # late-joiners); the batcher resolves every job.
+                    self._batcher.run_group(grouped)
+                else:
+                    batch = grouped + batch
+                if not batch:
+                    continue
             for job in batch:
                 try:
                     reply = self._run_job(job)
@@ -278,8 +318,22 @@ class Scheduler:
         except (OSError, ValueError):
             log.exception("job %d: journal append failed", job.id)
 
+    @staticmethod
+    def _is_window(job: Job) -> bool:
+        """Follow-window jobs: verdicts are window-scoped (computed from a
+        carried frontier, not op 0), so they must never enter the verdict
+        cache or the journal — a replay or a fingerprint twin would serve
+        a rolling verdict as if it were a cold full-history one.
+        Distributed-search partition jobs (``kind == "partition"``) carry
+        the same hazard: their verdict covers one partition of one
+        segment, never the whole history."""
+        return job.prefix is not None and job.prefix.kind in (
+            "window",
+            "partition",
+        )
+
     def _mark_done(self, job: Job, *, verdict: int | None, outcome: str) -> None:
-        if self.journal is None:
+        if self.journal is None or self._is_window(job):
             return
         self._journal_append(
             job,
@@ -324,7 +378,8 @@ class Scheduler:
 
         Returns ``(reply, queue_wait, warm)``; a non-None ``reply`` means
         the job was answered here (cancelled in the queue, or a verdict-
-        cache twin landed while it waited) and must not run.
+        cache twin landed while it waited) and must not run.  Shared by
+        the sequential path and the batcher's per-lane prestart.
         """
         queue_wait = t_pick - (job.enqueued_at or job.submitted_at)
         # Cancellation boundary #1: a job whose deadline passed in the
@@ -367,7 +422,7 @@ class Scheduler:
         # Run record before the search: it is what lets boot-time orphan
         # recovery distinguish a poison job (started, then the process
         # died) from one that innocently sat in the queue.
-        if self.journal is not None:
+        if self.journal is not None and not self._is_window(job):
             self._journal_append(
                 job,
                 lambda: self.journal.started(
@@ -444,7 +499,9 @@ class Scheduler:
         wall: float,
     ) -> dict:
         """Turn a search result into the job's reply: cancel boundary #2,
-        artifact, verdict-cache put, ``done`` event."""
+        artifact, verdict-cache put, ``done`` event.  ``wall`` is this
+        job's own search span — for batched lanes, its queue-pick→decide
+        time, not the mega-launch wall."""
         # Cancellation boundary #2: a search abandoned mid-flight comes
         # back UNKNOWN — answer the cancellation, not a fake verdict.  A
         # conclusive result that beat the cancel is still worth more to
@@ -481,9 +538,19 @@ class Scheduler:
         profile = job_profile(res) if self.profile else None
         if profile is not None:
             payload["profile"] = profile
+        if self._is_window(job):
+            # A follow window's verdict only covers the suffix relative to
+            # its carry; its "fingerprint" is the cut key (pv2:...), and
+            # the payload is marked so edges scope it too.  Partition jobs
+            # are scoped likewise (their end-of-segment union goes back to
+            # the coordinator with the fleet tier, ROADMAP.md queue 1
+            # item 6).
+            kind = job.prefix.kind
+            payload["scope"] = "partition" if kind == "partition" else "window"
         # Inconclusive verdicts are not cached: a resubmission may get a
         # healthier device or a bigger budget and deserves a fresh run.
-        if res.outcome != CheckOutcome.UNKNOWN:
+        # Window verdicts are never cached at all (see _is_window).
+        if res.outcome != CheckOutcome.UNKNOWN and not self._is_window(job):
             self.cache.put(job.fingerprint, payload)
         # Done-mark after the cache put: a crash in between re-runs the
         # job (at-least-once), and the rerun answers from the cache.
@@ -564,7 +631,10 @@ class Scheduler:
         if job.cancel.check() is not None:
             # Cancelled during the CPU stage: skip device escalation.
             return res, engine
-        if self.device != "off":
+        if self.device != "off" and not self._is_window(job):
+            # (Window jobs never escalate: the device engines search cold
+            # from op 0, and a window without its carry is a different —
+            # wrong — question.)
             t_dev = time.monotonic()
             dres, dev_backend = self._escalate_device(job)
             t_end = time.monotonic()
@@ -593,9 +663,115 @@ class Scheduler:
             return res, f"{engine}-unbounded"
         return res, engine
 
+    def _traced_prefix(
+        self, job: Job, budget: float | None
+    ) -> tuple[CheckResult, str]:
+        """Resumable host-frontier search for prefix-planned jobs.
+
+        Runs :func:`..checker.frontier.check_frontier_auto` with the
+        plan's carry as the initial configuration and its chosen cuts as
+        snapshot points; on OK the completed cuts are written to the
+        prefix store.  The span name distinguishes ``search.resume``
+        (carry present) from ``search.cold`` (probe missed; this search
+        merely seeds the store).
+        """
+        from ..checker.frontier import check_frontier_auto
+
+        plan = job.prefix
+        init_counts = init_states = None
+        if plan.carry is not None:
+            init_states = plan.carry.states
+            if plan.kind == "extend":
+                init_counts = plan.resume_counts
+        mode = "resume" if plan.carry is not None else "cold"
+        t0 = time.monotonic()
+        # (A distributed-search partition runs an exhaustive
+        # check_frontier(complete_cuts=True) instead; it comes with the
+        # fleet tier, ROADMAP.md queue 1 item 6.)
+        res = check_frontier_auto(
+            job.hist,
+            collect_stats=True,
+            witness=False,
+            profile=self.profile,
+            init_counts=init_counts,
+            init_states=init_states,
+            snapshot_cuts=sorted(plan.snap_keys) or None,
+            time_budget_s=budget,
+            progress=job.progress_sink,
+            prune=self.prune,
+        )
+        self.tracer.add_span(
+            f"search.{mode}",
+            t0,
+            time.monotonic(),
+            tid=job.id,
+            args={
+                "budget_s": budget,
+                "outcome": res.outcome.value,
+                "kind": plan.kind,
+                "resume_ops": plan.resume_ops,
+                "ops": len(job.hist.ops),
+                "trace_id": job.trace_id,
+            },
+        )
+        self._store_snapshots(job, res)
+        return res, f"frontier-{mode}"
+
+    def _store_snapshots(self, job: Job, res: CheckResult) -> None:
+        """Write every completed snapshot cut of an OK search to the
+        prefix store (checker/frontier.py already refused cuts touched by
+        pruning or crossed by in-flight ops)."""
+        plan = job.prefix
+        if (
+            self.prefix_store is None
+            or plan is None
+            or not plan.snap_keys
+            or res.outcome != CheckOutcome.OK
+        ):
+            return
+        snaps = getattr(res, "snapshots", None) or {}
+        from ..checker.prefix import PrefixCarry
+        from .prefixstore import make_entry
+
+        n = len(job.hist.ops)
+        for k, states in snaps.items():
+            key = plan.snap_keys.get(k)
+            if key is None:
+                continue
+            # Event horizon of the cut: the first suffix event (or the
+            # whole window) — the offset a follow continuation folds from.
+            horizon = plan.base_events + (
+                job.hist.ops[k].call if k < n else plan.total_events
+            )
+            carry = PrefixCarry(ops=plan.base_ops + k, states=tuple(states))
+            try:
+                self.prefix_store.put(
+                    key,
+                    make_entry(
+                        carry,
+                        events=horizon,
+                        stream=plan.stream,
+                        window=plan.window,
+                    ),
+                )
+            except ValueError:
+                log.warning("job %d: refused snapshot at cut %d", job.id, k)
+                continue
+            self.stats.emit(
+                "prefix_snapshot",
+                job=job.id,
+                key=key,
+                ops=plan.base_ops + k,
+                entries=len(self.prefix_store),
+                bytes=self.prefix_store.bytes,
+                trace_id=job.trace_id,
+            )
+
     def _traced_cpu(
         self, job: Job, budget: float | None
     ) -> tuple[CheckResult, str]:
+        if job.prefix is not None:
+            return self._traced_prefix(job, budget)
         t0 = time.monotonic()
         # Optional kwargs only when asked/armed: test doubles for
         # _cpu_check keep the plain (hist, budget) signature, so the sink
@@ -733,7 +909,7 @@ class Scheduler:
                 )
         try:
             if self.device == "inline":
-                # The one place the daemon itself loads torch.
+                # The daemon loads torch here (and in a vmap launch group).
                 from ..checker.device import check_device_auto
 
                 kw = {} if self.device_rows is None else {"device_rows_cap": self.device_rows}

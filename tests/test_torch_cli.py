@@ -13,12 +13,17 @@
   prints them, an empty glob (64), and ``-checkpoint``/``-profile`` ignored;
 - the artifacts: ``-out-dir`` gets the JAX CLI's HTML byte for byte, and
   ``-no-viz`` writes none; ``-profile`` with the native engine carries its
-  phases as the JAX CLI's does.
+  phases as the JAX CLI's does;
+- the operator commands against a live port daemon (the cases of
+  ``tests/test_cli.py`` and ``tests/test_obs_v3.py``): ``trace`` exports
+  the span ring (exit 69 with no daemon), one ``dash`` frame a poll, and
+  ``watch`` on a live job, as JSON frames and as the board.
 """
 
 import json
 import logging
 import os
+import time
 
 import pytest
 
@@ -218,3 +223,87 @@ def test_native_profile_has_the_jax_schema(files, tmp_path, capsys):
     assert set(prof["port"]["phases"]) == set(prof["jax"]["phases"]) == {"encode_s", "search_s", "steps", "cache_hits"}
     for k in ("steps", "cache_hits", "outcome", "backend", "ops"):
         assert prof["port"][k] == prof["jax"][k], k
+
+
+# -- the operator commands: trace, dash and watch against a live daemon --------------
+
+
+def _port_daemon(tmp_path, **kw):
+    from s2_verification_tpu_torch.service.daemon import Verifyd, VerifydConfig
+
+    cfg = VerifydConfig(socket_path=str(tmp_path / "v.sock"), out_dir=str(tmp_path / "viz"), no_viz=True,
+                        stats_log=None, device="off", **kw)
+    return cfg, Verifyd(cfg)
+
+
+def test_trace_subcommand_unavailable_exit69(tmp_path):
+    from s2_verification_tpu_torch.service.protocol import EXIT_UNAVAILABLE
+
+    assert pcli.main(["trace", "-socket", str(tmp_path / "nope.sock"), "-out", "-"]) == EXIT_UNAVAILABLE
+
+
+def test_trace_subcommand_exports_daemon_spans(files, tmp_path):
+    from s2_verification_tpu_torch.service.client import VerifydClient
+
+    from test_torch_service import time_limit
+
+    cfg, daemon = _port_daemon(tmp_path)
+    with time_limit(60), daemon:
+        with open(files["ok-collected"], encoding="utf-8") as f:
+            VerifydClient(cfg.socket_path).submit(f.read(), client="cli-test")
+        out = tmp_path / "trace.json"
+        assert pcli.main(["trace", "-socket", cfg.socket_path, "-out", str(out)]) == 0
+        trace = json.loads(out.read_text(encoding="utf-8"))
+        names = {e["name"] for e in trace["traceEvents"]}
+        assert {"admit", "search"} <= names
+        # The JAX package's trace command reads the port's daemon alike.
+        assert jcli.main(["trace", "-socket", cfg.socket_path, "-out", str(tmp_path / "j.json")]) == 0
+
+
+def test_dash_frame_over_a_live_daemon(files, tmp_path, capsys):
+    from s2_verification_tpu_torch.service.client import VerifydClient
+
+    from test_torch_service import time_limit
+
+    cfg, daemon = _port_daemon(tmp_path, metrics_port=0, resource_sample_s=0.1, dashboard_sample_s=0.1)
+    with time_limit(60), daemon:
+        with open(files["ok-collected"], encoding="utf-8") as f:
+            assert VerifydClient(cfg.socket_path).submit(f.read(), client="v3")["verdict"] == 0
+        capsys.readouterr()
+        rc = pcli.main(["dash", "--socket", cfg.socket_path, "--iterations", "2", "--interval", "0.1"])
+        out = capsys.readouterr().out
+    assert rc == 0
+    assert out.count("verifyd dash") == 2 and "completed=1" in out
+    assert "throughput" in out and "rss" in out
+
+
+def test_watch_through_the_cli_on_a_live_job(tmp_path, capsys, monkeypatch):
+    import threading
+
+    from s2_verification_tpu_torch.service import scheduler
+    from s2_verification_tpu_torch.service.client import VerifydClient
+
+    from test_torch_service import _slow_engine, good_history, port_pkg, time_limit
+
+    monkeypatch.setattr(scheduler, "_cpu_check", _slow_engine(port_pkg, total=60, step_s=0.02))
+    cfg, daemon = _port_daemon(tmp_path, progress_interval_s=0.05)
+    with time_limit(60), daemon:
+        reply: dict = {}
+        t = threading.Thread(target=lambda: reply.update(VerifydClient(cfg.socket_path).submit(good_history())))
+        t.start()
+        client = VerifydClient(cfg.socket_path)
+        while not client.watch().get("progress"):
+            time.sleep(0.01)
+        capsys.readouterr()
+        rc = pcli.main(["watch", "-socket", cfg.socket_path, "--json", "--interval", "0.1", "--iterations", "3"])
+        frames = [json.loads(line) for line in capsys.readouterr().out.splitlines() if line.strip()]
+        board = pcli.main(["watch", "-socket", cfg.socket_path, "--job", "1", "--iterations", "1"])
+        text = capsys.readouterr().out
+        t.join()
+    assert rc == 0 and board == 0 and reply["verdict"] == 0
+    rows = [r for f in frames for r in f["progress"]]
+    assert len(frames) == 3 and rows and {r["job"] for r in rows} == {1}
+    ops = [r["ops_committed"] for r in rows]
+    assert ops == sorted(ops)
+    assert "verifyd watch" in text and "job=1" in text
+    assert pcli.main(["watch", "-socket", str(tmp_path / "nope.sock"), "--iterations", "1"]) == 69

@@ -8,7 +8,9 @@ CPU fallback.
 - the supervising side of the device escalation (``checker.resilient``,
   ``service``, ``obs``) leaves ``torch`` out of ``sys.modules`` too, and so
   does a daemon under ``device="off"`` or ``"supervised"`` that answers
-  submits (the supervised one through a real escalation);
+  submits (the supervised one through a real escalation), and one with
+  native batching and the prefix store that answers a burst and a follow
+  window;
 - no port source (nor chip_smoke.py) imports them;
 - the entry points refuse to run when CUDA is asked for and absent, and
   so does the CLI's ``auto`` ladder when it escalates (exit 64, never a
@@ -127,6 +129,9 @@ def test_importing_the_port_loads_no_jax():
         "obs.alerts",
         "obs.httpd",
         "obs.dashboard",
+        "checker.prefix",
+        "service.prefixstore",
+        "service.batcher",
     ):
         assert f"s2_verification_tpu_torch.{m}" in mods
     proc = _fresh_interpreter(f"for m in {mods!r}:\n    importlib.import_module(m)\n")
@@ -176,6 +181,45 @@ def test_the_daemon_loads_no_torch_unless_it_escalates_inline(tmp_path):
         "    assert r['backend'] == ('native' if mode == 'off' else 'device-supervised'), r\n"
         "assert cli.main(['submit', '-file', '/nonexistent.jsonl', '-socket', sock]) == 64\n"
         f"assert cli.main(['doctor', '--state-dir', {str(tmp_path / 'state')!r} + 'off']) == 0\n"
+        "assert 'torch' not in sys.modules, sorted(m for m in sys.modules if m.startswith('torch'))\n"
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_a_native_batching_prefix_daemon_loads_no_torch(tmp_path):
+    # ``--batching`` with the auto engine (native, since the C++ engine
+    # builds here) and ``--prefix`` under the supervised escalation: a
+    # burst runs as one native launch, a follow window is answered,
+    # and the daemon's process never loads torch.
+    sock = tmp_path / "v.sock"
+    proc = _fresh_interpreter(
+        "import io, threading, time\n"
+        "from s2_verification_tpu_torch.collector.adversarial import adversarial_events\n"
+        "from s2_verification_tpu_torch.service.client import VerifydClient\n"
+        "from s2_verification_tpu_torch.service.daemon import Verifyd, VerifydConfig\n"
+        "from s2_verification_tpu_torch.utils import events as ev\n"
+        "texts = []\n"
+        "for s in range(3):\n"
+        "    buf = io.StringIO()\n"
+        "    ev.write_history(adversarial_events(3, batch=2, seed=s), buf)\n"
+        "    texts.append(buf.getvalue())\n"
+        f"sock = {str(sock)!r}\n"
+        "cfg = VerifydConfig(socket_path=sock, device='supervised', workers=0, no_viz=True, batching=True,\n"
+        "                    prefix_enabled=True, prefix_min_ops=1000,\n"
+        f"                    spool_dir={str(tmp_path / 'spool')!r}, state_dir={str(tmp_path / 'state')!r})\n"
+        "with Verifyd(cfg) as d:\n"
+        "    c = VerifydClient(sock, timeout=120)\n"
+        "    replies = []\n"
+        "    ths = [threading.Thread(target=lambda t=t: replies.append(c.submit(t, no_viz=True))) for t in texts]\n"
+        "    [t.start() for t in ths]\n"
+        "    while len(d.queue) < 3:\n"
+        "        time.sleep(0.01)\n"
+        "    d.scheduler.start(1)\n"
+        "    [t.join() for t in ths]\n"
+        "    w = c.follow(texts[0], stream='s')\n"
+        "    launches = c.stats()['batch_launches']\n"
+        "assert sorted(r['backend'] for r in replies) == ['batch-native'] * 3, replies\n"
+        "assert launches == 1 and (w['verdict'], w['scope']) == (0, 'window'), (launches, w)\n"
         "assert 'torch' not in sys.modules, sorted(m for m in sys.modules if m.startswith('torch'))\n"
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr

@@ -14,12 +14,16 @@ CLI's ``-device-rows``.
   backend warns and ignores it.
 - ``VerifydConfig`` has every field of the JAX package's with its default,
   plus only ``torch_device``; ``serve`` and ``submit`` take the JAX flags
-  with their defaults.
+  with their defaults, and so do ``follow``, ``trace``, ``dash`` and
+  ``watch``.
 - Every keyword of the JAX ``check_batch_native`` and ``check_batch_vmap``
-  that the port takes gives the JAX engines' lane verdicts and layers
-  (the daemon's ``skip``, ``on_lane``, ``progress``, ``profile`` and
-  ``prune`` come back with ``serve --batching``); ``check_native(enc=)``
-  takes a padded encoding and answers as the JAX engine does.
+  gives the JAX engines' lane verdicts and layers (the port's vmap engine
+  adds only ``device``), and ``BatchLane`` has the JAX fields;
+  ``check_native(enc=)`` takes a padded encoding and answers as the JAX
+  engine does.
+- ``check_frontier``, ``check_frontier_auto`` and ``check_native`` take
+  every keyword of the JAX package's, of the same kind and with the same
+  default.
 """
 
 import dataclasses
@@ -201,13 +205,20 @@ def test_cli_oracle_warns_and_ignores_device_rows(tmp_path, capsys, caplog):
 jbatched = importlib.import_module("s2_verification_tpu.checker.batched")
 jnative = importlib.import_module("s2_verification_tpu.checker.native")
 
-#: a setting of each JAX keyword of the two batched engines that the port
-#: takes
-BATCH_SETTINGS = {"capacity": 4}
+#: a setting of each JAX keyword of the two batched engines, made for the
+#: package (``who``) and the lane count (``n``)
+BATCH_SETTINGS = {
+    "capacity": lambda who, n: 4,
+    "skip": lambda who, n: (lambda i: "cancelled" if i == 2 else None),
+    "on_lane": lambda who, n: (lambda i, v: None),
+    "progress": lambda who, n: [(JaxSink if who == "jax" else PortSink)(lambda r: None, time_fn=Clock(step=1.0))
+                                for _ in range(n)],
+    "profile": lambda who, n: True,
+    "prune": lambda who, n: True,
+}
 BATCH_ENTRIES = ("check_batch_native", "check_batch_vmap")
-BATCH_CASES = [
-    (e, k) for e in BATCH_ENTRIES for k in inspect.signature(getattr(jbatched, e)).parameters if k in BATCH_SETTINGS
-]
+BATCH_CASES = [(e, k) for e in BATCH_ENTRIES for k in inspect.signature(getattr(jbatched, e)).parameters
+               if k != "lanes"]
 
 
 def _batch_histories():
@@ -226,12 +237,41 @@ def test_batched_engines_take_the_jax_keywords(entry, keyword):
         ("port", pbatched, [p for _, p in pairs], encode_batch),
     ):
         lanes = [mod.BatchLane(h, e) for h, e in zip(hists, enc_batch(hists))]
-        kw = {keyword: BATCH_SETTINGS[keyword]}
+        kw = {keyword: BATCH_SETTINGS[keyword](who, len(hists))}
         if who == "port" and entry == "check_batch_vmap":
             kw["device"] = "cpu"
         verdicts = getattr(mod, entry)(lanes, **kw)
         out[who] = [(v.engine, v.result and v.result.outcome.value, v.layers, v.skipped) for v in verdicts]
     assert out["port"] == out["jax"]
+
+
+def test_batched_engines_add_only_the_device_and_lanes_have_the_jax_fields():
+    for entry in BATCH_ENTRIES:
+        j = inspect.signature(getattr(jbatched, entry)).parameters
+        p = inspect.signature(getattr(pbatched, entry)).parameters
+        assert set(p) - set(j) == ({"device"} if entry == "check_batch_vmap" else set())
+        assert {k: (p[k].kind, p[k].default) for k in j} == {k: (j[k].kind, j[k].default) for k in j}
+    assert [f.name for f in dataclasses.fields(pbatched.BatchLane)] == [
+        f.name for f in dataclasses.fields(jbatched.BatchLane)
+    ]
+    assert pbatched.default_engine() == jbatched.default_engine()
+
+
+jfrontier = importlib.import_module("s2_verification_tpu.checker.frontier")
+pfrontier = importlib.import_module("s2_verification_tpu_torch.checker.frontier")
+HOST_ENGINES = (
+    (jfrontier, pfrontier, "check_frontier"),
+    (jfrontier, pfrontier, "check_frontier_auto"),
+    (jnative, pnative, "check_native"),
+)
+HOST_CASES = [(j, p, e, k) for j, p, e in HOST_ENGINES for k in inspect.signature(getattr(j, e)).parameters]
+
+
+@pytest.mark.parametrize("jmod,pmod,entry,keyword", HOST_CASES, ids=[f"{e}-{k}" for _, _, e, k in HOST_CASES])
+def test_host_engines_take_every_jax_keyword(jmod, pmod, entry, keyword):
+    jp = inspect.signature(getattr(jmod, entry)).parameters[keyword]
+    pp = inspect.signature(getattr(pmod, entry)).parameters[keyword]
+    assert (pp.kind, pp.default) == (jp.kind, jp.default)
 
 
 def test_check_native_takes_enc_like_jax():
@@ -317,3 +357,27 @@ def test_serve_and_submit_take_the_jax_flags_and_defaults():
         jargs.pop("fn"), pargs.pop("fn")
         assert set(pargs) - set(jargs) == added
         assert {k: pargs[k] for k in jargs} == jargs
+
+
+OPERATOR_COMMANDS = {
+    "follow": ["follow", "-file", "F", "-socket", "S", "--stream", "s"],
+    "trace": ["trace", "-socket", "S"],
+    "dash": ["dash", "-socket", "S"],
+    "watch": ["watch", "-socket", "S"],
+}
+
+
+@pytest.mark.parametrize("command", list(OPERATOR_COMMANDS))
+def test_operator_commands_take_the_jax_flags_and_defaults(command):
+    """``follow``, ``trace``, ``dash`` and ``watch`` parse to the JAX
+    package's flags and defaults, each option under the JAX names."""
+    argv = OPERATOR_COMMANDS[command]
+    jargs = vars(jcli.build_parser().parse_args(argv))
+    pargs = vars(pcli.build_parser().parse_args(argv))
+    assert (jargs.pop("fn").__name__, pargs.pop("fn").__name__) == (f"_cmd_{command}",) * 2
+    assert pargs == jargs
+    jsub = next(a for a in jcli.build_parser()._subparsers._group_actions if a.dest == "cmd").choices[command]
+    psub = next(a for a in pcli.build_parser()._subparsers._group_actions if a.dest == "cmd").choices[command]
+    assert sorted(o for a in psub._actions for o in a.option_strings) == sorted(
+        o for a in jsub._actions for o in a.option_strings
+    )

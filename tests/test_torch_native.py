@@ -125,14 +125,13 @@ def test_expired_budget_is_unknown_in_both():
     assert jna.check_native(hj, time_budget_s=0.05).outcome.value == "unknown"
 
 
-def test_profile_phases_and_states_buffer_rerun(monkeypatch):
+def test_profile_phases_and_states_buffer_rerun():
     # Three independent indefinite appends: 2^3 candidate final states.
     h = H()
     for i in range(3):
         h.append_indefinite_fail(i + 1, [100 + i])
     hj, hp = both(h.events)
-    monkeypatch.setattr(pna, "_STATES_CAP", 1)
-    rp = pna.check_native(hp, profile=True)
+    rp = pna.check_native(hp, profile=True, _states_cap=1)
     rj = jna.check_native(hj, profile=True, _states_cap=1)
     assert len(rp.final_states) == 8
     assert_same(rj, rp)

@@ -27,10 +27,13 @@ against the JAX package's daemon.
     k=7 through the port's supervised and inline escalations (torch device
     ``cpu``) gives the verdict, witness and search statistics of the JAX
     daemon's supervised escalation under ``JAX_PLATFORMS=cpu``.
-- Refusals: every config field and op whose module the port lacks (prefix
-  resume, cross-job batching, the distributed-search ops) raises
-  ``NotImplementedError`` (``serve`` exits 64) or answers an error frame,
-  naming the module.  The durability and ops layer is held in
+- Prefix resume and cross-job batching: their config fields build a
+  daemon that answers, ``serve --prefix`` and ``serve --batching`` start
+  and answer, and ``follow`` is served (an error frame without
+  ``--prefix``); the distributed-search ops, whose module the port lacks,
+  answer an error frame naming it.  Prefix resume and batching are held
+  against the JAX package in ``test_torch_{prefix,batcher}.py``, the
+  durability and ops layer in
   ``test_torch_{durability,quarantine,tsdb,archive,alerts,obs}.py``.
 """
 
@@ -662,7 +665,11 @@ def _replies(p, tmp_path, client_pkg=None) -> dict:
         out["decode"] = (ei.value.cls, ei.value.msg)
         big = _socket.socket(_socket.AF_UNIX, _socket.SOCK_STREAM)
         big.connect(cfg.socket_path)
-        big.sendall(json.dumps({"op": "submit", "history": "x" * (1 << 17)}).encode() + b"\n")
+        # The daemon answers and closes once the frame passes its limit, which
+        # can land before the rest of the frame is sent: the reply is read
+        # all the same.
+        with contextlib.suppress(BrokenPipeError):
+            big.sendall(json.dumps({"op": "submit", "history": "x" * (1 << 17)}).encode() + b"\n")
         out["oversized"] = _raw_reply(big)
         big.close()
     sub = tmp_path / "q"
@@ -775,64 +782,88 @@ def test_escalations_on_the_cpu_equal_the_jax_daemons_supervised(tmp_path, monke
         assert launches["children"] == ({"fold_lanes": 0} if mode == "supervised" else {})
 
 
-# -- refusals ------------------------------------------------------------------
+# -- the ported features, and the refusals left ---------------------------------
 
-REFUSED_FIELDS = {
-    "prefix_enabled": (True, "service/prefixstore.py"),
-    "batching": (True, "service/batcher.py"),
+#: the config fields of prefix resume and batching, each with what it needs
+#: here (a vmap launch group runs on the CPU only when told)
+PORTED_FIELDS = {
+    "prefix_enabled": dict(prefix_enabled=True),
+    "batching": dict(batching=True, batch_engine="vmap", torch_device="cpu"),
 }
 
 
-@pytest.mark.parametrize("field_name", list(REFUSED_FIELDS))
-def test_unported_config_fields_refuse_by_module(tmp_path, field_name):
-    value, module = REFUSED_FIELDS[field_name]
-    cfg = _daemon_cfg(port_pkg, tmp_path, **{field_name: value})
-    with pytest.raises(NotImplementedError, match=module.replace(".", r"\.")):
-        port_pkg.daemon.Verifyd(cfg)
-    assert not (tmp_path / "verifyd.sock").exists()
+@pytest.mark.parametrize("field_name", list(PORTED_FIELDS))
+def test_ported_config_fields_build_and_answer(tmp_path, field_name):
+    cfg = _daemon_cfg(port_pkg, tmp_path, **PORTED_FIELDS[field_name])
+    with port_pkg.daemon.Verifyd(cfg) as d:
+        assert (d.prefix is not None) == (field_name == "prefix_enabled")
+        assert (d.scheduler._batcher is not None) == (field_name == "batching")
+        c = port_pkg.client.VerifydClient(cfg.socket_path, timeout=30)
+        assert c.submit(good_history(), no_viz=True)["verdict"] == 0
+        assert c.submit(bad_history(), no_viz=True)["verdict"] == 1
 
 
-REFUSED_FLAGS = {
-    "--prefix": (["--prefix"], "service/prefixstore.py"),
-    "--batching": (["--batching"], "service/batcher.py"),
+PORTED_FLAGS = {
+    "--prefix": ["--prefix"],
+    "--batching": ["--batching", "--batch-engine", "native"],
 }
 
 
-@pytest.mark.parametrize("flag", list(REFUSED_FLAGS))
-def test_serve_exits_64_naming_the_module(tmp_path, caplog, flag):
-    args, module = REFUSED_FLAGS[flag]
-    sock = tmp_path / "v.sock"
-    assert port_pkg.cli.main(["serve", "-socket", str(sock), "--device", "off", *args]) == 64
-    assert any(module in r.getMessage() for r in caplog.records)
-    assert not sock.exists()
+@pytest.mark.parametrize("flag", list(PORTED_FLAGS))
+def test_serve_starts_with_the_flag_and_answers(tmp_path, flag):
+    sock = str(tmp_path / "verifyd.sock")
+    proc = _serve(port_pkg, tmp_path, sock, *PORTED_FLAGS[flag])
+    try:
+        _wait_for(proc, sock)
+        c = port_pkg.client.VerifydClient(sock, timeout=30)
+        assert c.submit(good_history(), no_viz=True)["verdict"] == 0
+        c.shutdown()
+        assert proc.wait(timeout=30) == 0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        proc.stderr.close()
 
 
 REFUSED_OPS = {
-    "follow": "service/prefixstore.py",
     "grant": "service/distsearch.py",
     "delta": "service/distsearch.py",
     "partition_done": "service/distsearch.py",
 }
+SERVED_OPS = {"follow": "needs the prefix store"}
 
 
-@pytest.mark.parametrize("op", list(REFUSED_OPS))
+@pytest.mark.parametrize("op", list(REFUSED_OPS) + list(SERVED_OPS))
 def test_unported_op_answers_an_error_naming_the_module(tmp_path, op):
+    """The distributed-search ops answer an error frame naming their
+    module; ``follow`` is served, and a daemon without ``--prefix`` answers
+    it with the JAX daemon's error."""
     cfg = _daemon_cfg(port_pkg, tmp_path)
+    frame = {"op": op, "history": good_history(), "stream": "s", "search": "x", "part": "0", "epoch": 1}
     with port_pkg.daemon.Verifyd(cfg):
         conn = _socket.socket(_socket.AF_UNIX, _socket.SOCK_STREAM)
         conn.connect(cfg.socket_path)
-        conn.sendall(port_pkg.protocol.encode_frame(
-            {"op": op, "history": good_history(), "stream": "s", "search": "x", "part": "0", "epoch": 1}
-        ))
+        conn.sendall(port_pkg.protocol.encode_frame(frame))
         reply = _raw_reply(conn)
         assert reply["err"]["class"] == "DecodeError"
-        assert REFUSED_OPS[op] in reply["err"]["msg"], reply
+        assert {**REFUSED_OPS, **SERVED_OPS}[op] in reply["err"]["msg"], reply
         # The refusal never closes the connection: it answers the next frame.
         conn.sendall(port_pkg.protocol.encode_frame({"op": "ping"}))
         assert _raw_reply(conn)["ok"]["server"] == "verifyd"
         conn.close()
         c = port_pkg.client.VerifydClient(cfg.socket_path, timeout=30)
         assert c.submit(good_history(), no_viz=True)["verdict"] == 0
+    if op in SERVED_OPS:
+        (tmp_path / "prefix").mkdir()
+        pcfg = _daemon_cfg(port_pkg, tmp_path / "prefix", prefix_enabled=True)
+        with port_pkg.daemon.Verifyd(pcfg):
+            conn = _socket.socket(_socket.AF_UNIX, _socket.SOCK_STREAM)
+            conn.connect(pcfg.socket_path)
+            conn.sendall(port_pkg.protocol.encode_frame(frame))
+            body = _raw_reply(conn)["ok"]
+            conn.close()
+        assert (body["verdict"], body["scope"], body["stream"], body["window"]) == (0, "window", "s", 0)
 
 
 def test_inline_daemon_without_a_card_raises_at_build(tmp_path, monkeypatch):
