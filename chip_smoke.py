@@ -124,11 +124,11 @@ on the first failed phase:
 12. batched lanes (``checker/batched.py`` over ``device.run_search_lanes``):
    (a) one launch group of 16 lanes of the 5×2000 ``match-seq-num`` shape
    (phase 7's headline and :data:`BATCH_SEEDS` with :func:`bench_faults`)
-   through ``check_batch_vmap`` on the card, every lane OK, the headline
-   lane's layers equal to its ``run_search`` alone at the lanes' capacity,
-   with the group's wall (one launch since phase 15), loop iterations, host syncs and
-   fold launches per iteration and peak memory beside the lane alone and
-   phase 7's ``-backend=device`` walls; (b) the campaign matrix (seed 11)
+   through ``check_batch_vmap`` on the card, every lane OK, with the
+   group's wall (one launch since phase 15), loop iterations, host syncs and
+   fold launches per iteration and peak memory beside phase 7's
+   ``-backend=device`` walls (the headline lane alone through
+   ``run_search`` is not run since phase 18); (b) the campaign matrix (seed 11)
    in one launch, each decided lane equal to its label and an undecided one
    only where it pruned; (c) ``check_batch_native`` over the same lanes
    equal to ``check_native`` lane by lane, and every lane the card decided
@@ -235,7 +235,36 @@ on the first failed phase:
    fold launches, :data:`K10_DEVICE_STATS`); (c) ``trace``, ``watch`` and
    one ``dash`` frame against (b)'s daemon, exit 0 each; then every fold
    call of the phase bit-exact against the plain fold;
-18. the kernel list, one JSON line of kernel measurements, and as the last
+18. the fleet tier (``service/router.py``, ``service/distsearch.py``,
+   ``obs/federate.py``, ``service/soak.py``): two of the port's ``serve``
+   backends as their own processes (through :data:`VERIFYD_WRAPPER`, fold
+   calls saved as they happen), each ``--device inline --time-budget 2
+   --state-dir Di --metrics-port Pi --drain-timeout 30`` on the one card,
+   behind the port's ``route serve --backend a=...@healthz --backend
+   b=...@healthz --metrics-port 0 --state-dir DR``: (a) the main path's k=10
+   through the router, decided on its ring home's card (OK,
+   :data:`K10_DEVICE_STATS`, a witness that replays, its fold launches
+   counted on that node) and resubmitted, answered from the router's edge
+   cache with no launch; (b) k=10's client-id twin (:func:`client_twin`),
+   its home node SIGKILLed once the twin's escalation has launched the
+   fold: the router fails over to the other node, which decides it on the
+   card with the same statistics, the victim restarts on its state dir and
+   replays the orphan on the card, and ``route fleet`` shows both nodes up;
+   (c) ``/fleet/metrics`` carries both nodes'
+   ``verifyd_kernel_launches_total`` under their ``node`` labels, equal to
+   each node's own ``/metrics``, and the stitched ``trace`` holds router and
+   backend spans; (d) ``submit --distributed`` of
+   :func:`dist_workload` (the shape of the JAX package's
+   ``scripts/distsearch_check.py:72``), whose verdict equals the port's
+   ``check_frontier_auto`` on the host, with zero stale deltas merged and
+   the grant ledger, read cold, closed with zero open grants; (e) ``route
+   drain a``: the backend exits 0 and the router answers on b; (f) ``soak``
+   through the router over two builtin campaigns (``steady``, legal, and
+   ``drop-acked``, a violation) exits 0, and with ``--mislabel-control``
+   exits 1 while a receiver this script runs gets the
+   ``checker_false_verdict`` webhook; then every fold call of the phase
+   bit-exact against the plain fold;
+19. the kernel list, one JSON line of kernel measurements, and as the last
    line ``{"ok": true, "device": {...}}``.
 
 Fold times are per call, from CUDA events: ``call`` with back-to-back
@@ -1533,42 +1562,17 @@ def run_batch_phase(dev_mod, fold_cuda, fb, prepare, recheck_calls, measure, hea
     out["batched_call"] = measure(group_calls[largest], f"batched lanes (a) call {largest + 1}, the largest by steps")
     del group_calls
 
-    # The headline lane alone through run_search, at the lanes' capacity.
-    max_layers = max(lane.enc.total_remaining for lane in lanes) + 2
-    fold_cuda.reset_launches()
-    syncs0 = dev_mod.SYNCS[0]
-    t0 = time.monotonic()
-    single = dev_mod.run_search(
-        dev_mod.build_tables(enc, device),
-        dev_mod.init_frontier(enc, batched.VMAP_LANE_CAPACITY, device),
-        max_layers,
-        allow_prune=True,
-    )
-    torch.cuda.synchronize()
-    single_wall = time.monotonic() - t0
-    single_syncs, single_launches = dev_mod.SYNCS[0] - syncs0, fold_cuda.LAUNCHES["fold_lanes"]
-    if single.stop_code != dev_mod.STOP_ACCEPT or single.layers != layers[0]:
-        fail(f"batched lanes (a): the headline lane took {layers[0]} layers in the group, "
-             f"{single.layers} alone (stop {single.stop_code})")
+    # The headline lane alone is not run since phase 18 (for the script's
+    # time limit: 27.9 s on the H100); its layers through check_device stand
+    # beside the group's.
     cli_first, cli_warm = headline_walls
     print(
         f"batched lanes (a): check_batch_vmap of {len(lanes)} lanes at capacity {batched.VMAP_LANE_CAPACITY}: "
         f"every lane OK, layers per lane {layers} (the headline lane {layers[0]}; its pinned count through "
         f"check_device {HEADLINE_STATS['layers']}); first call {first['wall']:.3f} s ({per_iter(first)}, peak "
-        f"memory {first['peak'] / 2**30:.3f} GiB with its fold inputs recorded); card {card}",
-        flush=True,
-    )
-    print(
-        f"batched lanes (a): the headline lane alone, run_search at capacity {batched.VMAP_LANE_CAPACITY}: "
-        f"{single.layers} layers (== its lane in the group) in {single_wall:.3f} s, {single_syncs} host syncs "
-        f"({single_syncs / single.layers:.2f} a layer), {single_launches} fold launches; through check "
-        f"-backend=device in phase 7: {walls_text(cli_first, cli_warm, len(hists[0].ops))}; the group's first "
-        f"wall (recording its fold inputs) is {first['wall'] / single_wall:.2f}x the lane alone for "
-        f"{len(lanes)} lanes ({sum(len(h.ops) for h in hists) / first['wall']:.0f} ops verified per s, the "
-        f"lane alone {len(hists[0].ops) / single_wall:.0f}); the {sum(layers)} layers of all lanes at the lane "
-        f"alone's {1e3 * single_wall / single.layers:.3f} ms a layer would take {sum(layers) * single_wall / single.layers:.1f} s "
-        f"one lane after another (an extrapolation from the headline lane's rate, not a measurement: the other "
-        f"lanes were not timed alone)",
+        f"memory {first['peak'] / 2**30:.3f} GiB with its fold inputs recorded), "
+        f"{sum(len(h.ops) for h in hists) / first['wall']:.0f} ops verified per s; the headline through check "
+        f"-backend=device in phase 7: {walls_text(cli_first, cli_warm, len(hists[0].ops))}; card {card}",
         flush=True,
     )
 
@@ -2095,7 +2099,7 @@ def client_twin(events, offset: int) -> list:
 
 
 class ServeProcesses:
-    """The port's ``serve`` processes of one phase (15 or 16), run through
+    """The port's ``serve`` processes of one phase (15 to 18), run through
     :data:`VERIFYD_WRAPPER` from ``tmp``, which holds their sockets, stats
     logs, stderr and the wrapper's ``record`` directory.  ``common`` is
     appended to every ``serve`` command line, ``env`` to the environment."""
@@ -2120,31 +2124,43 @@ class ServeProcesses:
             ev.write_history(events, f)
         return path
 
-    def boot(self, tag, mode, *args):
-        """One daemon; returns its namespace once it answers ``ping``."""
-        from s2_verification_tpu_torch.service.client import VerifydClient
+    def boot(self, tag, mode, *args, sock=None):
+        """One daemon (on ``sock``, by default ``TMP/<tag>.sock``); returns
+        its namespace once it answers ``ping``."""
+        return self.ready(self.spawn(tag, mode, *args, sock=sock))
 
+    def spawn(self, tag, mode, *args, sock=None):
+        """Start one daemon and return its namespace at once: daemons that
+        boot side by side are each waited for with :meth:`ready`."""
         d = type("Daemon", (), {})()
         tmp = self.tmp
-        d.tag, d.sock, d.log = tag, os.path.join(tmp, f"{tag}.sock"), os.path.join(tmp, f"{tag}.stats.jsonl")
+        d.tag, d.sock, d.log = tag, sock or os.path.join(tmp, f"{tag}.sock"), os.path.join(tmp, f"{tag}.stats.jsonl")
+        d.what = f"serve --device {mode} {' '.join(args)}"
         d.err = open(os.path.join(tmp, f"{tag}.stderr"), "w", encoding="utf-8")
-        t0 = time.monotonic()
+        d.t0 = time.monotonic()
         d.proc = subprocess.Popen(
             [sys.executable, self.wrapper, self.record, f"serve-{mode}", "serve", "-socket", d.sock, "--device",
              mode, "--stats-log", d.log, "-out-dir", os.path.join(tmp, f"{tag}-viz"), *self.common, *args],
             env=self.env, cwd=tmp, stdout=subprocess.DEVNULL, stderr=d.err,
         )
         self.daemons.append(d)
+        return d
+
+    def ready(self, d):
+        """Wait until daemon ``d`` answers ``ping``; its boot wall counts
+        from its start."""
+        from s2_verification_tpu_torch.service.client import VerifydClient
+
         while not os.path.exists(d.sock):
-            if d.proc.poll() is not None or time.monotonic() - t0 > 300:
+            if d.proc.poll() is not None or time.monotonic() - d.t0 > 300:
                 d.err.flush()
-                fail(f"{self.label} {tag}: serve exited {d.proc.poll()} before its socket appeared: "
+                fail(f"{self.label} {d.tag}: serve exited {d.proc.poll()} before its socket appeared: "
                      f"{open(d.err.name, encoding='utf-8').read()[-3000:]}")
             time.sleep(0.05)
         d.client = VerifydClient(d.sock, timeout=900)
         d.pid = d.client.ping()["pid"]
-        d.boot_s = time.monotonic() - t0
-        print(f"{self.label} {tag}: `serve --device {mode} {' '.join(args)}` answered ping in {d.boot_s:.3f} s "
+        d.boot_s = time.monotonic() - d.t0
+        print(f"{self.label} {d.tag}: `{d.what}` answered ping in {d.boot_s:.3f} s "
               f"(pid {d.pid}, torch loaded in the daemon: {_has_torch(d.pid)})", flush=True)
         return d
 
@@ -3123,6 +3139,410 @@ def run_batch_prefix_phase(dev_mod, fb, prepare, recheck_calls, k10_events, head
     return out
 
 
+#: phase 18 (d): the distributed search's workload, shaped like the JAX
+#: package's ``scripts/distsearch_check.py:72`` ``build_workload``: rounds of
+#: concurrent indefinite appends, each closed by a check-tail barrier, then
+#: one impossible check-tail (ILLEGAL, decided by the exhaustive partition
+#: searches).  7 rounds of 3 keep each partition inside the backends' 2 s
+#: CPU budget (under a second for the largest in the phase's CPU
+#: rehearsal, ``tests/test_torch_router.py``): a partition never escalates,
+#: so one that outlasts the budget answers UNKNOWN
+DIST_ROUNDS, DIST_BRANCH = 7, 3
+#: phase 18 (b): the client-id offset of k=10's twin
+FLEET_TWIN_OFFSET = 5000
+
+
+def dist_workload(rounds: int = DIST_ROUNDS, k: int = DIST_BRANCH, base: int = 41_000) -> list:
+    """The events of ``build_workload(rounds, k, base)``, from the port's
+    own event types."""
+    from s2_verification_tpu_torch.utils import events as ev
+
+    out, next_op = [], [0]
+
+    def start(client, payload):
+        op = next_op[0]
+        next_op[0] += 1
+        out.append(ev.LabeledEvent(payload, client, op))
+        return op
+
+    def check_tail(tail):
+        op = start(99, ev.CheckTailStart())
+        out.append(ev.LabeledEvent(ev.CheckTailSuccess(tail=tail), 99, op))
+
+    for r in range(rounds):
+        ops = [(10 + i, start(10 + i, ev.AppendStart(num_records=1, record_hashes=(base + 10 * r + i,),
+                                                      set_fencing_token=None, fencing_token=None,
+                                                      match_seq_num=None)))
+               for i in range(k)]
+        for client, op in ops:
+            out.append(ev.LabeledEvent(ev.AppendIndefiniteFailure(), client, op))
+        check_tail(r + 1)
+    check_tail(10_000)  # impossible: at most ``rounds`` records applied
+    return out
+
+
+def run_fleet_phase(dev_mod, fb, prepare, recheck_calls, k10_events, device=None, budget_s=2.0) -> dict:
+    """Phase 18, the fleet tier on the card: two of the port's ``serve``
+    backends as their own processes (through :data:`VERIFYD_WRAPPER`, fold
+    calls saved as they happen), each ``--device inline`` with its own
+    state dir and metrics listener, behind the port's ``route serve`` —
+    (a) k=10 decided on its ring home's card and answered again from the
+    router's edge cache; (b) k=10's client-id twin, its home SIGKILLed once
+    its escalation has launched the fold: failed over to the other node's
+    card, the victim back on its state dir replaying the orphan, ``route
+    fleet`` showing both up; (c) both nodes' launch counts on
+    ``/fleet/metrics`` and the stitched ``trace``; (d) ``submit
+    --distributed`` against the host oracle, the grant ledger read cold;
+    (e) ``route drain``; (f) ``soak`` clean and with its mislabeled
+    control.  ``device=None`` is the card, ``"cpu"`` rehearses the phase on
+    the CPU (``--torch-device cpu``).  Returns the fold launches by path and
+    the walls."""
+    import urllib.request
+
+    from s2_verification_tpu_torch.checker.frontier import check_frontier_auto
+    from s2_verification_tpu_torch.checker.stats import FrontierStats
+    from s2_verification_tpu_torch.service.cache import history_fingerprint
+    from s2_verification_tpu_torch.service.client import VerifydClient
+    from s2_verification_tpu_torch.service.journal import read_grants_cold
+    from s2_verification_tpu_torch.service.router import HashRing, VerifydRouter
+
+    t_phase = time.monotonic()
+    card = fb.card()
+    out = {"launches_by_path": {}, "walls": {}}
+    torch_dev = [] if device is None else ["--torch-device", device]
+
+    def wall(tag, seconds):
+        out["walls"][tag] = seconds
+        print(f"fleet {tag}: {seconds:.3f} s wall; {card}", flush=True)
+
+    url, alerts, receiver = _alert_receiver()
+    with tempfile.TemporaryDirectory() as tmp:
+        serve = ServeProcesses(tmp, "fleet", [*torch_dev, "--no-viz", "--time-budget", str(budget_s), "--profile",
+                                              "--drain-timeout", "30"], VERIFYD_RECORD_LIVE="1")
+        record, events_of = serve.record, serve.events_of
+        # Each backend keeps its metrics port across a restart, so the
+        # router's ``@healthz`` probe finds the restarted node again.
+        ports = {n: _free_port() for n in "ab"}
+        socks = {n: os.path.join(tmp, f"{n}.sock") for n in "ab"}
+        nodes: dict = {}
+        router_proc = None
+
+        def spawn(name, tag):
+            if os.path.exists(socks[name]):
+                os.remove(socks[name])  # SIGKILL leaves the socket file; serve refuses it
+            nodes[name] = serve.spawn(tag, "inline", "--state-dir", os.path.join(tmp, f"state-{name}"),
+                                      "--metrics-port", str(ports[name]), sock=socks[name])
+            return nodes[name]
+
+        def ready(d):
+            serve.ready(d)
+            wall(f"boot {d.tag}", d.boot_s)
+            return d
+
+        def inline_launches(d):
+            return d.client.stats()["introspection"]["launches"]["inline"].get("fold_lanes", 0)
+
+        def job_record(d, job):
+            with open(os.path.join(record, f"job-{d.pid}-{job}.json"), encoding="utf-8") as f:
+                return json.load(f)
+
+        def same_search(rec, events, what):
+            got = _stats_view(FrontierStats(**rec["stats"]))
+            if rec["backend"] != "device-inline" or rec["linearization"] != ref.linearization or (
+                    rec["steps"] != ref.steps or got != _stats_view(ref.stats)):
+                fail(f"fleet {what}: backend {rec['backend']}, or witness/steps/stats differ from "
+                     f"check_device_auto in this process")
+            if not replay_fast(prepare(events), rec["linearization"]):
+                fail(f"fleet {what}: the witness does not replay")
+            pinned = {k: rec["stats"][k] for k in K10_DEVICE_STATS}
+            if device is None and pinned != K10_DEVICE_STATS:
+                fail(f"fleet {what}: statistics {pinned} != {K10_DEVICE_STATS}")
+
+        def run_cli(*argv, timeout=300):
+            return subprocess.run([sys.executable, "-m", "s2_verification_tpu_torch", *argv], env=serve.env,
+                                  cwd=tmp, capture_output=True, text=True, timeout=timeout)
+
+        def fleet_view():
+            got = run_cli("route", "fleet", "-socket", rsock, "--json", timeout=60)
+            if got.returncode != 0:
+                fail(f"fleet: `route fleet` exited {got.returncode}: {got.stderr[-2000:]}")
+            return {b["name"]: b for b in json.loads(got.stdout)["backends"]}
+
+        def wait_fleet(pred, what, limit=60):
+            t0 = time.monotonic()
+            while True:
+                view = fleet_view()
+                if pred(view):
+                    return view, time.monotonic() - t0
+                if time.monotonic() - t0 > limit:
+                    fail(f"fleet {what}: `route fleet` shows {view}")
+                time.sleep(0.2)
+
+        try:
+            ref = dev_mod.check_device_auto(prepare(k10_events), checkpoint_path=os.path.join(tmp, "ref.ckpt.npz"),
+                                            profile=True, device=device)
+            for d in [spawn(name, name) for name in "ab"]:  # side by side
+                ready(d)
+            rsock = os.path.join(tmp, "router.sock")
+            router_err = open(os.path.join(tmp, "router.stderr"), "w", encoding="utf-8")
+            t0 = time.monotonic()
+            router_proc = subprocess.Popen(
+                [sys.executable, "-m", "s2_verification_tpu_torch", "route", "serve", "--listen", rsock,
+                 *[x for n in "ab" for x in ("--backend", f"{n}={socks[n]}@http://127.0.0.1:{ports[n]}/healthz")],
+                 "--metrics-port", "0", "--state-dir", os.path.join(tmp, "state-router")],
+                env=serve.env, cwd=tmp, stdout=subprocess.DEVNULL, stderr=router_err)
+            while not os.path.exists(rsock):
+                if router_proc.poll() is not None or time.monotonic() - t0 > 120:
+                    router_err.flush()
+                    fail(f"fleet: route serve exited {router_proc.poll()} before its socket appeared: "
+                         f"{open(router_err.name, encoding='utf-8').read()[-3000:]}")
+                time.sleep(0.05)
+            rc = VerifydClient(rsock, timeout=900)
+            if rc.ping()["server"] != "verifyd-router" or _has_torch(router_proc.pid):
+                fail("fleet: the router answers no ping, or loaded torch")
+            wall("router boot", time.monotonic() - t0)
+            ring = HashRing(["a", "b"], replicas=64)
+
+            def home(events):
+                hist = prepare(events, elide_trivial=True)
+                return ring.lookup(VerifydRouter._affinity_key(hist, history_fingerprint(hist)))
+
+            def text_of(events):
+                from s2_verification_tpu_torch.utils import events as ev
+
+                buf = io.StringIO()
+                ev.write_history(events, buf)
+                return buf.getvalue()
+
+            # (a) Affinity: k=10 decided on its home node's card.
+            k10_home = home(k10_events)
+            before = {n: inline_launches(d) for n, d in nodes.items()}
+            t0 = time.monotonic()
+            line = rc.submit(text_of(k10_events), client="k10", no_viz=True)
+            wall_a = time.monotonic() - t0
+            n_a = {n: inline_launches(d) - before[n] for n, d in nodes.items()}
+            if line["verdict"] != 0 or line["node"] != k10_home or line["backend"] != "device-inline":
+                fail(f"fleet (a): {line} (home {k10_home})")
+            same_search(job_record(nodes[k10_home], line["job"]), k10_events, "(a)")
+            if (device is None and n_a[k10_home] <= 0) or any(v for n, v in n_a.items() if n != k10_home):
+                fail(f"fleet (a): fold launches by node {n_a}, home {k10_home}")
+            t0 = time.monotonic()
+            again = rc.submit(text_of(k10_events), client="k10", no_viz=True)
+            wall_hit = time.monotonic() - t0
+            if not (again["router_cached"] and again["node"] == k10_home) or any(
+                    inline_launches(d) - before[n] - n_a[n] for n, d in nodes.items()):
+                fail(f"fleet (a): the resubmit {again} was not answered from the edge cache with no launch")
+            print(f"fleet (a): k=10 through the router: home {k10_home} (ring of 2 x 64), backend device-inline, "
+                  f"statistics == K10_DEVICE_STATS and check_device_auto's, witness replays; fold launches by node "
+                  f"{n_a}; the resubmit router_cached in {wall_hit:.3f} s with no launch", flush=True)
+            out["launches_by_path"][f"adversarial k=10 routed to its home node {k10_home} (18a)"] = n_a[k10_home]
+            wall("(a) routed k=10", wall_a)
+            wall("(a) resubmit from the edge cache", wall_hit)
+
+            # (b) Failover: the twin's home SIGKILLed mid-escalation.
+            twin = client_twin(k10_events, FLEET_TWIN_OFFSET)
+            victim = home(twin)
+            other = "b" if victim == "a" else "a"
+            vd = nodes[victim]
+            count_file = os.path.join(record, f"fold-count-{vd.pid}")
+
+            def recorded():
+                try:
+                    with open(count_file, encoding="utf-8") as f:
+                        return int(f.read())
+                except (OSError, ValueError):
+                    return 0
+
+            base, before_other = recorded(), inline_launches(nodes[other])
+            got: dict = {}
+
+            def submit_twin():
+                try:
+                    got["reply"] = rc.submit(text_of(twin), client="twin", no_viz=True)
+                except Exception as e:  # noqa: BLE001 - reported below
+                    got["error"] = repr(e)
+
+            th = threading.Thread(target=submit_twin)
+            t0 = time.monotonic()
+            th.start()
+            while recorded() <= base:
+                if time.monotonic() - t0 > 120 or not th.is_alive():
+                    fail(f"fleet (b): the twin's first fold call on {victim} never came ({got})")
+                time.sleep(0.005)
+            vd.proc.send_signal(signal.SIGKILL)
+            vd.proc.wait(timeout=60)
+            vd.err.close()
+            killed_after = time.monotonic() - t0
+            kept = len(torch.load(os.path.join(record, f"folds-serve-inline-{vd.pid}.pt"))["calls"]) - base
+            # The victim restarts on its state dir at once, as a supervisor
+            # would restart it, while the router fails the twin over.
+            rd = spawn(victim, f"{victim}2")
+            th.join(timeout=600)
+            wall_b = time.monotonic() - t0
+            reply = got.get("reply")
+            if reply is None or reply["verdict"] != 0 or reply["node"] != other or reply["backend"] != "device-inline":
+                fail(f"fleet (b): the twin's reply after the kill {got}")
+            same_search(job_record(nodes[other], reply["job"]), twin, "(b) failover")
+            n_fail = inline_launches(nodes[other]) - before_other
+            if device is None and n_fail <= 0:
+                fail(f"fleet (b): the failover made {n_fail} fold launches on {other}")
+            failovers = rc.stats()["failovers"]
+            if failovers < 1:
+                fail(f"fleet (b): the router counts {failovers} failovers")
+            print(f"fleet (b): SIGKILL of {victim} {killed_after:.3f} s after the twin's submit, once its first fold "
+                  f"call was recorded ({kept} of its calls saved); the router failed over ({failovers} failover(s)) "
+                  f"to {other}, which decided it on its card: device-inline, {n_fail} fold launches, statistics == "
+                  f"K10_DEVICE_STATS, witness replays; the client waited {wall_b:.3f} s", flush=True)
+            out["launches_by_path"][f"k=10's twin on {victim} until its SIGKILL (18b)"] = kept
+            out["launches_by_path"][f"k=10's twin failed over to {other} (18b)"] = n_fail
+            wall("(b) twin submit through the kill and the failover", wall_b)
+            ready(rd)
+            t0 = time.monotonic()
+            while rd.client.stats()["completed"] < 1:
+                if time.monotonic() - t0 > 300:
+                    fail(f"fleet (b): {victim}'s orphan never replayed")
+                time.sleep(0.05)
+            orphan = [e for e in events_of(rd) if e["ev"] == "orphan"]
+            twin_fp = history_fingerprint(prepare(twin, elide_trivial=True))
+            if [e["fingerprint"] for e in orphan] != [twin_fp]:
+                fail(f"fleet (b): orphan events {orphan}")
+            same_search(job_record(rd, orphan[0]["job"]), twin, "(b) replay")
+            n_replay = inline_launches(rd)
+            if device is None and n_replay <= 0:
+                fail(f"fleet (b): the replay made {n_replay} fold launches")
+            done = [e for e in events_of(rd) if e["ev"] == "done" and e.get("job") == orphan[0]["job"]]
+            wall("(b) orphan replay after the reboot's ping", time.monotonic() - t0)
+            wall("(b) orphan replay in the daemon", float(done[0]["wall_s"]) if done else float("nan"))
+            view, up_s = wait_fleet(lambda v: all(b["up"] is True for b in v.values()), "(b) rejoin")
+            print(f"fleet (b): {victim} back on its state dir replayed the orphan on its card ({n_replay} fold "
+                  f"launches, statistics == K10_DEVICE_STATS); `route fleet` shows "
+                  f"{ {n: b['up'] for n, b in view.items()} } {up_s:.3f} s after the replay; every accepted job "
+                  f"answered (the twin by {other}, its orphan replayed by {victim})", flush=True)
+            out["launches_by_path"][f"k=10's twin replayed as an orphan on {victim} (18b)"] = n_replay
+
+            # (c) The fleet plane and the stitched trace.
+            rport = rc.stats()["metrics_port"]
+            want = {}
+            for n, d in nodes.items():
+                if d.proc.poll() is None:
+                    want[n] = inline_launches(d)
+            # On the card each node's launch count; on the CPU (no launch
+            # is counted) its up gauge.
+            lines = {n: f'verifyd_kernel_launches_total{{node="{n}",kernel="fold_lanes",where="inline"}} {v}'
+                     if device is None else f'verifyd_fleet_node_up{{node="{n}"}} 1' for n, v in want.items()}
+            t0 = time.monotonic()
+            while True:
+                text = urllib.request.urlopen(f"http://127.0.0.1:{rport}/fleet/metrics", timeout=30).read().decode()
+                if all(x in text.splitlines() for x in lines.values()):
+                    break
+                if time.monotonic() - t0 > 30:
+                    fail(f"fleet (c): /fleet/metrics lacks {list(lines.values())}")
+                time.sleep(0.2)
+            for n, d in nodes.items():
+                own = urllib.request.urlopen(f"http://127.0.0.1:{ports[n]}/metrics", timeout=30).read().decode()
+                mine = f'verifyd_kernel_launches_total{{kernel="fold_lanes",where="inline"}} {want[n]}'
+                if device is None and mine not in own.splitlines():
+                    fail(f"fleet (c): {n}'s own /metrics lacks `{mine}`")
+            trace = rc.trace()
+            procs = sorted(e["args"]["name"] for e in trace["traceEvents"]
+                           if e.get("ph") == "M" and e.get("name") == "process_name")
+            router_spans = sum(1 for e in trace["traceEvents"] if e.get("ph") == "X" and e.get("cat") == "router")
+            backend_spans = sum(1 for e in trace["traceEvents"] if e.get("ph") == "X" and e.get("pid", 0) >= 1000)
+            if not router_spans or not backend_spans or not {"verifyd[a]", "verifyd[b]"} <= set(procs):
+                fail(f"fleet (c): the stitched trace holds {router_spans} router and {backend_spans} backend "
+                     f"spans, processes {procs}")
+            print(f"fleet (c): /fleet/metrics carries " + "; ".join(lines.values()) + f" (== each node's own "
+                  f"/metrics, the node label added); the stitched trace holds {router_spans} router and "
+                  f"{backend_spans} backend spans over {procs}", flush=True)
+
+            # (d) A distributed search.
+            dist = dist_workload()
+            dist_path = serve.history_file("dist", dist)
+            t0 = time.monotonic()
+            oracle = check_frontier_auto(prepare(dist))
+            oracle_s = time.monotonic() - t0
+            t0 = time.monotonic()
+            dreply = rc.submit(text_of(dist), client="dist", no_viz=True, distributed=True)
+            wall_d = time.monotonic() - t0
+            want_v = {"ok": 0, "illegal": 1}[oracle.outcome.value]
+            if not dreply.get("distributed") or dreply["verdict"] != want_v or dreply["stale_accepted"] != 0:
+                fail(f"fleet (d): {dreply} against the host oracle's {oracle.outcome.value}")
+            cli_d = run_cli("submit", "-socket", rsock, "-file", dist_path, "--distributed", "-stats")
+            if cli_d.returncode != want_v:
+                fail(f"fleet (d): `submit --distributed` exited {cli_d.returncode}, not {want_v}")
+            ds = rc.stats()["distsearch"]
+            cold = read_grants_cold(os.path.join(tmp, "state-router"))
+            (search,) = cold["searches"].values()
+            if ds["searches"] != 1 or ds["fallbacks"] != 0 or cold["open_total"] != 0 or (
+                    search["verdict"] != want_v or search["open_grants"]):
+                fail(f"fleet (d): distsearch {ds}, the ledger read cold {cold}")
+            print(f"fleet (d): `submit --distributed` of build_workload({DIST_ROUNDS}, {DIST_BRANCH}) "
+                  f"({len(prepare(dist).ops)} ops): verdict {dreply['outcome']} == check_frontier_auto's (host, "
+                  f"{oracle_s:.3f} s), {dreply['partitions']} partitions, {dreply['grants']} grants, "
+                  f"{dreply['regrants']} regrants, {dreply['fences']} fences, 0 stale deltas merged, owners "
+                  f"{sorted(set(dreply['owners'].values()))}; the CLI exits {cli_d.returncode}; the grant ledger read "
+                  f"cold: search closed ({search['outcome']}), 0 open grants, {search['fences']} fence records",
+                  flush=True)
+            wall("(d) distributed search", wall_d)
+            wall("(d) host oracle", oracle_s)
+
+            # (e) Drain a; the router keeps answering on b.
+            t0 = time.monotonic()
+            drain = run_cli("route", "drain", "a", "-socket", rsock)
+            if drain.returncode != 0:
+                fail(f"fleet (e): `route drain a` exited {drain.returncode}: {drain.stderr[-2000:]}")
+            rc_a = nodes["a"].proc.wait(timeout=120)
+            nodes["a"].err.close()
+            if rc_a != 0:
+                fail(f"fleet (e): backend a exited {rc_a} after the drain")
+            wall("(e) drain a", time.monotonic() - t0)
+            small = dist_workload(3, 2, base=77_000)[:-2]  # linearizable: no impossible tail
+            after = rc.submit(text_of(small), client="after-drain", no_viz=True)
+            if after["verdict"] != 0 or after["node"] != "b":
+                fail(f"fleet (e): after the drain {after}")
+            print("fleet (e): `route drain a` exit 0, backend a exit 0, a fresh history answered by b", flush=True)
+
+            # (f) Soak through the router.
+            soak = ["soak", rsock, "--campaign", "steady", "--campaign", "drop-acked", "--seed", str(CAMPAIGN_SEED)]
+            t0 = time.monotonic()
+            clean = run_cli(*soak)
+            soak_s = time.monotonic() - t0
+            t0 = time.monotonic()
+            control = run_cli(*soak, "--mislabel-control", "--alert-url", url)
+            control_s = time.monotonic() - t0
+            fired = any(a["labels"]["alertname"] == "checker_false_verdict" for body in alerts for a in body)
+            if clean.returncode != 0 or control.returncode != 1 or not fired:
+                fail(f"fleet (f): soak exited {clean.returncode} (want 0), with --mislabel-control "
+                     f"{control.returncode} (want 1), webhook {'received' if fired else 'missing'}: "
+                     f"{clean.stderr[-1500:]} {control.stderr[-1500:]}")
+            print(f"fleet (f): soak over steady and drop-acked through the router: exit 0 "
+                  f"({clean.stdout.strip().splitlines()[-1]}); with --mislabel-control exit 1 and the "
+                  f"checker_false_verdict webhook received", flush=True)
+            wall("(f) soak", soak_s)
+            wall("(f) soak with the mislabeled control", control_s)
+            rc.shutdown()
+            if router_proc.wait(timeout=60) != 0:
+                fail("fleet: route serve exited nonzero after shutdown")
+            router_err.close()
+            serve.stop(nodes["b"])
+        finally:
+            receiver.shutdown()
+            serve.kill_all()
+            if router_proc is not None and router_proc.poll() is None:
+                router_proc.kill()
+                router_proc.wait(timeout=30)
+
+        calls = serve.fold_calls(device)
+        counted = n_a[k10_home] + kept + n_fail + n_replay
+        if device is None and len(calls) != counted:
+            fail(f"fleet: {len(calls)} recorded fold calls, {counted} counted")
+        if calls:
+            recheck_calls(calls, "the fleet (phase 18)")
+        print(f"fleet: {len(calls)} recorded fold calls, bit-exact", flush=True)
+    out["seconds"] = time.monotonic() - t_phase
+    return out
+
+
 def _stats_view(stats) -> dict:
     """Search statistics of a result, the profile timeline without its wall
     times: equal between a child and the same call in process."""
@@ -3783,6 +4203,11 @@ def main() -> int:
                                      collect_lanes(PHASE17_SHAPE, PHASE17_SEEDS))
     print(f"phase 17 (batching and prefix resume): {phase17['seconds']:.1f} s", flush=True)
     kernels[0]["launches_by_path"].update(phase17["launches_by_path"])
+
+    # -- 18. the fleet tier ----------------------------------------------------
+    phase18 = run_fleet_phase(dev_mod, fb, prepare, recheck_calls, main_events)
+    print(f"phase 18 (the fleet): {phase18['seconds']:.1f} s", flush=True)
+    kernels[0]["launches_by_path"].update(phase18["launches_by_path"])
 
     print(f"kernels: {', '.join(k['name'] for k in kernels)}", flush=True)
     print(f"total {time.monotonic() - t_start:.1f} s", flush=True)

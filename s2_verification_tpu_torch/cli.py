@@ -663,6 +663,176 @@ def _cmd_serve(args: argparse.Namespace) -> int:
         pkg_log.propagate = True
 
 
+def _cmd_route_serve(args: argparse.Namespace) -> int:
+    from .service.router import BackendSpec, RouterConfig, VerifydRouter
+
+    secret = _read_secret(args)
+    is_tcp = ":" in args.listen and not args.listen.startswith(("/", "."))
+    if is_tcp and not secret:
+        log.error(
+            "a TCP --listen requires a shared secret (--secret-file or "
+            "VERIFYD_SECRET)"
+        )
+        return USAGE_EXIT
+    if not is_tcp and os.path.exists(args.listen):
+        log.error(
+            "%s already exists — another router running? (remove the file "
+            "if it is stale)",
+            args.listen,
+        )
+        return USAGE_EXIT
+    try:
+        backends = tuple(BackendSpec.parse(spec) for spec in args.backend)
+    except ValueError as e:
+        log.error("bad --backend: %s", e)
+        return USAGE_EXIT
+    try:
+        cfg = RouterConfig(
+            listen=args.listen,
+            backends=backends,
+            secret=secret,
+            probe_interval_s=args.probe_interval,
+            breaker_failures=args.breaker_failures,
+            breaker_reset_s=args.breaker_reset,
+            steal_depth=args.steal_depth,
+            max_failovers=args.max_failovers,
+            submit_timeout_s=args.submit_timeout,
+            ring_replicas=args.ring_replicas,
+            drain_timeout_s=args.drain_timeout,
+            cache_capacity=args.cache_capacity,
+            metrics_port=args.metrics_port,
+            trace_capacity=args.trace_capacity,
+            slo_target=args.slo_target,
+            slo_latency_target_s=args.slo_latency_target,
+            state_dir=args.state_dir,
+            distsearch_segments=args.distsearch_segments,
+            distsearch_straggler_s=args.distsearch_straggler,
+            distsearch_max_regrants=args.distsearch_max_regrants,
+            scrape_interval_s=args.scrape_interval,
+            telemetry_dir=args.telemetry_dir,
+            telemetry_sample_s=args.telemetry_sample,
+        )
+        router = VerifydRouter(cfg)
+    except ValueError as e:
+        log.error("%s", e)
+        return USAGE_EXIT
+
+    import signal as _signal
+
+    def _stop(signum, frame):
+        log.info("signal %d: stopping verifyd-router", signum)
+        router.request_stop()
+
+    for sig in (_signal.SIGINT, _signal.SIGTERM):
+        _signal.signal(sig, _stop)
+    return router.serve_forever()
+
+
+def _route_client(args: argparse.Namespace):
+    from .service.client import VerifydClient
+
+    return VerifydClient(args.socket, secret=_read_secret(args))
+
+
+def _cmd_route_drain(args: argparse.Namespace) -> int:
+    from .service.client import VerifydError, VerifydUnavailable
+    from .service.protocol import EXIT_PROTOCOL, EXIT_UNAVAILABLE
+
+    try:
+        reply = _route_client(args).drain(
+            args.node, drain_timeout_s=args.timeout, timeout=None
+        )
+    except ValueError as e:
+        log.error("%s", e)
+        return USAGE_EXIT
+    except VerifydUnavailable as e:
+        log.error("cannot reach the router on %s: %s", args.socket, e.msg)
+        return EXIT_UNAVAILABLE
+    except VerifydError as e:
+        log.error("drain failed: %s", e)
+        return EXIT_PROTOCOL
+    log.info(
+        "node %s drained (in-flight clear: %s, waited %.2fs); backend "
+        "shutdown: %s",
+        reply.get("node"),
+        reply.get("drained"),
+        reply.get("waited_s", 0.0),
+        reply.get("shutdown"),
+    )
+    return 0 if reply.get("drained") else 1
+
+
+def _cmd_route_undrain(args: argparse.Namespace) -> int:
+    from .service.client import VerifydError, VerifydUnavailable
+    from .service.protocol import EXIT_PROTOCOL, EXIT_UNAVAILABLE
+
+    try:
+        reply = _route_client(args).undrain(args.node)
+    except ValueError as e:
+        log.error("%s", e)
+        return USAGE_EXIT
+    except VerifydUnavailable as e:
+        log.error("cannot reach the router on %s: %s", args.socket, e.msg)
+        return EXIT_UNAVAILABLE
+    except VerifydError as e:
+        log.error("undrain failed: %s", e)
+        return EXIT_PROTOCOL
+    log.info("node %s back in the routable set", reply.get("node"))
+    return 0
+
+
+def _cmd_route_fleet(args: argparse.Namespace) -> int:
+    import json as _json
+
+    from .service.client import VerifydError, VerifydUnavailable
+    from .service.protocol import EXIT_PROTOCOL, EXIT_UNAVAILABLE
+
+    try:
+        reply = _route_client(args).fleet()
+    except ValueError as e:
+        log.error("%s", e)
+        return USAGE_EXIT
+    except VerifydUnavailable as e:
+        log.error("cannot reach the router on %s: %s", args.socket, e.msg)
+        return EXIT_UNAVAILABLE
+    except VerifydError as e:
+        log.error("fleet query failed: %s", e)
+        return EXIT_PROTOCOL
+    if args.json:
+        print(_json.dumps(reply, indent=2, sort_keys=True))
+        return 0
+    ring = reply.get("ring", {})
+    print(
+        f"ring: {len(ring.get('nodes', []))} nodes × "
+        f"{ring.get('replicas')} replicas"
+    )
+    for b in reply.get("backends", []):
+        up = {True: "up", False: "DOWN", None: "unprobed"}[b.get("up")]
+        flags = []
+        if b.get("draining"):
+            flags.append("draining")
+        if b.get("breaker") != "closed":
+            flags.append(f"breaker={b.get('breaker')}")
+        if b.get("last_error"):
+            flags.append(f"last_error={b['last_error']}")
+        build = b.get("build") or {}
+        build_str = ""
+        if build:
+            # The scraper captured verifyd_build_info labels off this node.
+            build_str = (
+                f"  build=v{build.get('version', '?')}"
+                f"/{build.get('backend', '?')}"
+                f"/py{build.get('python', '?')}"
+            )
+        print(
+            f"  {b.get('name')}: {up}  addr={b.get('address')}  "
+            f"in_flight={b.get('in_flight')}"
+            + build_str
+            + (f"  [{', '.join(flags)}]" if flags else "")
+        )
+    return 0
+
+
 def _cmd_submit(args: argparse.Namespace) -> int:
     from .service.client import (
         VerifydBusy,
@@ -1701,6 +1871,95 @@ def _cmd_follow(args: argparse.Namespace) -> int:
     return 0
 
 
+def _cmd_soak(args: argparse.Namespace) -> int:
+    import json as _json
+
+    from .collector.campaign import get_campaign
+    from .service.soak import SoakConfig, SoakRunner, soak_exit_code
+
+    for name in args.campaign or ():
+        try:
+            get_campaign(name)
+        except KeyError as e:
+            log.error("%s", e.args[0])
+            return USAGE_EXIT
+    try:
+        secret = _read_secret(args)
+    except OSError as e:
+        log.error("failed to read secret: %s", e)
+        return USAGE_EXIT
+    cfg = SoakConfig(
+        address=args.socket,
+        secret=secret,
+        campaigns=tuple(args.campaign or ()),
+        seed=args.seed,
+        cycles=args.cycles,
+        clients=args.num_concurrent_clients,
+        ops=args.num_ops_per_client,
+        retries=args.retries,
+        backoff_s=args.backoff,
+        submit_timeout_s=args.timeout,
+        deadline_s=args.deadline,
+        alert_url=args.alert_url,
+        state_dir=args.state_dir,
+        mislabel_first=args.mislabel_control,
+    )
+    runner = SoakRunner(cfg)
+    server = None
+    if args.metrics_port is not None:
+        from .obs.httpd import MetricsServer
+
+        server = MetricsServer(runner.registry, args.metrics_port)
+        log.info("soak metrics at %s", server.url)
+    try:
+        summary = runner.run()
+    finally:
+        if server is not None:
+            server.close()
+    code = soak_exit_code(summary)
+    if args.json:
+        print(_json.dumps(summary, sort_keys=True), flush=True)
+    else:
+        line = {
+            "generated": summary["generated"],
+            "submitted": summary["submitted"],
+            "ok": summary["ok"],
+            "false_verdicts": len(summary["false_verdicts"]),
+            "submit_errors": len(summary["submit_errors"]),
+            "inconclusive": summary["inconclusive"],
+            "unlabeled": summary["unlabeled"],
+            "verdict_table": summary["verdict_table"],
+            "wall_s": summary["wall_s"],
+        }
+        print(_json.dumps(line, sort_keys=True), flush=True)
+    if code == 0:
+        log.info(
+            "soak clean: %d/%d verdicts matched ground truth",
+            summary["ok"],
+            summary["submitted"],
+        )
+    elif code == 1:
+        for fv in summary["false_verdicts"]:
+            log.error(
+                "false verdict: campaign=%s seed=%d expected=%s actual=%s "
+                "fingerprint=%s",
+                fv["campaign"],
+                fv["seed"],
+                fv["expect"],
+                fv["actual"],
+                fv.get("fingerprint"),
+            )
+    else:
+        log.error(
+            "soak inconclusive: %d submit errors, %d UNKNOWN verdicts, "
+            "%d unlabeled skips",
+            len(summary["submit_errors"]),
+            summary["inconclusive"],
+            summary["unlabeled"],
+        )
+    return code
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = _Parser(
         prog="s2_verification_tpu_torch",
@@ -2223,6 +2482,253 @@ def build_parser() -> argparse.ArgumentParser:
     )
     s.set_defaults(fn=_cmd_serve, stats=False)
 
+    r = sub.add_parser(
+        "route",
+        help="verifyd-router: front N verifyd daemons behind one address "
+        "(consistent-hash cache affinity, work stealing, circuit-broken "
+        "failover, rolling restarts)",
+    )
+    rsub = r.add_subparsers(dest="route_cmd", required=True)
+
+    rs = rsub.add_parser(
+        "serve", help="run the router daemon in the foreground"
+    )
+    rs.add_argument(
+        "--listen",
+        required=True,
+        metavar="SOCK|HOST:PORT",
+        help="router address clients dial: a unix-socket path, or "
+        "HOST:PORT for the authenticated TCP transport (needs "
+        "--secret-file / VERIFYD_SECRET; port 0 = ephemeral)",
+    )
+    rs.add_argument(
+        "--backend",
+        action="append",
+        required=True,
+        metavar="NAME=ADDR[@HEALTHZ_URL]",
+        help="fleet member (repeatable): NAME names the node in metrics "
+        "and drain commands; ADDR is its unix socket or HOST:PORT "
+        "(TCP backends share the router's secret); the optional "
+        "HEALTHZ_URL switches probing from TCP ping to the daemon's "
+        "HTTP /healthz (real 200/503 SLO state)",
+    )
+    rs.add_argument(
+        "--secret-file",
+        default=None,
+        help="file holding the shared secret for the TCP listener and "
+        "TCP backends; falls back to VERIFYD_SECRET",
+    )
+    rs.add_argument(
+        "--probe-interval",
+        type=float,
+        default=1.0,
+        metavar="SECONDS",
+        help="health-probe period per backend (default 1.0)",
+    )
+    rs.add_argument(
+        "--breaker-failures",
+        type=int,
+        default=3,
+        metavar="N",
+        help="consecutive transport failures before a backend's circuit "
+        "breaker opens (default 3)",
+    )
+    rs.add_argument(
+        "--breaker-reset",
+        type=float,
+        default=5.0,
+        metavar="SECONDS",
+        help="open-breaker wait before admitting one half-open probe "
+        "request (default 5.0)",
+    )
+    rs.add_argument(
+        "--steal-depth",
+        type=int,
+        default=4,
+        metavar="N",
+        help="router-side in-flight on the home node at which a cold "
+        "job is work-stolen to the least loaded healthy node "
+        "(default 4)",
+    )
+    rs.add_argument(
+        "--max-failovers",
+        type=int,
+        default=3,
+        metavar="N",
+        help="failover hops after the first attempt before answering "
+        "NoBackend (default 3)",
+    )
+    rs.add_argument(
+        "--submit-timeout",
+        type=float,
+        default=None,
+        metavar="SECONDS",
+        help="per-attempt verdict wait against one backend "
+        "(default: wait)",
+    )
+    rs.add_argument(
+        "--ring-replicas",
+        type=int,
+        default=64,
+        metavar="N",
+        help="virtual nodes per backend on the consistent-hash ring "
+        "(default 64)",
+    )
+    rs.add_argument(
+        "--drain-timeout",
+        type=float,
+        default=30.0,
+        metavar="SECONDS",
+        help="default budget a `route drain` waits for in-flight work "
+        "(default 30)",
+    )
+    rs.add_argument(
+        "--cache-capacity",
+        type=int,
+        default=4096,
+        metavar="N",
+        help="router edge cache: decided verdicts answered at the "
+        "router with no backend hop (entries; 0 disables; default 4096)",
+    )
+    rs.add_argument(
+        "--metrics-port",
+        type=int,
+        default=None,
+        metavar="PORT",
+        help="router /metrics + /healthz + /slo listener "
+        "(0 = ephemeral; default: off)",
+    )
+    rs.add_argument(
+        "--trace-capacity",
+        type=int,
+        default=4096,
+        metavar="SPANS",
+        help="router span-ring capacity for the stitched `trace` op "
+        "(0 disables; default 4096)",
+    )
+    rs.add_argument(
+        "--slo-target",
+        type=float,
+        default=0.99,
+        metavar="FRACTION",
+        help="router availability SLO target for /healthz (default 0.99)",
+    )
+    rs.add_argument(
+        "--slo-latency-target",
+        type=float,
+        default=5.0,
+        metavar="SECONDS",
+        help="routed-submit p95 latency target (default 5.0)",
+    )
+    rs.add_argument(
+        "--state-dir",
+        default=None,
+        metavar="DIR",
+        help="router durable state: the distributed-search grant ledger "
+        "lands in DIR/distsearch/ (grant-before-ship partition "
+        "ownership; replayed at boot to fence a dead coordinator's "
+        "epochs and surface orphan ranges).  Default: no ledger",
+    )
+    rs.add_argument(
+        "--distsearch-segments",
+        type=int,
+        default=3,
+        metavar="N",
+        help="distributed search: target segment count the coordinator "
+        "slices a submitted history into (default 3)",
+    )
+    rs.add_argument(
+        "--distsearch-straggler",
+        type=float,
+        default=10.0,
+        metavar="SECONDS",
+        help="distributed search: partition runtime after which an idle "
+        "healthy node steals the range under a new epoch (0 disables; "
+        "default 10)",
+    )
+    rs.add_argument(
+        "--distsearch-max-regrants",
+        type=int,
+        default=3,
+        metavar="N",
+        help="distributed search: re-grants per partition (failover or "
+        "inconclusive owner) before the merged verdict degrades to "
+        "UNKNOWN (default 3)",
+    )
+    rs.add_argument(
+        "--scrape-interval",
+        type=float,
+        default=2.0,
+        metavar="SECONDS",
+        help="fleet-metrics scrape period: every backend's families "
+        "polled and merged under a node label onto /fleet/metrics and "
+        "the fleet dashboard (default 2.0; <=0 disables the scraper)",
+    )
+    rs.add_argument(
+        "--telemetry-dir",
+        default=None,
+        metavar="DIR",
+        help="durable telemetry store root for the router's registry "
+        "(which carries the merged per-node fleet gauges); default "
+        "<state-dir>/telemetry, disabled without a state dir",
+    )
+    rs.add_argument(
+        "--telemetry-sample",
+        type=float,
+        default=2.0,
+        metavar="SECONDS",
+        help="telemetry sampling interval for the raw ring (default "
+        "2.0; <=0 disables recording)",
+    )
+    rs.set_defaults(fn=_cmd_route_serve)
+
+    def _route_op_parser(name: str, help_text: str):
+        rp = rsub.add_parser(name, help=help_text)
+        rp.add_argument(
+            "-socket",
+            "--socket",
+            required=True,
+            help="the router's unix-socket path or HOST:PORT",
+        )
+        rp.add_argument(
+            "--secret-file",
+            default=None,
+            help="shared secret for a TCP router address; falls back to "
+            "VERIFYD_SECRET",
+        )
+        return rp
+
+    rd = _route_op_parser(
+        "drain",
+        "rolling restart, step 1: stop routing to NODE, wait for its "
+        "in-flight, then send it a drain-aware shutdown (the restarted "
+        "node replays its journal and rejoins via the health probe)",
+    )
+    rd.add_argument("node", help="backend name (as given to --backend)")
+    rd.add_argument(
+        "--timeout",
+        type=float,
+        default=None,
+        metavar="SECONDS",
+        help="drain budget override (default: the router's "
+        "--drain-timeout)",
+    )
+    rd.set_defaults(fn=_cmd_route_drain)
+
+    ru = _route_op_parser(
+        "undrain", "return a drained node to the routable set"
+    )
+    ru.add_argument("node", help="backend name (as given to --backend)")
+    ru.set_defaults(fn=_cmd_route_undrain)
+
+    rf = _route_op_parser(
+        "fleet", "show ring membership + per-backend health/drain state"
+    )
+    rf.add_argument(
+        "--json", action="store_true", help="emit the raw fleet JSON"
+    )
+    rf.set_defaults(fn=_cmd_route_fleet)
+
     t = sub.add_parser(
         "trace",
         help="export a running verifyd's span ring as Chrome trace_event "
@@ -2545,6 +3051,95 @@ def build_parser() -> argparse.ArgumentParser:
         "backend, frontier token, ops carried) on stdout",
     )
     fo.set_defaults(fn=_cmd_follow)
+
+    k = sub.add_parser(
+        "soak",
+        help="closed-loop soak: generate labeled fault-campaign histories, "
+        "submit them to a live daemon/fleet, and score every verdict "
+        "against its ground-truth label",
+    )
+    k.add_argument(
+        "socket",
+        help="daemon or router address (unix-socket path, or HOST:PORT "
+        "with --secret-file / VERIFYD_SECRET)",
+    )
+    k.add_argument(
+        "--campaign",
+        action="append",
+        metavar="NAME",
+        help="campaign to run (repeatable; default: the full builtin "
+        "matrix — see `collect --list-campaigns`)",
+    )
+    k.add_argument("--seed", type=int, default=0, help="schedule seed base")
+    k.add_argument(
+        "--cycles",
+        type=int,
+        default=1,
+        help="passes over the campaign list, each with fresh derived seeds",
+    )
+    k.add_argument(
+        "--num-concurrent-clients",
+        type=int,
+        default=None,
+        help="override each campaign's client sizing",
+    )
+    k.add_argument(
+        "--num-ops-per-client",
+        type=int,
+        default=None,
+        help="override each campaign's per-client op count",
+    )
+    k.add_argument(
+        "--retries",
+        type=int,
+        default=8,
+        help="per-history re-submissions riding out fleet failovers "
+        "(default 8)",
+    )
+    k.add_argument("--backoff", type=float, default=0.25, metavar="SECONDS")
+    k.add_argument(
+        "--timeout",
+        type=float,
+        default=120.0,
+        help="per-attempt verdict wait (default 120s)",
+    )
+    k.add_argument(
+        "--deadline",
+        type=float,
+        default=None,
+        metavar="SECONDS",
+        help="total wall-clock budget per submission across retries",
+    )
+    k.add_argument(
+        "--alert-url",
+        default=None,
+        help="webhook for checker_false_verdict alert delivery",
+    )
+    k.add_argument(
+        "--state-dir",
+        default=None,
+        help="flight-recorder ring + offending-history dumps land here",
+    )
+    k.add_argument(
+        "--metrics-port",
+        type=int,
+        default=None,
+        help="serve verifyd_soak_* families on /metrics (0 = ephemeral port)",
+    )
+    k.add_argument(
+        "--mislabel-control",
+        action="store_true",
+        help="deliberately flip the first history's label — a control case "
+        "proving the checker_false_verdict alert + nonzero exit fire",
+    )
+    k.add_argument("--secret-file", default=None)
+    k.add_argument(
+        "--json",
+        action="store_true",
+        help="print the full machine-readable summary (default: one "
+        "compact summary line)",
+    )
+    k.set_defaults(fn=_cmd_soak)
 
     d = sub.add_parser(
         "doctor",

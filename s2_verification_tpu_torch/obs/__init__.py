@@ -33,16 +33,20 @@ in-memory daemon and the supervised device escalation need:
                    metric families.
 - ``tsdb``       — durable multi-resolution time-series store over seglog
                    (the ``tsq`` op and CLI, sentinel re-seeding).
+- ``probe``      — the router's circuit breaker and backend health prober.
+- ``federate``   — the router's FleetScraper: every backend's metrics
+                   merged under a closed ``node`` label into
+                   ``/fleet/metrics``, a fleet SLO rollup, and the fleet
+                   dashboard board.
 
-The JAX package's ``federate`` (the router's fleet plane) is not ported
-yet (ROADMAP.md, queue 1 item 6).  Everything here is stdlib-only and
-never imports ``torch``.
+Everything here is stdlib-only and never imports ``torch``.
 """
 
 from .alerts import AlertEngine, AlertRule, builtin_rules, parse_rule
 from .archive import ProfileArchive, filter_records, read_archive, read_corpus
 from .context import new_trace_id, valid_trace_id
 from .dashboard import Dashboard
+from .federate import FleetScraper, ScrapeTarget
 from .flight import FlightRecorder, postmortem, read_flight, render_postmortem
 from .introspect import (
     INTROSPECTOR,
@@ -64,6 +68,7 @@ __all__ = [
     "AlertRule",
     "Counter",
     "Dashboard",
+    "FleetScraper",
     "FlightRecorder",
     "Gauge",
     "Histogram",
@@ -75,6 +80,7 @@ __all__ = [
     "ResourceSampler",
     "SLOConfig",
     "SLOHealth",
+    "ScrapeTarget",
     "SentinelConfig",
     "StructuredHandler",
     "StructuredLogger",

@@ -33,12 +33,9 @@ over it.
 
 The port's copy of the JAX package's ``obs/flight.py``: the same records
 in the same ring, and the same post-mortem of a state dir either
-package's daemon wrote, the prefix store's included
-(``service/prefixstore.read_cold``).  One section reads a store whose
-writer the port does not have yet: the distributed search's grant ledger
-(``<state_dir>/distsearch``, ROADMAP.md queue 1 item 6).  Its key stays,
-``None`` as in a state dir without one, and a state dir that holds one
-lists it under ``unread``.
+package's daemon or router wrote, the prefix store's
+(``service/prefixstore.read_cold``) and the grant ledger's
+(``service/journal.read_grants_cold``) included.
 """
 
 from __future__ import annotations
@@ -258,12 +255,12 @@ def postmortem(
 
     prefix_store = read_prefix_cold(state_dir)
 
-    # The grant ledger waits for its writer (see the module docstring):
-    # reported as absent, and named when on disk.
-    distsearch = None
-    unread = [
-        sub for sub in ("distsearch",) if os.path.isdir(os.path.join(state_dir, sub))
-    ]
+    # Distributed-search grant ledger (a router's state dir): partition
+    # ownership open at death, per-search epochs, and the last delta per
+    # range — the post-mortem of a coordinator killed mid-search.
+    from ..service.journal import read_grants_cold
+
+    distsearch = read_grants_cold(state_dir)
 
     # Telemetry history (obs/tsdb.py): cold read of the durable metric
     # rings under <state_dir>/telemetry — the trajectory of the load
@@ -354,7 +351,7 @@ def postmortem(
         "in_flight_at_death": at_death,
     }
 
-    out = {
+    return {
         "state_dir": state_dir,
         "records": len(records),
         "events": len(events),
@@ -384,9 +381,6 @@ def postmortem(
         "resources": resources[-tail:],
         "resource_samples": len(resources),
     }
-    if unread:
-        out["unread"] = unread
-    return out
 
 
 def _fmt_t(t: Any) -> str:
@@ -792,13 +786,6 @@ def render_postmortem(pm: Dict[str, Any], *, tail: int = 20) -> str:
                     float(r.get("gc_pause_s", 0.0) or 0.0),
                 )
             )
-
-    if pm.get("unread"):
-        add("")
-        add(
-            "-- not read (this package has no reader yet): %s --"
-            % ", ".join(pm["unread"])
-        )
 
     if pm["tail"]:
         add("")

@@ -4,11 +4,10 @@ One ThreadingHTTPServer on a daemon thread per daemon process.  Port 0
 binds an ephemeral port (the bound port is readable via ``.port``).
 There is deliberately no write surface here.
 
-The port's copy of the JAX package's ``obs/httpd.py``, without the fleet
-plane (``/fleet/*``, served only by the router, which waits for the fleet
-tier: ROADMAP.md, queue 1).  It adds ``refresh``: a callable run before
-every ``/metrics`` render, through which the daemon copies its kernel
-launch counts into ``verifyd_kernel_launches_total``.
+The port's copy of the JAX package's ``obs/httpd.py``.  It adds
+``refresh``: a callable run before every ``/metrics`` render, through
+which the daemon copies its kernel launch counts into
+``verifyd_kernel_launches_total``.
 
 Endpoints:
 
@@ -30,6 +29,11 @@ Endpoints:
 - ``GET /dashboard`` — a self-contained zero-dependency HTML page with
   server-side SVG sparklines over the retained scrape ring (404 without
   a dashboard); ``GET /dashboard.json`` is the raw series feed.
+- ``GET /fleet/metrics`` / ``/fleet/slo`` / ``/fleet/dashboard`` /
+  ``/fleet/dashboard.json`` — the federated fleet plane (404 without a
+  federator; only the router attaches one): every backend's families
+  merged under a ``node`` label, the fleet SLO rollup, and the fleet
+  board.
 """
 
 from __future__ import annotations
@@ -43,6 +47,7 @@ from .metrics import OPENMETRICS_CONTENT_TYPE, MetricsRegistry
 
 if TYPE_CHECKING:  # pragma: no cover - import cycle guard (health ← metrics)
     from .dashboard import Dashboard
+    from .federate import FleetScraper
     from .health import SLOHealth
     from .sentinel import PerfSentinel
 
@@ -65,12 +70,14 @@ class MetricsServer:
         health: "Optional[SLOHealth]" = None,
         sentinel: "Optional[PerfSentinel]" = None,
         dashboard: "Optional[Dashboard]" = None,
+        federator: "Optional[FleetScraper]" = None,
         refresh: Optional[Callable[[], None]] = None,
     ) -> None:
         self.registry = registry
         self.health = health
         self.sentinel = sentinel
         self.dashboard = dashboard
+        self.federator = federator
         self.refresh = refresh
 
         server = self
@@ -137,6 +144,36 @@ class MetricsServer:
                     self._reply(
                         200,
                         server.dashboard.render_json().encode("utf-8"),
+                        _JSON_TYPE,
+                    )
+                elif path == "/fleet/metrics" and server.federator is not None:
+                    self._reply(
+                        200,
+                        server.federator.render().encode("utf-8"),
+                        CONTENT_TYPE,
+                    )
+                elif path == "/fleet/slo" and server.federator is not None:
+                    snap = server.federator.slo_rollup()
+                    self._reply(
+                        200,
+                        (json.dumps(snap, sort_keys=True) + "\n").encode("utf-8"),
+                        _JSON_TYPE,
+                    )
+                elif (
+                    path == "/fleet/dashboard" and server.federator is not None
+                ):
+                    self._reply(
+                        200,
+                        server.federator.render_html().encode("utf-8"),
+                        _HTML_TYPE,
+                    )
+                elif (
+                    path == "/fleet/dashboard.json"
+                    and server.federator is not None
+                ):
+                    self._reply(
+                        200,
+                        server.federator.render_json().encode("utf-8"),
                         _JSON_TYPE,
                     )
                 else:

@@ -38,10 +38,17 @@ requests.  The port's copy of the JAX package's ``service`` package:
 
 :mod:`.daemon` ties them together behind a unix-domain socket (and an
 optional authenticated TCP listener); :mod:`.client` is the submit side.
-Cross-job batching, prefix resume, the router and the distributed
-search are not ported yet; the daemon refuses the flags and ops that
-need them by name.  Nothing here imports ``torch`` until an inline escalation runs:
-a supervised daemon never touches a card.  As in the JAX package,
+:mod:`.batcher` runs a shape group as one launch, :mod:`.prefixstore`
+resumes a stream from its cached frontier, and the fleet tier rides four
+more: :mod:`.router` fronts N daemons behind a single address speaking
+the same protocol (consistent-hash routing on the verdict-cache
+fingerprint, bounded work-stealing, circuit-broken failover, drain-aware
+rolling restarts: the ``route`` CLI subcommand), :mod:`.distsearch`
+splits one search's frontier across the fleet under a grant ledger,
+:mod:`.chaosproxy` injects frame faults, and :mod:`.soak` runs the
+closed-loop campaign soak.  Nothing here imports ``torch`` until an
+inline escalation or a vmap launch group runs: a supervised daemon and
+the router never touch a card.  As in the JAX package,
 :mod:`.supervise` is imported by name (it is also the child's ``-m``
 entry point).
 """
@@ -56,15 +63,19 @@ from .client import (
 from .daemon import Verifyd, VerifydConfig
 from .devicepool import DeviceLease, DevicePool, lease_size_for
 from .queue import AdmissionQueue, Job, QueueFull
+from .router import BackendSpec, HashRing, RouterConfig, VerifydRouter
 from .scheduler import shape_key
 from .stats import ServiceStats
 
 __all__ = [
     "AdmissionQueue",
+    "BackendSpec",
     "DeviceLease",
     "DevicePool",
+    "HashRing",
     "Job",
     "QueueFull",
+    "RouterConfig",
     "ServiceStats",
     "VerdictCache",
     "Verifyd",
@@ -73,6 +84,7 @@ __all__ = [
     "VerifydConfig",
     "VerifydDeadlineExceeded",
     "VerifydError",
+    "VerifydRouter",
     "history_fingerprint",
     "lease_size_for",
     "shape_key",

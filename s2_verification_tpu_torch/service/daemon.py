@@ -44,8 +44,9 @@ verification (``prefix_enabled``): the prefix store
 each submit for a cached prefix and serves the ``follow`` op; its keys,
 entries and segments are the JAX package's byte for byte.
 
-Not ported yet, and refused by name: the distributed-search ops
-(``grant``, ``delta``, ``partition_done``), answered with an error frame.
+Fleet peer ops (``service/distsearch.py``): ``grant``, ``delta`` and
+``partition_done`` make this daemon one partition owner of a router's
+distributed search, under the same epoch fencing as the JAX daemon.
 """
 
 from __future__ import annotations
@@ -65,6 +66,7 @@ from dataclasses import dataclass, field
 
 from .. import version as _version
 from ..checker.entries import prepare
+from ..checker.prefix import PrefixCarry
 from ..obs.alerts import AlertEngine, builtin_rules, parse_rule
 from ..obs.archive import ARCHIVE_SUBDIR, ProfileArchive
 from ..obs.context import TRACE_FIELD, new_trace_id, parse_trace_frame
@@ -82,6 +84,7 @@ from ..obs.tsdb import default_dir as telemetry_default_dir
 from ..obs.tsdb import tsq_request
 from ..utils import events as ev
 from .cache import VerdictCache, history_fingerprint
+from .distsearch import pack_states
 from .fastprep import FastPrepFallback, fast_prepare
 from .journal import JobJournal
 from .overload import (
@@ -92,6 +95,7 @@ from .overload import (
 )
 from .prefixstore import (
     PREFIX_SUBDIR,
+    PrefixPlan,
     PrefixStore,
     make_entry,
     plan_for_submit,
@@ -101,6 +105,7 @@ from .protocol import (
     ERR_AUTH,
     ERR_DEADLINE,
     ERR_DECODE,
+    ERR_EPOCH,
     ERR_FRAME,
     ERR_FRONTIER,
     ERR_INTERNAL,
@@ -126,10 +131,6 @@ from .stats import ServiceStats
 __all__ = ["VerifydConfig", "Verifyd"]
 
 log = logging.getLogger("s2_verification_tpu_torch.verifyd")
-
-#: the roadmap item the unported distributed-search ops wait for
-#: (ROADMAP.md, queue 1)
-_FLEET = "ROADMAP.md queue 1 item 6, the fleet tier"
 
 
 @dataclass
@@ -608,6 +609,12 @@ class Verifyd:
             prefix_store=self.prefix,
             torch_device=config.torch_device,
         )
+        #: distributed-search partition grants: (search, part) -> epoch.
+        #: Bounded (oldest evicted) — a coordinator that never closes its
+        #: grants must not leak backend memory.  Loop-thread owned.
+        self._grants: dict[tuple[str, str], int] = {}
+        #: in-flight partition jobs by (search, part), for revocation
+        self._part_jobs: dict[tuple[str, str], CancelToken] = {}
         self._job_ids = itertools.count(1)
         #: submits between dispatch and reply-written (loop thread owns
         #: the writes; the drain poller only reads)
@@ -1004,7 +1011,7 @@ class Verifyd:
                             resp = err(ERR_AUTH, "missing or invalid frame auth")
                             close_after = True
                         else:
-                            if req.get("op") in ("submit", "follow"):
+                            if req.get("op") in ("submit", "follow", "delta"):
                                 # Drain counts a submit (or follow window)
                                 # until its reply is *written* — an accepted
                                 # job whose verdict never reached the client
@@ -1199,9 +1206,12 @@ class Verifyd:
                 return await self._submit(req, reader)
             if op == "follow":
                 return await self._follow(req, reader)
-            refused = _UNPORTED_OPS.get(op)
-            if refused is not None:
-                return err(ERR_DECODE, f"op {op!r} needs {refused}")
+            if op == "grant":
+                return self._ds_grant(req)
+            if op == "delta":
+                return await self._ds_delta(req, reader)
+            if op == "partition_done":
+                return self._ds_done(req)
             return err(ERR_DECODE, f"unknown op {op!r}")
         except Exception as e:  # protocol handler must never kill the loop
             log.exception("dispatch failed for op %r", op)
@@ -1228,11 +1238,13 @@ class Verifyd:
     def _watch(self, req: dict) -> dict:
         """One-shot progress snapshot of running (or just-done) searches.
 
-        Selectors: ``job`` (one id), ``fingerprint`` (verdict-cache key),
-        ``search`` (+ optional ``part``: every partition of a distributed
-        search running here), or none (all active jobs).  A named
-        selector with no match is the definite
-        :data:`~.protocol.ERR_UNKNOWN_JOB`."""
+        Selectors: ``job`` (one id), ``fingerprint`` (verdict-cache key;
+        how a distsearch coordinator polls its ``ppart:`` partition
+        jobs), ``search`` (+ optional ``part``: every partition of a
+        distributed search running here), or none (all active jobs).  A
+        named selector with no match is the definite
+        :data:`~.protocol.ERR_UNKNOWN_JOB` — the router forwards it
+        rather than failing over."""
         if self.progress is None:
             return err(
                 ERR_DECODE,
@@ -1349,7 +1361,8 @@ class Verifyd:
             return err(ERR_DECODE, f"priority must be an int, got {req.get('priority')!r}")
         no_viz = bool(req.get("no_viz", self.cfg.no_viz))
         # Remaining end-to-end budget in seconds.  Optional (old clients
-        # never send it) and HMAC-covered like every frame field.
+        # never send it), HMAC-covered like every frame field, and already
+        # decremented by any router hop the frame crossed.
         deadline = req.get("deadline")
         if deadline is not None:
             try:
@@ -1877,10 +1890,265 @@ class Verifyd:
             )
         return reply
 
+    # -- distributed search (service/distsearch.py coordinator peer) -------
 
-#: ops the JAX daemon serves whose modules the port does not have yet:
-#: each is answered with an error frame naming them
-_UNPORTED_OPS = {
-    op: f"the distributed search, service/distsearch.py, which the port does not have yet ({_FLEET})"
-    for op in ("grant", "delta", "partition_done")
-}
+    _GRANTS_MAX = 1024  # bounded: a dead coordinator must not leak grants
+
+    @staticmethod
+    def _ds_fields(req: dict) -> tuple[str, str, str, int] | dict:
+        search = str(req.get("search") or "")
+        seg = str(req.get("seg") or "")
+        part = str(req.get("part") or "")
+        if not search or not part:
+            return err(ERR_DECODE, "distributed ops need 'search' and 'part'")
+        try:
+            epoch = int(req.get("epoch"))
+        except (TypeError, ValueError):
+            return err(
+                ERR_DECODE, f"epoch must be an int, got {req.get('epoch')!r}"
+            )
+        return search, seg, part, epoch
+
+    def _ds_grant(self, req: dict) -> dict:
+        """Claim partition ownership.  The fence: a grant older than the
+        one already held is a zombie coordinator thread — refused with
+        the definite ``EpochFenced`` so it can never double-own."""
+        fields = self._ds_fields(req)
+        if isinstance(fields, dict):
+            return fields
+        search, seg, part, epoch = fields
+        key = (search, part)
+        have = self._grants.get(key)
+        if have is not None and have > epoch:
+            self.stats.emit(
+                "epoch_fence", op="grant", search=search, part=part,
+                epoch=epoch, have=have,
+            )
+            return err(
+                ERR_EPOCH,
+                f"partition {part} of {search[:12]} is owned at epoch "
+                f"{have} > {epoch}",
+                epoch=have,
+            )
+        # Re-insert so the eviction order tracks grant recency.
+        self._grants.pop(key, None)
+        self._grants[key] = epoch
+        while len(self._grants) > self._GRANTS_MAX:
+            self._grants.pop(next(iter(self._grants)))
+        self.stats.emit(
+            "partition_granted", search=search, part=part, epoch=epoch
+        )
+        return ok({"search": search, "part": part, "epoch": epoch, "seg": seg})
+
+    async def _ds_delta(
+        self, req: dict, reader: asyncio.StreamReader | None = None
+    ) -> dict:
+        """One partition of one segment: search the segment history from
+        the carried share of the boundary union and reply with the
+        partition's end-of-segment union.
+
+        The epoch is checked twice: at entry (a stale delta never costs a
+        search) and again when the verdict is ready — a revocation that
+        landed mid-search turns this reply into ``EpochFenced``, so a
+        zombie node that missed its own revocation cannot leak a verdict
+        back into the merge.  The reply is partition-scoped
+        (``scope="partition"``) and never enters any verdict cache.
+        """
+        t_recv = self.tracer.now()
+        trace_id, _ = parse_trace_frame(req.get(TRACE_FIELD))
+        if trace_id is None:
+            trace_id = new_trace_id()
+        fields = self._ds_fields(req)
+        if isinstance(fields, dict):
+            return fields
+        search, seg, part, epoch = fields
+        key = (search, part)
+        have = self._grants.get(key)
+        if have != epoch:
+            self.stats.emit(
+                "epoch_fence", op="delta", search=search, part=part,
+                epoch=epoch, have=have,
+            )
+            return err(
+                ERR_EPOCH,
+                f"no live grant for partition {part} of {search[:12]} at "
+                f"epoch {epoch} (have {have})",
+                epoch=have,
+            )
+        try:
+            carry = PrefixCarry.from_payload(req.get("carry"))
+        except (TypeError, ValueError) as e:
+            return err(ERR_DECODE, f"bad partition carry: {e}")
+        client = str(req.get("client") or "distsearch")
+        deadline = req.get("deadline")
+        if deadline is not None:
+            try:
+                deadline = float(deadline)
+            except (TypeError, ValueError):
+                return err(
+                    ERR_DECODE, f"deadline must be a number, got {deadline!r}"
+                )
+        decoded = self._decode_history(
+            req.get("history"), req.get("records"), client
+        )
+        if isinstance(decoded, dict):
+            return decoded
+        _text, events, hist = decoded
+        n = len(hist.ops)
+        if n == 0:
+            # All-trivial segment slice: the union passes through unchanged.
+            states = pack_states(carry.states)
+            self.stats.emit(
+                "partition_delta", search=search, part=part, epoch=epoch,
+                verdict=0, states=len(states),
+                bytes=len(json.dumps(states, separators=(",", ":"))),
+            )
+            return ok(
+                {
+                    "verdict": 0,
+                    "outcome": "OK",
+                    "backend": "frontier-trivial",
+                    "scope": "partition",
+                    "search": search,
+                    "seg": seg,
+                    "part": part,
+                    "epoch": epoch,
+                    "ops": 0,
+                    "states": states,
+                    "trace_id": trace_id,
+                }
+            )
+        # The final segment's verdict suffices on its own (there is no
+        # next boundary to seed), so the coordinator sends union=False
+        # and the search may accept early instead of materializing every
+        # indefinite-append layer for an unwanted union.
+        want_union = req.get("union", True)
+        plan = PrefixPlan(
+            kind="partition",
+            carry=carry,
+            snap_keys={n: None} if want_union else {},
+        )
+        plan.total_events = len(events)
+        cancel = CancelToken(
+            time.monotonic() + deadline if deadline is not None else None
+        )
+        self._part_jobs[key] = cancel
+        job = Job(
+            id=next(self._job_ids),
+            client=client,
+            priority=0,  # a partition blocks a whole fleet: front of queue
+            shape=shape_key(hist),
+            fingerprint=f"ppart:{search[:16]}/{part}",
+            events=events,
+            hist=hist,
+            no_viz=True,
+            trace_id=trace_id,
+            cancel=cancel,
+            prefix=plan,
+        )
+        fut: asyncio.Future = self._loop.create_future()
+
+        def _resolve(reply: dict) -> None:
+            def _finish() -> None:
+                if not fut.done():
+                    fut.set_result(reply)
+
+            with contextlib.suppress(RuntimeError):  # loop already closed
+                self._loop.call_soon_threadsafe(_finish)
+
+        job.resolve = _resolve
+        try:
+            depth = self.queue.put(job)
+        except QueueFull as e:
+            self._part_jobs.pop(key, None)
+            return err(
+                ERR_QUEUE_FULL, str(e),
+                retry_after_s=e.retry_after_s, depth=e.depth,
+            )
+        except RuntimeError as e:  # queue closed: daemon is stopping
+            self._part_jobs.pop(key, None)
+            return err(ERR_SHUTTING_DOWN, str(e))
+        job.enqueued_at = self.tracer.now()
+        self.stats.emit(
+            "admit",
+            job=job.id,
+            client=client,
+            priority=0,
+            shape=job.shape,
+            depth=depth,
+            trace_id=trace_id,
+        )
+        self.stats.set_queue_depth(depth)
+        if self.tracer.enabled:
+            self.tracer.name_track(
+                job.id, f"partition {part}@{epoch} ({client})"
+            )
+            self.tracer.add_span(
+                "admit", t_recv, job.enqueued_at, tid=job.id,
+                args={"client": client, "part": part, "trace_id": trace_id},
+            )
+        try:
+            reply = await self._await_reply(fut, job, reader)
+        finally:
+            if self._part_jobs.get(key) is cancel:
+                self._part_jobs.pop(key, None)
+        # Reply-time fence: the grant must STILL be ours.  A steal or
+        # revocation that raced the search makes this node a zombie — its
+        # verdict must die here, not in the coordinator's merge.
+        if self._grants.get(key) != epoch:
+            self.stats.emit(
+                "epoch_fence", op="delta_reply", search=search, part=part,
+                epoch=epoch, have=self._grants.get(key),
+            )
+            return err(
+                ERR_EPOCH,
+                f"grant for partition {part} superseded mid-search "
+                f"(epoch {epoch})",
+                epoch=self._grants.get(key),
+            )
+        body = reply.get("ok")
+        if isinstance(body, dict):
+            # Work complete: the grant is spent (the next segment's grant
+            # arrives under a fresh epoch).
+            self._grants.pop(key, None)
+            body.update(
+                scope="partition", search=search, seg=seg, part=part,
+                epoch=epoch,
+            )
+            states = body.get("states") or []
+            self.stats.emit(
+                "partition_delta", search=search, part=part, epoch=epoch,
+                verdict=body.get("verdict"), states=len(states),
+                bytes=len(json.dumps(states, separators=(",", ":"))),
+            )
+        return reply
+
+    def _ds_done(self, req: dict) -> dict:
+        """Close (or revoke) a partition grant; cancels the in-flight
+        partition job so a revoked search stops burning the worker."""
+        fields = self._ds_fields(req)
+        if isinstance(fields, dict):
+            return fields
+        search, _seg, part, epoch = fields
+        reason = str(req.get("reason") or "done")
+        key = (search, part)
+        have = self._grants.get(key)
+        if have is not None and have > epoch:
+            self.stats.emit(
+                "epoch_fence", op="done", search=search, part=part,
+                epoch=epoch, have=have,
+            )
+            return err(
+                ERR_EPOCH,
+                f"partition {part} re-owned at epoch {have} > {epoch}",
+                epoch=have,
+            )
+        closed = self._grants.pop(key, None) is not None
+        tok = self._part_jobs.pop(key, None)
+        if tok is not None:
+            tok.cancel("revoked")
+        self.stats.emit(
+            "partition_done", search=search, part=part, epoch=epoch,
+            reason=reason, closed=closed,
+        )
+        return ok({"closed": closed, "search": search, "part": part})

@@ -542,11 +542,17 @@ class Scheduler:
             # A follow window's verdict only covers the suffix relative to
             # its carry; its "fingerprint" is the cut key (pv2:...), and
             # the payload is marked so edges scope it too.  Partition jobs
-            # are scoped likewise (their end-of-segment union goes back to
-            # the coordinator with the fleet tier, ROADMAP.md queue 1
-            # item 6).
+            # are scoped likewise and additionally ship their
+            # end-of-segment union back to the coordinator.
             kind = job.prefix.kind
             payload["scope"] = "partition" if kind == "partition" else "window"
+            if kind == "partition" and res.outcome == CheckOutcome.OK:
+                from .distsearch import pack_states
+
+                snaps = getattr(res, "snapshots", None) or {}
+                states = snaps.get(len(job.hist.ops))
+                if states is not None:
+                    payload["states"] = pack_states(states)
         # Inconclusive verdicts are not cached: a resubmission may get a
         # healthier device or a bigger budget and deserves a fresh run.
         # Window verdicts are never cached at all (see _is_window).
@@ -675,7 +681,7 @@ class Scheduler:
         (carry present) from ``search.cold`` (probe missed; this search
         merely seeds the store).
         """
-        from ..checker.frontier import check_frontier_auto
+        from ..checker.frontier import check_frontier, check_frontier_auto
 
         plan = job.prefix
         init_counts = init_states = None
@@ -685,21 +691,46 @@ class Scheduler:
                 init_counts = plan.resume_counts
         mode = "resume" if plan.carry is not None else "cold"
         t0 = time.monotonic()
-        # (A distributed-search partition runs an exhaustive
-        # check_frontier(complete_cuts=True) instead; it comes with the
-        # fleet tier, ROADMAP.md queue 1 item 6.)
-        res = check_frontier_auto(
-            job.hist,
-            collect_stats=True,
-            witness=False,
-            profile=self.profile,
-            init_counts=init_counts,
-            init_states=init_states,
-            snapshot_cuts=sorted(plan.snap_keys) or None,
-            time_budget_s=budget,
-            progress=job.progress_sink,
-            prune=self.prune,
-        )
+        if plan.kind == "partition":
+            # Distributed-search partition: the coordinator merges
+            # end-of-segment unions, so the search must be EXHAUSTIVE —
+            # the beam escalation inside check_frontier_auto prunes
+            # configurations, and a pruned union merged upstream would be
+            # silently unsound.  Auto-close stays on (it is
+            # reachability-preserving per partition).
+            mode = "partition"
+            res = check_frontier(
+                job.hist,
+                collect_stats=True,
+                witness=False,
+                profile=self.profile,
+                init_states=init_states,
+                snapshot_cuts=sorted(plan.snap_keys) or None,
+                # The coordinator merges the end union, so an early
+                # accept (all-indefinite tail) must not return before
+                # the cut's union is exact.
+                complete_cuts=bool(plan.snap_keys),
+                time_budget_s=budget,
+                progress=job.progress_sink,
+                # Order prunes (rank gate, tail pin) stand down while
+                # cuts are collecting (checker/frontier.py), so the
+                # partition's end-of-segment union stays exact; eager
+                # commit is union-identical and stays on.
+                prune=self.prune,
+            )
+        else:
+            res = check_frontier_auto(
+                job.hist,
+                collect_stats=True,
+                witness=False,
+                profile=self.profile,
+                init_counts=init_counts,
+                init_states=init_states,
+                snapshot_cuts=sorted(plan.snap_keys) or None,
+                time_budget_s=budget,
+                progress=job.progress_sink,
+                prune=self.prune,
+            )
         self.tracer.add_span(
             f"search.{mode}",
             t0,

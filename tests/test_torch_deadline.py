@@ -1,10 +1,10 @@
-"""End-to-end deadlines in the port's daemon: the five daemon cases of
-``tests/test_deadline.py`` (the token, admission refusal, queue expiry,
-mid-search cancellation on the CPU path and in a supervised child), each
-run over both packages.  The supervised case also checks the poison
-ledger under ``--state-dir``: a cancel of ours charges no crash.  The two
-router cases wait for the port's router (ROADMAP.md queue 1
-item 6).
+"""End-to-end deadlines in the port's daemon and router: the seven cases
+of ``tests/test_deadline.py`` (the token, admission refusal, queue expiry,
+mid-search cancellation on the CPU path and in a supervised child, and the
+router's deadline decrement across failover and its refusal of a third
+node once the deadline is spent), each run over both packages.  The
+supervised case also checks the poison ledger under ``--state-dir``: a
+cancel of ours charges no crash.
 
 Every case asserts the observable promises of cooperative cancellation:
 the client gets a definite ``DeadlineExceeded`` (never a fake verdict),
@@ -243,3 +243,77 @@ def test_deadline_frees_supervised_child_and_lease(tmp_path, monkeypatch, pkg):
     cancels = [e for e in _events(tmp_path) if e["ev"] == "job_cancelled"]
     assert len(cancels) == 1
     assert cancels[0]["reason"] == "deadline" and cancels[0]["started"] is True
+
+
+# -- router decrement across failover ----------------------------------------
+
+
+def _router_cfg(pkg, tmp_path, names):
+    return pkg.router.RouterConfig(
+        listen=str(tmp_path / "router.sock"),
+        backends=tuple(
+            pkg.router.BackendSpec(n, str(tmp_path / f"{n}.sock")) for n in names
+        ),
+        probe_interval_s=30.0,
+        breaker_failures=5,
+        max_failovers=2,
+    )
+
+
+def _ring_key(pkg, text: str) -> str:
+    """The router places by the prefix-affinity key, not the raw
+    fingerprint (see VerifydRouter._affinity_key)."""
+    hist = pkg.entries.prepare(list(pkg.events.iter_history(text)), elide_trivial=True)
+    return pkg.router.VerifydRouter._affinity_key(hist, pkg.cache.history_fingerprint(hist))
+
+
+def test_router_decrements_deadline_across_failover(tmp_path, pkg):
+    """A failed attempt burns real wall clock; the next backend must see
+    a *smaller* remaining budget, not the client's original number."""
+    router = pkg.router.VerifydRouter(_router_cfg(pkg, tmp_path, ("a", "b")))
+    calls = []
+
+    def dying(text, **kw):
+        calls.append(("dead", kw.get("deadline_s")))
+        time.sleep(0.25)  # the budget this attempt burned
+        raise pkg.client.VerifydUnavailable("Unavailable", "connect refused")
+
+    def answering(text, **kw):
+        calls.append(("live", kw.get("deadline_s")))
+        return {"verdict": 0, "outcome": "ok", "cached": False}
+
+    # Whichever node the ring prefers dies first; the other answers.
+    order = router._candidate_order(_ring_key(pkg, good_history()))[0]
+    order[0].client.submit = dying
+    order[1].client.submit = answering
+
+    reply = router._route_submit(
+        {"op": "submit", "history": good_history(), "deadline": 2.0}
+    )
+    assert reply["ok"]["verdict"] == 0 and reply["ok"]["node"] == order[1].name
+    assert [kind for kind, _ in calls] == ["dead", "live"]
+    first, second = calls[0][1], calls[1][1]
+    assert first is not None and first <= 2.0
+    # The second attempt's budget is short the ~0.25s the first burned.
+    assert second <= first - 0.2
+
+
+def test_router_refuses_third_node_when_deadline_spent(tmp_path, pkg):
+    router = pkg.router.VerifydRouter(_router_cfg(pkg, tmp_path, ("a", "b")))
+
+    def dying(text, **kw):
+        time.sleep(0.3)
+        raise pkg.client.VerifydUnavailable("Unavailable", "connect refused")
+
+    untouched = []
+    order = router._candidate_order(_ring_key(pkg, good_history()))[0]
+    order[0].client.submit = dying
+    order[1].client.submit = lambda *a, **kw: untouched.append(1)
+
+    reply = router._route_submit(
+        {"op": "submit", "history": good_history(), "deadline": 0.2}
+    )
+    e = reply["err"]
+    assert e["class"] == "DeadlineExceeded" and e["reason"] == "deadline"
+    assert e["attempts"] == 1
+    assert untouched == []  # no stale-clock handoff to a third node

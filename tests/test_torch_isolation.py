@@ -8,9 +8,10 @@ CPU fallback.
 - the supervising side of the device escalation (``checker.resilient``,
   ``service``, ``obs``) leaves ``torch`` out of ``sys.modules`` too, and so
   does a daemon under ``device="off"`` or ``"supervised"`` that answers
-  submits (the supervised one through a real escalation), and one with
+  submits (the supervised one through a real escalation), one with
   native batching and the prefix store that answers a burst and a follow
-  window;
+  window, and ``route serve`` over two daemons answering a routed, a
+  distributed and a soaked submit, ``route fleet`` and ``route drain``;
 - no port source (nor chip_smoke.py) imports them;
 - the entry points refuse to run when CUDA is asked for and absent, and
   so does the CLI's ``auto`` ladder when it escalates (exit 64, never a
@@ -132,6 +133,12 @@ def test_importing_the_port_loads_no_jax():
         "checker.prefix",
         "service.prefixstore",
         "service.batcher",
+        "obs.probe",
+        "obs.federate",
+        "service.router",
+        "service.distsearch",
+        "service.chaosproxy",
+        "service.soak",
     ):
         assert f"s2_verification_tpu_torch.{m}" in mods
     proc = _fresh_interpreter(f"for m in {mods!r}:\n    importlib.import_module(m)\n")
@@ -220,6 +227,52 @@ def test_a_native_batching_prefix_daemon_loads_no_torch(tmp_path):
         "    launches = c.stats()['batch_launches']\n"
         "assert sorted(r['backend'] for r in replies) == ['batch-native'] * 3, replies\n"
         "assert launches == 1 and (w['verdict'], w['scope']) == (0, 'window'), (launches, w)\n"
+        "assert 'torch' not in sys.modules, sorted(m for m in sys.modules if m.startswith('torch'))\n"
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_route_serve_loads_no_torch(tmp_path):
+    # The router tier: ``route serve`` (the CLI entry point) over two
+    # device-off daemons answers a routed submit, a distributed
+    # search and a soak, and ``route fleet`` / ``route drain`` answer;
+    # the process never loads torch.
+    rsock = tmp_path / "r.sock"
+    proc = _fresh_interpreter(
+        "import io, os, threading, time\n"
+        "from s2_verification_tpu_torch import cli\n"
+        "from s2_verification_tpu_torch.collector.adversarial import adversarial_events\n"
+        "from s2_verification_tpu_torch.service.client import VerifydClient\n"
+        "from s2_verification_tpu_torch.service.daemon import Verifyd, VerifydConfig\n"
+        "from s2_verification_tpu_torch.service.soak import SoakConfig, SoakRunner, soak_exit_code\n"
+        "from s2_verification_tpu_torch.utils import events as ev\n"
+        f"tmp, rsock = {str(tmp_path)!r}, {str(rsock)!r}\n"
+        "ds = [Verifyd(VerifydConfig(socket_path=f'{tmp}/{n}.sock', device='off', no_viz=True,\n"
+        "                            out_dir=f'{tmp}/viz')).__enter__() for n in 'ab']\n"
+        "said = []\n"
+        "def drive():\n"
+        "    while not os.path.exists(rsock):\n"
+        "        time.sleep(0.05)\n"
+        "    try:\n"
+        "        buf = io.StringIO()\n"
+        "        ev.write_history(adversarial_events(4, batch=3, seed=1), buf)\n"
+        "        c = VerifydClient(rsock, timeout=120)\n"
+        "        said.append(c.submit(buf.getvalue(), no_viz=True)['verdict'])\n"
+        "        said.append(c.submit(buf.getvalue() + ' ', no_viz=True, distributed=True)['verdict'])\n"
+        "        s = SoakRunner(SoakConfig(address=rsock, campaigns=('steady', 'drop-acked'), seed=11)).run()\n"
+        "        said.append(soak_exit_code(s))\n"
+        "        said.append(cli.main(['route', 'fleet', '-socket', rsock]))\n"
+        "        said.append(cli.main(['route', 'drain', 'a', '-socket', rsock]))\n"
+        "    finally:\n"
+        "        VerifydClient(rsock, timeout=60).shutdown()\n"
+        "th = threading.Thread(target=drive)\n"
+        "th.start()\n"
+        "rc = cli.main(['route', 'serve', '--listen', rsock, '--backend', f'a={tmp}/a.sock',\n"
+        "               '--backend', f'b={tmp}/b.sock', '--state-dir', f'{tmp}/rs', '--metrics-port', '0'])\n"
+        "th.join(timeout=60)\n"
+        "assert (rc, said) == (0, [0, 0, 0, 0, 0]), (rc, said)\n"
+        "for d in ds:\n"
+        "    d.__exit__(None, None, None)\n"
         "assert 'torch' not in sys.modules, sorted(m for m in sys.modules if m.startswith('torch'))\n"
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr

@@ -14,8 +14,10 @@ CLI's ``-device-rows``.
   backend warns and ignores it.
 - ``VerifydConfig`` has every field of the JAX package's with its default,
   plus only ``torch_device``; ``serve`` and ``submit`` take the JAX flags
-  with their defaults, and so do ``follow``, ``trace``, ``dash`` and
-  ``watch``.
+  with their defaults, and so do ``follow``, ``trace``, ``dash``,
+  ``watch``, ``soak`` and ``route serve|drain|undrain|fleet``;
+  ``RouterConfig``, ``BackendSpec``, ``DistSearchConfig`` and
+  ``SoakConfig`` have the JAX fields with their defaults, and no more.
 - Every keyword of the JAX ``check_batch_native`` and ``check_batch_vmap``
   gives the JAX engines' lane verdicts and layers (the port's vmap engine
   adds only ``device``), and ``BatchLane`` has the JAX fields;
@@ -364,6 +366,7 @@ OPERATOR_COMMANDS = {
     "trace": ["trace", "-socket", "S"],
     "dash": ["dash", "-socket", "S"],
     "watch": ["watch", "-socket", "S"],
+    "soak": ["soak", "S"],
 }
 
 
@@ -381,3 +384,50 @@ def test_operator_commands_take_the_jax_flags_and_defaults(command):
     assert sorted(o for a in psub._actions for o in a.option_strings) == sorted(
         o for a in jsub._actions for o in a.option_strings
     )
+
+
+ROUTE_COMMANDS = {
+    "serve": ["route", "serve", "--listen", "R", "--backend", "a=A"],
+    "drain": ["route", "drain", "a", "-socket", "R"],
+    "undrain": ["route", "undrain", "a", "-socket", "R"],
+    "fleet": ["route", "fleet", "-socket", "R"],
+}
+
+
+def _route_sub(cli, name):
+    route = next(a for a in cli.build_parser()._subparsers._group_actions if a.dest == "cmd").choices["route"]
+    return next(a for a in route._subparsers._group_actions if a.dest == "route_cmd").choices[name]
+
+
+@pytest.mark.parametrize("command", list(ROUTE_COMMANDS))
+def test_route_commands_take_the_jax_flags_and_defaults(command):
+    """``route serve|drain|undrain|fleet`` parse to the JAX package's flags
+    and defaults, each option under the JAX names."""
+    argv = ROUTE_COMMANDS[command]
+    jargs = vars(jcli.build_parser().parse_args(argv))
+    pargs = vars(pcli.build_parser().parse_args(argv))
+    assert (jargs.pop("fn").__name__, pargs.pop("fn").__name__) == (f"_cmd_route_{command}",) * 2
+    assert pargs == jargs
+    assert sorted(o for a in _route_sub(pcli, command)._actions for o in a.option_strings) == sorted(
+        o for a in _route_sub(jcli, command)._actions for o in a.option_strings
+    )
+
+
+FLEET_CONFIGS = {
+    "RouterConfig": "service.router",
+    "BackendSpec": "service.router",
+    "DistSearchConfig": "service.distsearch",
+    "SoakConfig": "service.soak",
+}
+
+
+@pytest.mark.parametrize("cls", list(FLEET_CONFIGS))
+def test_fleet_configs_have_the_jax_fields_with_their_defaults(cls):
+    jf = dataclasses.fields(getattr(importlib.import_module(f"s2_verification_tpu.{FLEET_CONFIGS[cls]}"), cls))
+    pf = dataclasses.fields(getattr(importlib.import_module(f"s2_verification_tpu_torch.{FLEET_CONFIGS[cls]}"), cls))
+    assert [f.name for f in pf] == [f.name for f in jf]
+    for j, p in zip(jf, pf):
+        assert (p.default, p.type) == (j.default, j.type), p.name
+        assert (p.default_factory is dataclasses.MISSING) == (j.default_factory is dataclasses.MISSING), p.name
+        if j.default_factory is not dataclasses.MISSING:
+            assert p.default_factory() == j.default_factory(), p.name

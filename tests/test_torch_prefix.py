@@ -14,8 +14,8 @@ package.
   engine's outcome, statistics, heartbeats and snapshots, the snapshots
   compared cut by cut as sets of states; ``state_digest`` is the JAX
   digest.
-- The twelve single-node cases of ``tests/test_prefix.py`` (the router
-  case waits for the fleet tier), run over both packages.
+- The thirteen cases of ``tests/test_prefix.py`` (the router's edge-cache
+  guard against window-scoped replies included), run over both packages.
 - Across packages: the same submits give byte-equal prefix segments in
   each package's state dir, each ``read_cold`` reads the other's, and a
   follow lineage one package's daemon began on a state dir is continued by
@@ -308,6 +308,9 @@ _NAMES = {
     "VerifydConfig": ("service.daemon", "VerifydConfig"),
     "ps": ("service.prefixstore", None),
     "protocol": ("service.protocol", None),
+    "BackendSpec": ("service.router", "BackendSpec"),
+    "RouterConfig": ("service.router", "RouterConfig"),
+    "VerifydRouter": ("service.router", "VerifydRouter"),
     "ev": ("utils.events", None),
     "cli": ("cli", None),
 }
@@ -410,6 +413,8 @@ def test_affinity_key_stable_under_extension(package):
     k_other = P.ps.affinity_key(other, P.history_fingerprint(other))
     assert k_short == k_long
     assert k_short != k_other
+    # The router places by this very key.
+    assert P.VerifydRouter._affinity_key(long, P.history_fingerprint(long)) == k_long
 
 
 _PARITY_CASES = [
@@ -620,6 +625,23 @@ def test_window_verdict_never_enters_verdict_cache(package, tmp_path):
         standalone = client.submit(window2, no_viz=True)
         assert not standalone.get("cached")
         assert standalone["verdict"] == 1
+
+
+def test_router_edge_cache_refuses_window_scope(package, tmp_path):
+    """The router-side guard for the same rule: replies stamped
+    ``scope=window`` never populate the fingerprint-keyed edge cache."""
+    router = P.VerifydRouter(
+        P.RouterConfig(
+            listen=str(tmp_path / "r.sock"),
+            backends=(P.BackendSpec("a", str(tmp_path / "a.sock")),),
+        )
+    )
+    window_reply = {"verdict": 0, "scope": "window", "outcome": "OK"}
+    router._cache_store(b"k1", "fp1", "aff1", window_reply)
+    assert "fp1" not in router._verdicts
+    full_reply = {"verdict": 0, "outcome": "OK"}
+    router._cache_store(b"k2", "fp2", "aff2", full_reply)
+    assert "fp2" in router._verdicts
 
 
 def _follow_args(path, **overrides):

@@ -30,8 +30,8 @@ against the JAX package's daemon.
 - Prefix resume and cross-job batching: their config fields build a
   daemon that answers, ``serve --prefix`` and ``serve --batching`` start
   and answer, and ``follow`` is served (an error frame without
-  ``--prefix``); the distributed-search ops, whose module the port lacks,
-  answer an error frame naming it.  Prefix resume and batching are held
+  ``--prefix``); the distributed search's ops (``grant``, ``delta``,
+  ``partition_done``) answer as the JAX daemon's do.  Prefix resume and batching are held
   against the JAX package in ``test_torch_{prefix,batcher}.py``, the
   durability and ops layer in
   ``test_torch_{durability,quarantine,tsdb,archive,alerts,obs}.py``.
@@ -93,6 +93,7 @@ def package(root: str) -> SimpleNamespace:
                 ("scheduler", "service.scheduler"),
                 ("overload", "service.overload"),
                 ("progress", "service.progress"),
+                ("router", "service.router"),
                 ("entries", "checker.entries"),
                 ("oracle", "checker.oracle"),
                 ("events", "utils.events"),
@@ -826,19 +827,52 @@ def test_serve_starts_with_the_flag_and_answers(tmp_path, flag):
         proc.stderr.close()
 
 
-REFUSED_OPS = {
-    "grant": "service/distsearch.py",
-    "delta": "service/distsearch.py",
-    "partition_done": "service/distsearch.py",
+#: the distributed search's peer ops: each op's frames, after a grant
+FLEET_OPS = {
+    "grant": [{"op": "grant", "search": "x", "seg": "k", "part": "0", "epoch": 1}],
+    "delta": [{"op": "grant", "search": "x", "seg": "k", "part": "0", "epoch": 1},
+              {"op": "delta", "search": "x", "seg": "k", "part": "0", "epoch": 1, "history": good_history(),
+               "carry": {"n": 0, "s": [[0, 0, None]]}}],
+    "partition_done": [{"op": "grant", "search": "x", "seg": "k", "part": "0", "epoch": 1},
+                       {"op": "partition_done", "search": "x", "part": "0", "epoch": 1}],
 }
 SERVED_OPS = {"follow": "needs the prefix store"}
 
 
-@pytest.mark.parametrize("op", list(REFUSED_OPS) + list(SERVED_OPS))
+@pytest.mark.parametrize("op", list(FLEET_OPS) + list(SERVED_OPS))
 def test_unported_op_answers_an_error_naming_the_module(tmp_path, op):
-    """The distributed-search ops answer an error frame naming their
-    module; ``follow`` is served, and a daemon without ``--prefix`` answers
-    it with the JAX daemon's error."""
+    """The distributed search's ops, which the port once refused, answer
+    as the JAX daemon's do (a grant, a partition verdict with its
+    end-of-segment union, a closed grant), and no error frame names a
+    missing module; ``follow`` is served, and a daemon without
+    ``--prefix`` answers it with the JAX daemon's error."""
+    if op in FLEET_OPS:
+        bodies = []
+        for pkg in (jax_pkg, port_pkg):
+            sub = tmp_path / pkg.root[-1]  # short: a unix socket path has a length limit
+            sub.mkdir()
+            cfg = _daemon_cfg(pkg, sub)
+            with pkg.daemon.Verifyd(cfg):
+                conn = _socket.socket(_socket.AF_UNIX, _socket.SOCK_STREAM)
+                conn.connect(cfg.socket_path)
+                replies = []
+                for frame in FLEET_OPS[op]:
+                    conn.sendall(pkg.protocol.encode_frame(frame))
+                    replies.append(_raw_reply(conn))
+                # The connection answers the next frame too.
+                conn.sendall(pkg.protocol.encode_frame({"op": "ping"}))
+                assert _raw_reply(conn)["ok"]["server"] == "verifyd"
+                conn.close()
+            assert all("ok" in r for r in replies), replies
+            volatile = ("trace_id", "wall_s", "queue_wait_s")
+            bodies.append([{k: v for k, v in r["ok"].items() if k not in volatile} for r in replies])
+        assert bodies[1] == bodies[0]
+        last = bodies[1][-1]
+        if op == "delta":
+            assert (last["verdict"], last["scope"], last["epoch"]) == (0, "partition", 1) and last["states"]
+        if op == "partition_done":
+            assert last["closed"] is True
+        return
     cfg = _daemon_cfg(port_pkg, tmp_path)
     frame = {"op": op, "history": good_history(), "stream": "s", "search": "x", "part": "0", "epoch": 1}
     with port_pkg.daemon.Verifyd(cfg):
@@ -847,7 +881,7 @@ def test_unported_op_answers_an_error_naming_the_module(tmp_path, op):
         conn.sendall(port_pkg.protocol.encode_frame(frame))
         reply = _raw_reply(conn)
         assert reply["err"]["class"] == "DecodeError"
-        assert {**REFUSED_OPS, **SERVED_OPS}[op] in reply["err"]["msg"], reply
+        assert SERVED_OPS[op] in reply["err"]["msg"], reply
         # The refusal never closes the connection: it answers the next frame.
         conn.sendall(port_pkg.protocol.encode_frame({"op": "ping"}))
         assert _raw_reply(conn)["ok"]["server"] == "verifyd"
