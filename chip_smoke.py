@@ -264,7 +264,12 @@ on the first failed phase:
    exits 1 while a receiver this script runs gets the
    ``checker_false_verdict`` webhook; then every fold call of the phase
    bit-exact against the plain fold;
-19. the kernel list, one JSON line of kernel measurements, and as the last
+19. ``lint`` on the host, from the checkout: ``python -m
+   s2_verification_tpu_torch lint --json`` exits 0 with no new error and
+   no stale baseline key, in a process that imports neither torch, jax
+   nor the JAX package, and prints its files, findings, suppressions and wall; ``lint
+   --check-events-md`` exits 0;
+20. the kernel list, one JSON line of kernel measurements, and as the last
    line ``{"ok": true, "device": {...}}``.
 
 Fold times are per call, from CUDA events: ``call`` with back-to-back
@@ -3543,6 +3548,50 @@ def run_fleet_phase(dev_mod, fb, prepare, recheck_calls, k10_events, device=None
     return out
 
 
+def run_lint_phase(here: str) -> dict:
+    """Phase 19, ``lint`` on the host: ``python -m s2_verification_tpu_torch
+    lint --json`` over the checkout's port tree against its own baseline,
+    which must exit 0 with no new error and no stale key, in a process
+    that imports no torch, no jax and nothing of the JAX package (``-X
+    importtime`` names every module it imports), and ``lint
+    --check-events-md``.  Returns the phase's numbers."""
+    t_phase = time.monotonic()
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = here
+
+    def lint(*args):
+        t0 = time.monotonic()
+        proc = subprocess.run(
+            [sys.executable, "-X", "importtime", "-m", "s2_verification_tpu_torch", "lint", *args],
+            cwd=here, env=env, capture_output=True, text=True, timeout=120,
+        )
+        return proc, time.monotonic() - t0
+
+    proc, wall_s = lint("--json")
+    if proc.returncode != 0:
+        fail(f"lint: `lint --json` exited {proc.returncode}: {proc.stdout[-1500:]} {proc.stderr[-1500:]}")
+    doc = json.loads(proc.stdout)
+    if doc["new_errors"] or doc["stale_baseline_keys"]:
+        fail(f"lint: {len(doc['new_errors'])} new errors, stale keys {doc['stale_baseline_keys']}")
+    imported = {line.rsplit("|", 1)[-1].strip().split(".")[0]
+                for line in proc.stderr.splitlines() if line.startswith("import time:")}
+    banned = imported & {"torch", "jax", "s2_verification_tpu"}
+    if banned or "s2_verification_tpu_torch" not in imported:
+        fail(f"lint: the lint process imported {sorted(banned)}, or importtime said nothing of it")
+    out = {"files": doc["files"], "findings": len(doc["findings"]), "baselined": doc["baselined"],
+           "suppressed": doc["suppressed"], "wall_s": wall_s}
+    print(f"lint (a): `lint --json` exit 0 in {wall_s:.3f} s: {out['files']} files, {out['findings']} findings "
+          f"({out['baselined']} baselined, 0 new, 0 stale keys), {out['suppressed']} suppressed; "
+          f"{len(imported)} top-level modules imported, none of torch, jax or the JAX package", flush=True)
+    proc, md_s = lint("--check-events-md")
+    if proc.returncode != 0:
+        fail(f"lint: `lint --check-events-md` exited {proc.returncode}: {proc.stderr[-1500:]}")
+    print(f"lint (b): `lint --check-events-md` exit 0 in {md_s:.3f} s: {proc.stdout.strip()}", flush=True)
+    out["events_md_s"] = md_s
+    out["seconds"] = time.monotonic() - t_phase
+    return out
+
+
 def _stats_view(stats) -> dict:
     """Search statistics of a result, the profile timeline without its wall
     times: equal between a child and the same call in process."""
@@ -4208,6 +4257,10 @@ def main() -> int:
     phase18 = run_fleet_phase(dev_mod, fb, prepare, recheck_calls, main_events)
     print(f"phase 18 (the fleet): {phase18['seconds']:.1f} s", flush=True)
     kernels[0]["launches_by_path"].update(phase18["launches_by_path"])
+
+    # -- 19. lint, on the host ---------------------------------------------------
+    phase19 = run_lint_phase(here)
+    print(f"phase 19 (lint): {phase19['seconds']:.1f} s", flush=True)
 
     print(f"kernels: {', '.join(k['name'] for k in kernels)}", flush=True)
     print(f"total {time.monotonic() - t_start:.1f} s", flush=True)

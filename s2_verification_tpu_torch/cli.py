@@ -1,6 +1,6 @@
 """Command line: ``python -m s2_verification_tpu_torch check -file=H.jsonl``,
 ``collect``, ``serve``, ``submit``, ``follow``, ``trace``, ``dash``,
-``watch``, ``doctor``, ``tsq``, ``quarantine`` and ``profiles``.
+``watch``, ``doctor``, ``tsq``, ``quarantine``, ``profiles`` and ``lint``.
 
 ``serve`` runs verifyd, the resident verification daemon (service/), on a
 unix socket and optionally an authenticated TCP listener (``--tcp`` + a
@@ -19,6 +19,13 @@ growing stream window by window against a ``--prefix`` daemon, carrying
 the frontier token forward; ``trace``, ``dash`` and ``watch`` read a live
 daemon's span ring, stats and progress board.  None of them loads
 ``torch`` unless the daemon escalates inline or launches a vmap group.
+
+``lint`` runs verifylint (analysis/) over the port's own tree against its
+own records (``.verifylint-torch-baseline.json``, the per-file cache
+``.verifylint-torch-cache.json`` and ``docs/EVENTS_torch.md``), with the
+JAX package's flags and exit codes (0 clean, 1 a new error or a stale
+events document, 64 ``--write-baseline`` on a partial scan).  It loads
+neither ``torch`` nor ``jax``.
 
 ``doctor``, ``tsq``, ``quarantine`` and ``profiles`` read a state
 directory either package's daemon wrote: live through ``--socket`` (the
@@ -1960,6 +1967,149 @@ def _cmd_soak(args: argparse.Namespace) -> int:
     return code
 
 
+#: the port's own lint records, beside the JAX package's at the repo root
+LINT_BASELINE = ".verifylint-torch-baseline.json"
+LINT_CACHE = ".verifylint-torch-cache.json"
+LINT_EVENTS_MD = "docs/EVENTS_torch.md"
+_LINT_PKG = "s2_verification_tpu_torch/"
+
+
+def _lint_root() -> str:
+    """The repo root: the directory holding the package directory."""
+    return os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _lint_changed_paths(root: str) -> list[str] | None:
+    """git-diff-scoped .py paths of the port (worktree + index +
+    untracked), or None when git is unavailable — caller falls back to the
+    full tree."""
+    import subprocess
+
+    try:
+        out = subprocess.run(
+            ["git", "status", "--porcelain"],
+            cwd=root,
+            capture_output=True,
+            text=True,
+            timeout=10,
+            check=True,
+        ).stdout
+    except (OSError, subprocess.SubprocessError):
+        return None
+    paths: list[str] = []
+    for line in out.splitlines():
+        if len(line) < 4:
+            continue
+        p = line[3:].split(" -> ")[-1].strip().strip('"')
+        if p.endswith(".py") and p.startswith(_LINT_PKG):
+            if os.path.exists(os.path.join(root, p)):
+                paths.append(p)
+    return paths
+
+
+def _cmd_lint(args: argparse.Namespace) -> int:
+    from .analysis import LintEngine, load_baseline, write_baseline
+    from .analysis.engine import TreeContext, apply_baseline, discover_files
+    from .analysis.event_schema import render_events_md
+
+    root = _lint_root()
+    baseline_path = args.baseline or os.path.join(root, LINT_BASELINE)
+    cache_path = None if args.no_cache else os.path.join(root, LINT_CACHE)
+
+    if args.changed:
+        rels = _lint_changed_paths(root)
+        if rels is None:
+            log.warning("lint --changed: git unavailable, scanning the full tree")
+            rels = discover_files(root, args.paths or None)
+    else:
+        rels = discover_files(root, args.paths or None)
+
+    # --events-md / --check-events-md always read the whole package —
+    # a partial scan would render a partial registry.
+    if args.events_md is not None or args.check_events_md:
+        ctx = TreeContext(root, discover_files(root, None))
+        rendered = render_events_md(ctx)
+        if args.events_md is not None:
+            if args.events_md == "-":
+                sys.stdout.write(rendered)
+            else:
+                out_path = (
+                    args.events_md
+                    if os.path.isabs(args.events_md)
+                    else os.path.join(root, args.events_md)
+                )
+                with open(out_path, "w", encoding="utf-8") as f:
+                    f.write(rendered)
+                print(f"wrote {out_path}")
+        if args.check_events_md:
+            committed = os.path.join(root, LINT_EVENTS_MD)
+            try:
+                with open(committed, encoding="utf-8") as f:
+                    on_disk = f.read()
+            except OSError:
+                on_disk = ""
+            if on_disk != rendered:
+                log.error(
+                    "%s is stale — regenerate with `lint --events-md %s`",
+                    LINT_EVENTS_MD,
+                    LINT_EVENTS_MD,
+                )
+                return 1
+            print(f"{LINT_EVENTS_MD} is up to date")
+        return 0
+
+    full_tree = not args.changed and not args.paths
+    engine = LintEngine(root, cache_path=cache_path)
+    res = engine.run(rel_paths=rels)
+
+    if args.write_baseline:
+        if not full_tree:
+            log.error("--write-baseline needs a full-tree run (no --changed/paths)")
+            return USAGE_EXIT
+        write_baseline(res.findings, baseline_path)
+        print(
+            f"wrote {baseline_path} "
+            f"({sum(1 for f in res.findings if f.severity == 'error')} errors baselined; "
+            "add a justification to every entry)"
+        )
+        return 0
+
+    baseline = load_baseline(baseline_path)
+    ratchet = apply_baseline(res.findings, baseline)
+
+    if args.json:
+        doc = {
+            "files": res.files,
+            "suppressed": res.suppressed,
+            "cache_hits": res.cache_hits,
+            "findings": [f.to_dict() for f in res.findings],
+            "new_errors": [f.to_dict() for f in ratchet.new_errors],
+            "baselined": len(ratchet.baselined),
+            "stale_baseline_keys": ratchet.stale_keys,
+        }
+        print(json.dumps(doc, indent=2))
+    else:
+        baselined_keys = {f.key for f in ratchet.baselined}
+        shown = 0
+        for f in res.findings:
+            tag = " (baselined)" if f.severity == "error" and f.key in baselined_keys else ""
+            print(f"{f.path}:{f.line}: {f.severity}: [{f.rule}] {f.message}{tag}")
+            shown += 1
+        n_err = sum(1 for f in res.findings if f.severity == "error")
+        print(
+            f"{shown} finding(s) in {res.files} file(s): {n_err} error(s) "
+            f"({len(ratchet.new_errors)} new, {len(ratchet.baselined)} baselined), "
+            f"{res.suppressed} suppressed, {res.cache_hits} cache hit(s)"
+        )
+        if full_tree:
+            for key in ratchet.stale_keys:
+                print(
+                    f"stale baseline entry (debt paid down — shrink with "
+                    f"--write-baseline): {key}"
+                )
+    return 1 if ratchet.new_errors else 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = _Parser(
         prog="s2_verification_tpu_torch",
@@ -3384,6 +3534,55 @@ def build_parser() -> argparse.ArgumentParser:
         help="--export format (default jsonl)",
     )
     pr.set_defaults(fn=_cmd_profiles)
+
+    li = sub.add_parser(
+        "lint",
+        help="run verifylint, the domain-aware static-analysis suite "
+        "(torch-hygiene, event-schema, metrics-cardinality, concurrency, "
+        "protocol-compat), over the port's tree",
+    )
+    li.add_argument(
+        "paths",
+        nargs="*",
+        help="files/directories to scan (default: the whole package)",
+    )
+    li.add_argument(
+        "--json", action="store_true", help="machine-readable findings + ratchet state"
+    )
+    li.add_argument(
+        "--baseline",
+        default=None,
+        metavar="PATH",
+        help=f"baseline ratchet file (default: <repo>/{LINT_BASELINE})",
+    )
+    li.add_argument(
+        "--write-baseline",
+        action="store_true",
+        help="rewrite the baseline from this run's error findings "
+        "(full-tree runs only; justify every kept entry)",
+    )
+    li.add_argument(
+        "--changed",
+        action="store_true",
+        help="scan only git-modified/untracked package files (sub-second "
+        "incremental gate)",
+    )
+    li.add_argument(
+        "--events-md",
+        default=None,
+        metavar="PATH",
+        help="render the event-schema registry as markdown to PATH "
+        "('-' = stdout) and exit",
+    )
+    li.add_argument(
+        "--check-events-md",
+        action="store_true",
+        help=f"fail if the committed {LINT_EVENTS_MD} is stale",
+    )
+    li.add_argument(
+        "--no-cache", action="store_true", help="ignore and skip the per-file cache"
+    )
+    li.set_defaults(fn=_cmd_lint)
 
     return p
 

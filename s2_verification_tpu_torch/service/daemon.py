@@ -1016,11 +1016,14 @@ class Verifyd:
                                 # until its reply is *written* — an accepted
                                 # job whose verdict never reached the client
                                 # is a lost job.
-                                # Every _handle coroutine runs on the accept
-                                # loop, so +=/-= never interleave; the drain
-                                # poller thread only reads the counter.
                                 inflight = True
-                                self._inflight += 1
+                                # Single-threaded by construction: every
+                                # _handle coroutine runs on the accept
+                                # loop's event loop, so +=/-= never
+                                # interleave; the drain poller thread only
+                                # reads the counter (a stale read just
+                                # re-polls).
+                                self._inflight += 1  # verifylint: disable=concurrency-unlocked-write
                             resp = await self._dispatch(req, reader)
                     await self._reply(writer, resp, secret)
                 finally:
@@ -1060,8 +1063,15 @@ class Verifyd:
         and the telemetry store's final sample)."""
         with self._launch_metric_lock:
             for where, counts in self.launch_counts().items():
-                for kernel, n in counts.items():
-                    delta = n - self._m_launches.value(kernel=kernel, where=where)
+                if where not in ("inline", "children"):
+                    where = "other"
+                # The kernel label's closed set is ops/fold_cuda.LAUNCHES's
+                # keys, written out so that the daemon never loads torch;
+                # any other kernel a child reports is summed under "other".
+                folded = {"fold_lanes": counts.get("fold_lanes", 0)}
+                folded["other"] = sum(counts.values()) - folded["fold_lanes"]
+                for kernel in ("fold_lanes", "other"):
+                    delta = folded[kernel] - self._m_launches.value(kernel=kernel, where=where)
                     if delta > 0:
                         self._m_launches.inc(delta, kernel=kernel, where=where)
 

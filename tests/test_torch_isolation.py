@@ -11,7 +11,8 @@ CPU fallback.
   submits (the supervised one through a real escalation), one with
   native batching and the prefix store that answers a burst and a follow
   window, and ``route serve`` over two daemons answering a routed, a
-  distributed and a soaked submit, ``route fleet`` and ``route drain``;
+  distributed and a soaked submit, ``route fleet`` and ``route drain``,
+  and ``lint`` and ``lint --check-events-md``;
 - no port source (nor chip_smoke.py) imports them;
 - the entry points refuse to run when CUDA is asked for and absent, and
   so does the CLI's ``auto`` ladder when it escalates (exit 64, never a
@@ -139,6 +140,13 @@ def test_importing_the_port_loads_no_jax():
         "service.distsearch",
         "service.chaosproxy",
         "service.soak",
+        "analysis",
+        "analysis.engine",
+        "analysis.torch_hygiene",
+        "analysis.event_schema",
+        "analysis.protocol_compat",
+        "analysis.concurrency",
+        "analysis.metrics_cardinality",
     ):
         assert f"s2_verification_tpu_torch.{m}" in mods
     proc = _fresh_interpreter(f"for m in {mods!r}:\n    importlib.import_module(m)\n")
@@ -276,6 +284,20 @@ def test_route_serve_loads_no_torch(tmp_path):
         "assert 'torch' not in sys.modules, sorted(m for m in sys.modules if m.startswith('torch'))\n"
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_lint_loads_no_torch(tmp_path):
+    # ``lint`` (the full tree against the port's baseline) and ``lint
+    # --check-events-md`` through the CLI; the cache goes to tmp_path.
+    proc = _fresh_interpreter(
+        "from s2_verification_tpu_torch import cli\n"
+        f"cli.LINT_CACHE = {str(tmp_path / 'cache.json')!r}\n"
+        "assert cli.main(['lint']) == 0\n"
+        "assert cli.main(['lint', '--check-events-md']) == 0\n"
+        "assert 'torch' not in sys.modules, sorted(m for m in sys.modules if m.startswith('torch'))\n"
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert (tmp_path / "cache.json").exists()
 
 
 def test_collecting_loads_no_xxhash_and_no_jax():

@@ -367,13 +367,23 @@ OPERATOR_COMMANDS = {
     "dash": ["dash", "-socket", "S"],
     "watch": ["watch", "-socket", "S"],
     "soak": ["soak", "S"],
+    "lint": ["lint", "--json", "s2_verification_tpu_torch/cli.py"],
 }
+
+
+def test_the_port_has_every_jax_subcommand():
+    def commands(mod):
+        return set(next(a for a in mod.build_parser()._subparsers._group_actions if a.dest == "cmd").choices)
+
+    assert commands(pcli) == commands(jcli)
+    assert len(commands(pcli)) == 15
 
 
 @pytest.mark.parametrize("command", list(OPERATOR_COMMANDS))
 def test_operator_commands_take_the_jax_flags_and_defaults(command):
-    """``follow``, ``trace``, ``dash`` and ``watch`` parse to the JAX
-    package's flags and defaults, each option under the JAX names."""
+    """``follow``, ``trace``, ``dash``, ``watch``, ``soak`` and ``lint``
+    parse to the JAX package's flags and defaults, each option under the
+    JAX names."""
     argv = OPERATOR_COMMANDS[command]
     jargs = vars(jcli.build_parser().parse_args(argv))
     pargs = vars(pcli.build_parser().parse_args(argv))
