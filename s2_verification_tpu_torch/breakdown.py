@@ -9,10 +9,15 @@ Decides ``adversarial_events(k, batch, seed)``, or the JSONL history at
 under ``torch.profiler``, on the first CUDA device, and prints:
 
 - the card (name and power limit from nvidia-smi);
-- wall seconds by host phase: encode + tables, search layers
-  (``run_search``), witness recovery, final-state fetch, and the rest;
+- wall seconds by phase, read from the check's own spans
+  (``checker/device.py``, recorded into ``obs.trace.SEARCH_TRACER``):
+  encode + tables, search layers (``run_search``), escalations, the spill,
+  witness recovery, final-state fetch, ILLEGAL diagnostics, and the rest;
 - device time by kernel (the top entries) and the device's busy share of
   the profiled wall time;
+- the ten longest idle gaps of the profiled window, each named by the
+  innermost span of the check that holds its midpoint (``Tracer.wall_ns``
+  puts the spans on the profiler's clock);
 - host synchronisations, fold-kernel launches, peak device memory, and
   kernels and syncs per layer.
 
@@ -31,9 +36,8 @@ is profiled over only :data:`WINDOW_LAYERS` whole layers from its middle,
 the rest of the call unprofiled: the profiler's own processing of over a
 million launches takes longer than the search.  Needs a CUDA device.
 
-The profiled wall includes the profiler and a device synchronisation
-around every timed phase, so it is for phase shares only; ``chip_smoke.py``
-times a plain warm call.
+The profiled wall includes the profiler's own cost, so it is for phase
+shares only; ``chip_smoke.py`` times a plain warm call.
 """
 
 from __future__ import annotations
@@ -44,7 +48,6 @@ import json
 import subprocess
 import sys
 import time
-from collections import defaultdict
 
 import torch
 
@@ -52,28 +55,61 @@ from .checker import device as dev_mod
 from .checker.entries import prepare
 from .checker.profile import accel_counters
 from .collector.adversarial import adversarial_events
+from .obs.trace import SEARCH_TRACER
 from .ops import fold_cuda
 from .utils import events as ev
 
-_PHASES = {
-    "encode_and_tables": ("encode_history", "build_tables"),
-    "search_layers": ("run_search",),
-    "witness_recovery": ("_recover_witness_bounded",),
-    "final_states": ("_final_states_device",),
+#: each ``phases_s`` key, and the span of ``check_device`` it sums
+PHASE_SPANS = {
+    "encode_and_tables": "check.encode",
+    "search_layers": "check.segment",
+    "escalate": "check.escalate",
+    "spill": "check.spill",
+    "witness_recovery": "check.witness",
+    "final_states": "check.final_states",
+    "diagnose": "check.diagnose",
 }
 
 
-def _timed(name, fn, acc):
-    def wrapper(*a, **kw):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        try:
-            return fn(*a, **kw)
-        finally:
-            torch.cuda.synchronize()
-            acc[name] += time.perf_counter() - t0
+def search_spans(lo_ns: int, hi_ns: int, tracer=SEARCH_TRACER) -> list[tuple[int, int, str]]:
+    """The check's spans that lie inside ``[lo_ns, hi_ns]`` (epoch
+    nanoseconds), as ``(start, end, name)``."""
+    out = []
+    for e in tracer.export()["traceEvents"]:
+        if e.get("ph") == "X" and e.get("cat") == "search":
+            a, b = tracer.wall_ns(e)
+            if lo_ns <= a and b <= hi_ns:
+                out.append((a, b, e["name"]))
+    return out
 
-    return wrapper
+
+def _on_device(e) -> bool:
+    """A profiler event that is a device operation (a kernel, copy or set),
+    not a range annotated on the device's timeline."""
+    return e.device_type() == torch.autograd.DeviceType.CUDA and not getattr(e, "is_user_annotation", lambda: False)()
+
+
+def idle_gaps(events, lo_ns: int, hi_ns: int, spans, n: int = 10) -> list[list]:
+    """The ``n`` longest stretches of ``[lo_ns, hi_ns]`` in which no device
+    operation of the profiler's ``events`` ran, longest first, each as
+    ``[the innermost of spans holding its midpoint, seconds]``."""
+    ops = sorted((e.start_ns(), e.start_ns() + e.duration_ns()) for e in events if _on_device(e))
+    gaps, cursor = [], lo_ns
+    for a, b in ops:
+        a, b = max(a, lo_ns), min(b, hi_ns)
+        if b <= cursor:
+            continue
+        if a > cursor:
+            gaps.append((a - cursor, cursor))
+        cursor = b
+    if hi_ns > cursor:
+        gaps.append((hi_ns - cursor, cursor))
+    out = []
+    for length, at in sorted(gaps, reverse=True)[:n]:
+        mid = at + length // 2
+        holding = [(b - a, name) for a, b, name in spans if a <= mid < b]
+        out.append([min(holding)[1] if holding else "outside the check", length / 1e9])
+    return out
 
 
 def _device_times(prof) -> tuple[dict[str, float], int]:
@@ -106,9 +142,10 @@ def profiled_window(fn, start: int, n: int, box: dict):
             if i == start:
                 box["prof"] = torch.profiler.profile(activities=_ACTIVITIES)
                 box["prof"].__enter__()
-                box["syncs0"], box["t0"] = dev_mod.SYNCS[0], time.perf_counter()
+                box["syncs0"], box["t0"], box["t0_ns"] = dev_mod.SYNCS[0], time.perf_counter(), time.time_ns()
             else:
                 box["wall"] = time.perf_counter() - box["t0"]
+                box["t1_ns"] = time.time_ns()
                 box["syncs"] = dev_mod.SYNCS[0] - box["syncs0"]
                 box["prof"].__exit__(None, None, None)
         return fn(*a, **kw)
@@ -181,18 +218,12 @@ def run(
         for n, fn in layer_fns.items():
             setattr(dev_mod, n, fn)
 
-    acc: dict[str, float] = defaultdict(float)
-    saved = {}
-    for phase, names in _PHASES.items():
-        for name_ in names:
-            saved[name_] = getattr(dev_mod, name_)
-            setattr(dev_mod, name_, _timed(phase, saved[name_], acc))
     box: dict = {}
+    real_expand = dev_mod._expand_layer
     window = WINDOW_LAYERS if layer_calls["_expand_layer"] > WHOLE_MAX_LAYERS else None
     if window:
         start = (layer_calls["_expand_layer"] - window) // 2
-        saved["_expand_layer"] = dev_mod._expand_layer
-        dev_mod._expand_layer = profiled_window(dev_mod._expand_layer, start, window, box)
+        dev_mod._expand_layer = profiled_window(real_expand, start, window, box)
     try:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -201,15 +232,17 @@ def run(
         with contextlib.nullcontext() if window else torch.profiler.profile(
             activities=_ACTIVITIES
         ) as prof:
-            t0 = time.perf_counter()
+            t0, t0_ns = time.perf_counter(), time.time_ns()
             res = decide()
             torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
+            wall, t1_ns = time.perf_counter() - t0, time.time_ns()
     finally:
-        for name_, fn in saved.items():
-            setattr(dev_mod, name_, fn)
+        dev_mod._expand_layer = real_expand
     st = res.stats
-    phases = {p: round(acc.get(p, 0.0), 6) for p in _PHASES}
+    spans = search_spans(t0_ns, t1_ns)
+    phases = {
+        key: round(sum(b - a for a, b, name in spans if name == span) / 1e9, 6) for key, span in PHASE_SPANS.items()
+    }
     phases["other"] = round(wall - sum(phases.values()), 6)
     out = {
         "history": name,
@@ -236,12 +269,14 @@ def run(
     }
     if not window:
         b = busy(prof, wall)
-        return {**out, **b, "kernels_per_layer": round(b["kernels"] / max(st.layers, 1), 1)}
+        gaps = idle_gaps(prof.profiler.kineto_results.events(), t0_ns, t1_ns, spans)
+        return {**out, **b, "kernels_per_layer": round(b["kernels"] / max(st.layers, 1), 1), "idle_gaps": gaps}
     out["window"] = {
         "layers": [start, start + window],
         "wall_s": round(box["wall"], 6),
         "host_syncs": box["syncs"],
         **busy(box["prof"], box["wall"]),
+        "idle_gaps": idle_gaps(box["prof"].profiler.kineto_results.events(), box["t0_ns"], box["t1_ns"], spans),
     }
     return out
 

@@ -95,6 +95,8 @@ from ..models.encode import (
     round_pow2,
 )
 from ..models.stream import StreamState, step_set
+from ..obs.introspect import get_job_context
+from ..obs.trace import SEARCH_TRACER
 from ..ops.fold_cuda import fold_lanes
 from ..ops.step_kernel import DeviceOps, DeviceState, join_u64, step_kernel
 from ..ops.xxh3 import shr
@@ -133,6 +135,7 @@ __all__ = [
     "check_device_auto",
     "default_device_rows_cap",
     "SYNCS",
+    "FETCH_NS",
 ]
 
 log = logging.getLogger("s2_verification_tpu_torch.device")
@@ -151,6 +154,9 @@ _START_FRONTIER = 16
 
 #: host<->device synchronisations made by the search (see :func:`_fetch`)
 SYNCS = [0]
+#: host nanoseconds spent inside those synchronisations (each counted site
+#: times its transfer to the host)
+FETCH_NS = [0]
 
 
 class SearchTables(NamedTuple):
@@ -265,18 +271,26 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def _synced(transfer, x: torch.Tensor):
+    """``transfer(x)``, a copy of ``x`` to the host: one counted
+    synchronisation, its host time added to :data:`FETCH_NS`."""
+    SYNCS[0] += 1
+    t0 = time.perf_counter_ns()
+    out = transfer(x)
+    FETCH_NS[0] += time.perf_counter_ns() - t0
+    return out
+
+
 def _fetch(*xs) -> list[int]:
     """Bring scalar tensors to the host in one transfer (one counted
     synchronisation)."""
-    SYNCS[0] += 1
-    return torch.stack([torch.as_tensor(x).to(torch.int64).reshape(()) for x in xs]).tolist()
+    return _synced(torch.Tensor.tolist, torch.stack([torch.as_tensor(x).to(torch.int64).reshape(()) for x in xs]))
 
 
 def _fetch_lanes(*xs) -> list[list[int]]:
     """Bring per-lane vectors to the host in one transfer (one counted
     synchronisation)."""
-    SYNCS[0] += 1
-    flat = torch.cat([x.reshape(-1).to(torch.int64) for x in xs]).tolist()
+    flat = _synced(torch.Tensor.tolist, torch.cat([x.reshape(-1).to(torch.int64) for x in xs]))
     out, at = [], 0
     for x in xs:
         out.append(flat[at:at + x.numel()])
@@ -496,8 +510,7 @@ def gather_frontier(fr: Frontier | ShardedFrontier) -> Frontier:
 
 def _fetch_matrix(x: torch.Tensor) -> list[list[int]]:
     """Bring a small 2-D tensor to the host (one counted synchronisation)."""
-    SYNCS[0] += 1
-    return x.to(torch.int64).tolist()
+    return _synced(torch.Tensor.tolist, x.to(torch.int64))
 
 
 def _shard_occupancy(frontier: ShardedFrontier, mesh):
@@ -1044,8 +1057,7 @@ def _expand_layer_chunked(tables: SearchTables, fr: Frontier, *, chunk_rows: int
     # dense behind the cursor; slot f takes the rows that are not written.
     cb = [torch.zeros(f + 1, dtype=torch.int64, device=dev) for _ in range(6)]
     pk_all = (fr.counts * tables.pack).sum(1)
-    SYNCS[0] += 1
-    live = fr.valid.view(n_chunks, chunk_rows).any(1).tolist()
+    live = _synced(torch.Tensor.tolist, fr.valid.view(n_chunks, chunk_rows).any(1))
     cursor = appended = 0
     overflow = False
     expanded = torch.zeros((), dtype=torch.int64, device=dev)
@@ -1376,8 +1388,7 @@ def _fetch_log(wlog: list) -> list[tuple[np.ndarray, np.ndarray, np.ndarray]]:
     step)."""
     dev = [x for entry in wlog if isinstance(entry[0], torch.Tensor) for x in entry]
     if dev:
-        SYNCS[0] += 1
-        flat = torch.cat(dev).cpu().numpy().astype(np.int64)
+        flat = _synced(torch.Tensor.cpu, torch.cat(dev)).numpy().astype(np.int64)
     out, at = [], 0
     for entry in wlog:
         if isinstance(entry[0], torch.Tensor):
@@ -2534,6 +2545,31 @@ def _spill_search(
     return unknown()
 
 
+class _Spans:
+    """Where one :func:`check_device` call records its spans (all
+    ``cat="search"``): a tracer and its track."""
+
+    __slots__ = ("tracer", "tid")
+
+    def __init__(self, tracer, tid: int) -> None:
+        self.tracer, self.tid = tracer, tid
+
+    def add(self, name: str, t0: float, **args) -> None:
+        """Record ``name`` from ``t0`` (``time.monotonic()``) to now."""
+        self.tracer.add_span(name, t0, time.monotonic(), tid=self.tid, cat="search", args=args or None)
+
+
+def _search_spans(collect_stats: bool) -> _Spans | None:
+    """The job context's tracer, on the job's track, where it is enabled
+    (verifyd's worker, the supervised child); else, when the caller
+    collects statistics, :data:`..obs.trace.SEARCH_TRACER`; else None
+    (nothing is recorded)."""
+    ctx = get_job_context()
+    if getattr(ctx.tracer, "enabled", False):
+        return _Spans(ctx.tracer, ctx.job)
+    return _Spans(SEARCH_TRACER, 0) if collect_stats else None
+
+
 def check_device(
     history: History,
     *,
@@ -2639,6 +2675,16 @@ def check_device(
     seconds, the stop and the bucket.  ``progress`` (a
     :class:`.progress.ProgressSink`) is offered one update per segment,
     from scalars the search already fetched.
+
+    Spans (:func:`_search_spans`: the job context's tracer, or with
+    ``collect_stats`` :data:`..obs.trace.SEARCH_TRACER`): the call is one
+    ``check.beam`` or ``check.exhaustive`` span, holding ``check.encode``
+    (encoding and tables), one ``check.segment`` per :func:`run_search`
+    call (with its syncs and their fetch time, :data:`FETCH_NS`),
+    ``check.escalate`` per re-bucketing, ``check.spill``,
+    ``check.witness``, ``check.final_states`` and ``check.diagnose``.
+    Their ``args`` hold only host values the search already has, so a span
+    adds no device work and no synchronisation.
     """
     del state_slots, pallas_fold
     if mesh is not None:
@@ -2652,6 +2698,8 @@ def check_device(
         device = mesh.devices[0]
     dev = resolve_device(device)
     collect_stats = collect_stats or profile
+    sp = _search_spans(collect_stats)
+    phase = "check.beam" if beam else "check.exhaustive"
     syncs0 = SYNCS[0]
     t_run0 = time.monotonic()
     enc = encode_history(history)
@@ -2670,8 +2718,13 @@ def check_device(
         )
         if collect_stats:
             res.stats = stats  # type: ignore[attr-defined]
+        if sp is not None:
+            sp.add("check.encode", t_run0, ops=enc.num_ops, chains=enc.num_chains)
+            sp.add(phase, t_run0, outcome=res.outcome.value, layers=0, bucket=0)
         return res
     tables = build_tables(enc, dev, prune=prune)
+    if sp is not None:
+        sp.add("check.encode", t_run0, ops=enc.num_ops, chains=enc.num_chains)
     run_tables = tables if mesh is None else shard_tables(tables, mesh)
     xp = can_exact_pack(enc) if exact_pack is None else bool(exact_pack)
     if sort_dedup and not xp:
@@ -2701,12 +2754,23 @@ def check_device(
     wlogs: list[tuple[np.ndarray, np.ndarray, np.ndarray]] = []
 
     def spill_from(seed, deep_counts) -> CheckResult:
-        return _spill_search(
+        t0, layers0 = time.monotonic(), stats.layers
+        out = _spill_search(
             enc, tables, seed, stats, f_cap, cap_layers, host_cap=spill_host_cap,
             deep_counts=deep_counts, checkpoint_path=checkpoint_path, fingerprint=fingerprint,
             history=history, witness=witness, exact_pack=xp, sort_dedup=sd, profile=profile,
             profile_t0=t_run0, mesh=mesh,
         )
+        if sp is not None:
+            sp.add("check.spill", t0, layers=stats.layers - layers0)
+        return out
+
+    def regrow(fr: Frontier | ShardedFrontier, to: int) -> Frontier | ShardedFrontier:
+        t0, was = time.monotonic(), fr.capacity
+        out = place(_regrow_device(gather_frontier(fr), to))
+        if sp is not None:
+            sp.add("check.escalate", t0, **{"from": was, "to": to})
+        return out
 
     def place(fr: Frontier) -> Frontier | ShardedFrontier:
         return fr if mesh is None else place_frontier(fr, mesh)
@@ -2797,6 +2861,8 @@ def check_device(
             layers_budget = min(layers_budget, _WITNESS_CHUNK)
         if f > f_cap:
             layers_budget = min(layers_budget, _BIG_TIER_CHUNK)
+        chunk_rows = f_cap if big_cap > f_cap and f > f_cap else 0
+        t_seg, syncs_seg, fetch_seg = time.monotonic(), SYNCS[0], FETCH_NS[0]
         out = run_search(
             run_tables,
             frontier,
@@ -2806,10 +2872,16 @@ def check_device(
             spec_depth=0 if log_on else int(speculate_depth),
             spec_width=int(speculate_width) if speculate_depth else 0,
             sort_dedup=sd,
-            chunk_rows=f_cap if big_cap > f_cap and f > f_cap else 0,
+            chunk_rows=chunk_rows,
             log=log_on,
         )
         code = out.stop_code
+        if sp is not None:
+            sp.add(
+                "check.segment", t_seg, stop=_STOP_NAMES[code], layers=out.layers, bucket=f,
+                chunked=chunk_rows > 0, syncs=SYNCS[0] - syncs_seg,
+                fetch_ms=(FETCH_NS[0] - fetch_seg) / 1e6,
+            )
         log.debug(
             "segment done: stop=%s layers=%d/%d live=%d expanded=%d",
             _STOP_NAMES[code],
@@ -2862,27 +2934,31 @@ def check_device(
             stats.pruned = stats.pruned or out.pruned_ever
         if code == STOP_ACCEPT:
             whole = gather_frontier(out.frontier)
-            lin = None
+            t0, lin, source = time.monotonic(), None, None
             if log_on:
                 pt = analyze_encoded(enc) if prune else None
-                lin = _witness_linearization(enc, wlogs, out.accept_idx, pt=pt)
+                lin, source = _witness_linearization(enc, wlogs, out.accept_idx, pt=pt), "log"
             if lin is None and witness:
                 # No log (off, dropped or inconsistent): re-search below the
                 # accept counts.
                 lin = _recover_witness_bounded(enc, history, whole.counts[out.accept_idx].cpu().numpy())
-            res = CheckResult(
-                CheckOutcome.OK,
-                linearization=lin,
-                final_states=_final_states_device(enc, whole, out.accept_idx),
-            )
+                source = "research"
+            if sp is not None and source is not None:
+                sp.add("check.witness", t0, source=source, found=lin is not None)
+            t0 = time.monotonic()
+            final_states = _final_states_device(enc, whole, out.accept_idx)
+            if sp is not None:
+                sp.add("check.final_states", t0)
+            res = CheckResult(CheckOutcome.OK, linearization=lin, final_states=final_states)
             break
         if code == STOP_EMPTY:
             outcome = CheckOutcome.UNKNOWN if stats.pruned else CheckOutcome.ILLEGAL
-            res = CheckResult(
-                outcome,
-                deepest=_deepest_ops(enc, out.deep_counts.cpu().numpy()),
-                refusals=_device_refusals(enc, history, gather_frontier(out.frontier)),
-            )
+            t0 = time.monotonic()
+            deepest = _deepest_ops(enc, out.deep_counts.cpu().numpy())
+            refusals = _device_refusals(enc, history, gather_frontier(out.frontier))
+            if sp is not None:
+                sp.add("check.diagnose", t0, refusals=len(refusals))
+            res = CheckResult(outcome, deepest=deepest, refusals=refusals)
             break
         if code == STOP_CAPACITY:
             if f < big_cap:
@@ -2892,7 +2968,7 @@ def check_device(
                 # f_cap the frontier grows on the device, chunked.
                 f = min(round_pow2(max(out.want * 2, f * 4), 2), big_cap)
                 log.debug("capacity stop: escalating frontier to %d and resuming", f)
-                frontier = place(_regrow_device(gather_frontier(out.frontier), f))
+                frontier = regrow(out.frontier, f)
                 if checkpoint_path is not None:
                     snapshot(frontier)
                 continue
@@ -2913,7 +2989,7 @@ def check_device(
                 # layers stop paying full-width chunked sorts.
                 f = max(round_pow2(max(out.live, 1) * 4, 2), f_cap)
                 log.debug("post-peak downsize: frontier bucket -> %d", f)
-                frontier = place(_regrow_device(gather_frontier(frontier), f))
+                frontier = regrow(frontier, f)
             if checkpoint_path is not None:
                 snapshot(frontier)
             continue
@@ -2927,6 +3003,8 @@ def check_device(
     stats.host_syncs = SYNCS[0] - syncs0
     if collect_stats:
         res.stats = stats  # type: ignore[attr-defined]
+    if sp is not None:
+        sp.add(phase, t_run0, outcome=res.outcome.value, layers=stats.layers, bucket=f)
     return res
 
 

@@ -1,7 +1,10 @@
 """Bounded in-memory span ring, exportable as Chrome trace_event JSON.
 
 The port's own copy of the JAX package's ``obs/trace.py`` (plain Python,
-unchanged in behaviour).
+unchanged in behaviour), plus :meth:`Tracer.wall_ns`, which places a
+recorded span on the ``time.time_ns`` clock of ``torch.profiler``'s
+events, and :data:`SEARCH_TRACER`, the ring the device check records its
+spans into outside a job (``checker/device.py``).
 
 The Tracer records *completed* spans ("X" phase events in the trace_event
 format) into a ``collections.deque(maxlen=capacity)``: recording is O(1),
@@ -31,7 +34,7 @@ from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence, Tupl
 
 from .context import rebase_spans
 
-__all__ = ["Tracer", "NULL_TRACER"]
+__all__ = ["Tracer", "NULL_TRACER", "SEARCH_TRACER"]
 
 # A track-name metadata set larger than this is reset wholesale: track ids
 # are job ids (unbounded over a daemon's life) and the set exists only to
@@ -50,7 +53,9 @@ class Tracer:
         # the cross-process clock-offset handshake: two tracers on the same
         # host rebase each other's spans via their wall_base difference.
         self._base = time.monotonic()
-        self.wall_base = time.time()
+        #: epoch nanoseconds at ``_base`` (``wall_base`` in seconds)
+        self.wall_base_ns = time.time_ns()
+        self.wall_base = self.wall_base_ns / 1e9
         self._pid = os.getpid()
         self._named: set = set()
         self._dropped = 0
@@ -88,6 +93,13 @@ class Tracer:
         span timeline.  Subject to wall-clock skew; callers clamp.
         """
         return self._base + (wall - self.wall_base)
+
+    def wall_ns(self, ev: Dict[str, Any]) -> Tuple[int, int]:
+        """A span of this tracer's as ``(start, end)`` epoch nanoseconds,
+        the clock of ``time.time_ns`` and of ``torch.profiler``'s events,
+        through the ``wall_base`` handshake."""
+        start = self.wall_base_ns + round(ev["ts"] * 1e3)
+        return start, start + round(ev["dur"] * 1e3)
 
     def __len__(self) -> int:
         with self._lock:
@@ -240,3 +252,9 @@ class Tracer:
 #: Shared disabled tracer: every record path is a cheap no-op.  Components
 #: take ``tracer=NULL_TRACER`` defaults so call sites never None-check.
 NULL_TRACER = Tracer(0)
+
+#: The ring the device check (``checker/device.py``) records its spans into
+#: when the thread's job context carries no enabled tracer and the caller
+#: asked for statistics (``collect_stats=True``); process-wide, read by
+#: ``breakdown.py`` and the benchmark's traced runs.
+SEARCH_TRACER = Tracer(65536)
