@@ -100,7 +100,7 @@ from ..obs.trace import SEARCH_TRACER
 from ..ops.fold_cuda import fold_lanes
 from ..ops.step_kernel import DeviceOps, DeviceState, join_u64, step_kernel
 from ..ops.xxh3 import shr
-from ..utils.hashing import fold_record_hashes
+from ..utils.hashing import NATIVE_FOLDS, fold_record_hashes
 from .entries import History
 from .checkpoint import (
     Checkpoint,
@@ -2682,7 +2682,8 @@ def check_device(
     (encoding and tables), one ``check.segment`` per :func:`run_search`
     call (with its syncs and their fetch time, :data:`FETCH_NS`),
     ``check.escalate`` per re-bucketing, ``check.spill``,
-    ``check.witness``, ``check.final_states`` and ``check.diagnose``.
+    ``check.witness`` (with the host folds it made natively,
+    ``native_folds``), ``check.final_states`` and ``check.diagnose``.
     Their ``args`` hold only host values the search already has, so a span
     adds no device work and no synchronisation.
     """
@@ -2935,6 +2936,7 @@ def check_device(
         if code == STOP_ACCEPT:
             whole = gather_frontier(out.frontier)
             t0, lin, source = time.monotonic(), None, None
+            folds0 = NATIVE_FOLDS[0]
             if log_on:
                 pt = analyze_encoded(enc) if prune else None
                 lin, source = _witness_linearization(enc, wlogs, out.accept_idx, pt=pt), "log"
@@ -2944,7 +2946,8 @@ def check_device(
                 lin = _recover_witness_bounded(enc, history, whole.counts[out.accept_idx].cpu().numpy())
                 source = "research"
             if sp is not None and source is not None:
-                sp.add("check.witness", t0, source=source, found=lin is not None)
+                sp.add("check.witness", t0, source=source, found=lin is not None,
+                       native_folds=NATIVE_FOLDS[0] - folds0)
             t0 = time.monotonic()
             final_states = _final_states_device(enc, whole, out.accept_idx)
             if sp is not None:

@@ -36,7 +36,7 @@ from ..obs.introspect import record_build
 from .entries import History
 from .oracle import CheckOutcome, CheckResult
 
-__all__ = ["native_available", "check_native", "NativeUnavailable", "SOURCE", "BUILD_DIR"]
+__all__ = ["native_available", "check_native", "build_library", "NativeUnavailable", "SOURCE", "BUILD_DIR"]
 
 _PKG = Path(__file__).resolve().parent.parent
 #: the engine's source, the port's own copy
@@ -65,29 +65,43 @@ def _u8(a: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(a, np.uint8)
 
 
-def _compile() -> tuple[Path, float]:
-    """Build the library from :data:`SOURCE` unless one built from the same
-    bytes exists; returns ``(path, seconds compiling)``.  A build that ran
-    the compiler is recorded in ``obs.introspect.INTROSPECTOR``."""
-    tag = hashlib.sha1(SOURCE.read_bytes()).hexdigest()[:12]
-    so = BUILD_DIR / f"libs2check-{tag}.so"
+def build_library(source: Path, build_dir: Path) -> tuple[Path, float]:
+    """Build ``build_dir/lib<source stem>-<sha1 of source>.so`` from a C++
+    ``source`` with :data:`CXXFLAGS` unless one built from the same bytes
+    exists; returns ``(path, seconds compiling)``.  The compiler is ``$CXX``
+    or ``g++``; it writes a temporary file that is renamed into place.  A
+    build that ran the compiler is recorded in
+    ``obs.introspect.INTROSPECTOR``; one that cannot run raises
+    :class:`NativeUnavailable`."""
+    tag = hashlib.sha1(source.read_bytes()).hexdigest()[:12]
+    so = build_dir / f"lib{source.stem}-{tag}.so"
     if so.exists():
         return so, 0.0
     cxx = os.environ.get("CXX") or shutil.which("g++")
     if cxx is None:
-        raise NativeUnavailable("no C++ compiler (g++) to build csrc/s2check.cpp")
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        raise NativeUnavailable(f"no C++ compiler (g++) to build csrc/{source.name}")
+    build_dir.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=build_dir)
     os.close(fd)
     t0 = _time.monotonic()
-    proc = subprocess.run([cxx, *CXXFLAGS, "-o", tmp, str(SOURCE)], capture_output=True, text=True)
+    try:
+        proc = subprocess.run([cxx, *CXXFLAGS, "-o", tmp, str(source)], capture_output=True, text=True)
+    except OSError as e:
+        os.unlink(tmp)
+        raise NativeUnavailable(f"cannot run the C++ compiler {cxx!r}: {e}") from e
     if proc.returncode != 0:
         os.unlink(tmp)
         raise NativeUnavailable(f"native build failed:\n{proc.stderr[-2000:]}")
     os.replace(tmp, so)
     seconds = _time.monotonic() - t0
-    record_build(f"g++:{SOURCE.name}", tag, seconds)
+    record_build(f"g++:{source.name}", tag, seconds)
     return so, seconds
+
+
+def _compile() -> tuple[Path, float]:
+    """Build the engine from :data:`SOURCE` into :data:`BUILD_DIR`
+    (:func:`build_library`)."""
+    return build_library(SOURCE, BUILD_DIR)
 
 
 def _load() -> ct.CDLL:

@@ -24,12 +24,22 @@ package, in two parts:
 
 The device twin of the chain step (one int64 word per u64) is
 :mod:`..ops.xxh3`; the CUDA kernel is ``csrc/fold_lanes.cu``.
+
+:func:`fold_record_hashes`, the host's fold over a batch (every append the
+model steps), runs in native code, ``csrc/chain_fold.cpp``, built with
+``g++`` at first use (``checker/native.py::build_library``) into
+``_build/libchain_fold-<sha1 of the source>.so``; where it cannot be built,
+the Python loop below folds, with the same result.
 """
 
 from __future__ import annotations
 
+import ctypes as ct
 import struct
+import threading
+from array import array
 from collections.abc import Iterable
+from pathlib import Path
 
 import numpy as np
 
@@ -39,7 +49,21 @@ __all__ = [
     "chain_hash",
     "fold_record_hashes",
     "stream_hash_of_bodies",
+    "NATIVE_FOLDS",
+    "PYTHON_FOLDS",
 ]
+
+_PKG = Path(__file__).resolve().parent.parent
+#: the native fold's source and where it is built (gitignored)
+FOLD_SOURCE = _PKG / "csrc" / "chain_fold.cpp"
+FOLD_BUILD_DIR = _PKG / "_build"
+#: batches folded by :func:`fold_record_hashes` in native code, and in Python
+NATIVE_FOLDS = [0]
+PYTHON_FOLDS = [0]
+
+_fold_lock = threading.Lock()
+#: the native fold once loaded; False once it could not be built or loaded
+_native_fold = None
 
 _M32 = (1 << 32) - 1
 _M64 = (1 << 64) - 1
@@ -218,8 +242,37 @@ def chain_hash(stream_hash: int, rec_hash: int) -> int:
     return xxh3_8byte_seeded(rec_hash, stream_hash)
 
 
+def _load_native_fold():
+    """The native fold's ctypes function, built at first use, or None where
+    no compiler builds it or the library does not load."""
+    global _native_fold
+    with _fold_lock:
+        if _native_fold is None:
+            # imported here: checker.native imports models, which import this module
+            from ..checker.native import NativeUnavailable, build_library
+
+            try:
+                so, _ = build_library(FOLD_SOURCE, FOLD_BUILD_DIR)
+                fold = ct.CDLL(str(so)).s2_chain_fold
+            except (NativeUnavailable, OSError):
+                _native_fold = False
+            else:
+                fold.argtypes = [ct.c_uint64, ct.c_void_p, ct.c_int64]
+                fold.restype = ct.c_uint64
+                _native_fold = fold
+        return _native_fold or None
+
+
 def fold_record_hashes(stream_hash: int, rec_hashes: Iterable[int]) -> int:
-    """Left-fold :func:`chain_hash` over a batch of record hashes."""
+    """Left-fold :func:`chain_hash` over a batch of record hashes (each a
+    u64): in native code where the library builds, else in Python (counted
+    in :data:`NATIVE_FOLDS` / :data:`PYTHON_FOLDS`)."""
+    fold = _native_fold if _native_fold is not None else _load_native_fold()
+    if fold:
+        buf = array("Q", rec_hashes)
+        NATIVE_FOLDS[0] += 1
+        return fold(stream_hash & _M64, buf.buffer_info()[0], len(buf)) if buf else stream_hash
+    PYTHON_FOLDS[0] += 1
     acc = stream_hash
     for rh in rec_hashes:
         acc = chain_hash(acc, rh)

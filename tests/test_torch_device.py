@@ -28,9 +28,11 @@ from s2_verification_tpu.utils.events import LabeledEvent, ReadSuccess
 from s2_verification_tpu_torch.checker import device as pdev
 from s2_verification_tpu_torch.checker.entries import prepare
 from s2_verification_tpu_torch.checker.oracle import CheckOutcome, check
+from s2_verification_tpu_torch.collector.adversarial import adversarial_events
 from s2_verification_tpu_torch.models.encode import encode_history
 from s2_verification_tpu_torch.models.stream import INIT_STATE, step_set
 from s2_verification_tpu_torch.ops.step_kernel import join_u64
+from s2_verification_tpu_torch.utils import hashing
 
 from test_oracle_bruteforce import random_history
 from test_torch_encode import collected, to_port
@@ -246,3 +248,29 @@ def test_exhaustive_overflow_unknown_or_spill_matches_jax():
         rj = jdev.check_device(hj, **kw)
         assert rj.outcome.value == want
         assert_results_equal(rj, pdev.check_device(hp, device="cpu", **kw), hp)
+
+
+@pytest.mark.parametrize("k", [6, 8, 10])
+def test_witness_recovery_is_the_same_with_the_native_and_the_python_fold(k, monkeypatch):
+    # The host re-search below the beam's accept counts (what every OK of the
+    # search recovers its witness with) folds each append's record hashes;
+    # natively or in Python, it walks the same DFS to the same order.
+    seen = []
+    real = pdev._recover_witness_bounded
+
+    def spy(enc, history, counts, **kw):
+        seen.append((enc, history, counts))
+        return real(enc, history, counts, **kw)
+
+    monkeypatch.setattr(pdev, "_recover_witness_bounded", spy)
+    res = pdev.check_device_auto(prepare(adversarial_events(k, batch=100, seed=k)), device="cpu")
+    assert res.outcome == CheckOutcome.OK and len(seen) == 1
+    lins, folds = {}, {}
+    for mode in ("native", "python"):
+        monkeypatch.setattr(hashing, "_native_fold", None if mode == "native" else False)
+        before = (hashing.NATIVE_FOLDS[0], hashing.PYTHON_FOLDS[0])
+        lins[mode] = real(*seen[0])
+        folds[mode] = (hashing.NATIVE_FOLDS[0] - before[0], hashing.PYTHON_FOLDS[0] - before[1])
+    assert res.linearization is not None and lins["native"] == lins["python"] == res.linearization
+    n = folds["native"][0]
+    assert n > 0 and folds == {"native": (n, 0), "python": (0, n)}

@@ -66,6 +66,50 @@ def test_torch_chain_hash_random():
     np.testing.assert_array_equal(got, want)
 
 
+def _fold_batches(case: str) -> list[tuple[int, list[int]]]:
+    """(seed, record hashes) batches of one case of the native fold test."""
+    if case == "pinned":
+        foo, bar, baz = (xxhash.xxh3_64_intdigest(b) for b in (b"foo", b"bar", b"baz"))
+        return [(0, [foo, bar, baz]), (0, []), (0, [11, 22, 33, 44])]
+    n = 100 if case == "no compiler" else int(case.removeprefix("len"))
+    rng = np.random.default_rng(n + 17)
+    out = []
+    for top in (False, True):
+        seed, hs = rng.integers(0, 1 << 64, dtype=np.uint64), rng.integers(0, 1 << 64, n, dtype=np.uint64)
+        if top:  # a seed and record hashes with the top bit set
+            seed |= np.uint64(1 << 63)
+            hs |= np.uint64(1 << 63)
+        out.append((int(seed), hs.tolist()))
+    return out
+
+
+@pytest.mark.parametrize("case", ["pinned", "len0", "len1", "len100", "len1000", "no compiler"])
+def test_native_fold_equals_the_python_fold(case, monkeypatch, tmp_path):
+    batches = _fold_batches(case)
+    monkeypatch.setattr(hashing, "_native_fold", False)
+    py0 = hashing.PYTHON_FOLDS[0]
+    want = [hashing.fold_record_hashes(s, hs) for s, hs in batches]
+    assert hashing.PYTHON_FOLDS[0] - py0 == len(batches)
+    if case == "pinned":
+        assert want == [0x732EE99ABC5002FF, 0, jax_hashing.fold_record_hashes(0, [11, 22, 33, 44])]
+    else:
+        assert want == [jax_hashing.fold_record_hashes(s, hs) for s, hs in batches]
+    monkeypatch.setattr(hashing, "_native_fold", None)
+    if case == "no compiler":
+        # No compiler runs: the first fold tries the build once, in a fresh
+        # build directory, and every fold runs the Python loop.
+        monkeypatch.setenv("CXX", str(tmp_path / "no-such-g++"))
+        monkeypatch.setattr(hashing, "FOLD_BUILD_DIR", tmp_path / "_build")
+    native0, py0 = hashing.NATIVE_FOLDS[0], hashing.PYTHON_FOLDS[0]
+    assert [hashing.fold_record_hashes(s, tuple(hs)) for s, hs in batches] == want
+    folds = (hashing.NATIVE_FOLDS[0] - native0, hashing.PYTHON_FOLDS[0] - py0)
+    if case == "no compiler":
+        assert folds == (0, len(batches)) and hashing._native_fold is False
+        assert list((tmp_path / "_build").iterdir()) == []
+    else:
+        assert folds == (len(batches), 0)
+
+
 def _fold_case(seed, r_ops, l_max, n):
     rng = np.random.default_rng(seed)
     rh_hi = rng.integers(0, 1 << 32, (r_ops, l_max), dtype=np.uint32)

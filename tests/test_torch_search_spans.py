@@ -21,6 +21,7 @@ from s2_verification_tpu_torch.checker.entries import prepare
 from s2_verification_tpu_torch.collector.adversarial import adversarial_events
 from s2_verification_tpu_torch.obs.introspect import job_context
 from s2_verification_tpu_torch.obs.trace import Tracer
+from s2_verification_tpu_torch.utils import hashing
 
 PHASES = ("check.beam", "check.exhaustive")
 
@@ -55,13 +56,24 @@ def _inside(e: dict, outer: dict) -> bool:
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
-def test_a_check_records_its_spans_inside_its_phases(ring, case):
+def test_a_check_records_its_spans_inside_its_phases(ring, case, monkeypatch):
     events, kw, want = CASES[case]
     hist = prepare(adversarial_events(**events))
     syncs0 = dev_mod.SYNCS[0]
     off = dev_mod.check_device_auto(hist, device="cpu", **kw)
     syncs_off = dev_mod.SYNCS[0] - syncs0
     assert _spans(ring) == []
+    # the host folds each witness function makes natively, in the spans-on run
+    witness_folds = []
+    for name in ("_witness_linearization", "_recover_witness_bounded"):
+        def counted(*a, _real=getattr(dev_mod, name), **k):
+            n0 = hashing.NATIVE_FOLDS[0]
+            try:
+                return _real(*a, **k)
+            finally:
+                witness_folds.append(hashing.NATIVE_FOLDS[0] - n0)
+
+        monkeypatch.setattr(dev_mod, name, counted)
     t0 = ring.now()
     syncs0 = dev_mod.SYNCS[0]
     on = dev_mod.check_device_auto(hist, device="cpu", collect_stats=True, **kw)
@@ -89,7 +101,9 @@ def test_a_check_records_its_spans_inside_its_phases(ring, case):
     assert sum(e["args"]["syncs"] for e in last) <= on.stats.host_syncs
     if "check.witness" in want:
         (w,) = [e for e in spans if e["name"] == "check.witness"]
-        assert w["args"] == {"source": "log" if "witness_max_frontier" in kw else "research", "found": True}
+        assert sum(witness_folds) > 0
+        assert w["args"] == {"source": "log" if "witness_max_frontier" in kw else "research", "found": True,
+                             "native_folds": sum(witness_folds)}
     if "check.diagnose" in want:
         d = [e for e in spans if e["name"] == "check.diagnose"]
         assert d[-1]["args"]["refusals"] == len(on.refusals)
