@@ -136,6 +136,8 @@ __all__ = [
     "default_device_rows_cap",
     "SYNCS",
     "FETCH_NS",
+    "CLOSE_SWEEPS",
+    "TOKEN_CLOSES",
 ]
 
 log = logging.getLogger("s2_verification_tpu_torch.device")
@@ -157,6 +159,14 @@ SYNCS = [0]
 #: host nanoseconds spent inside those synchronisations (each counted site
 #: times its transfer to the host)
 FETCH_NS = [0]
+#: sweeps of the auto-close (:func:`_auto_close`, and the sharded loop's
+#: :func:`_close_pin_shards`), each one counted synchronisation
+CLOSE_SWEEPS = [0]
+#: ops the auto-close's token arm passed (an indefinite append whose token
+#: no op sets), summed on the device over a layer's sweeps and fetched with
+#: the layer's head; counted by :func:`run_search` on one frontier (not the
+#: lane or sharded loops), for tables with such an op (``tok_close``)
+TOKEN_CLOSES = [0]
 
 
 class SearchTables(NamedTuple):
@@ -190,6 +200,9 @@ class SearchTables(NamedTuple):
     #: host flag: some op can ever be auto-closed or eagerly committed; when
     #: False the auto-close sweep is a provable no-op and is skipped
     can_close: bool
+    #: host flag: some op is closable by the token arm (``ac_tok``); only
+    #: then does the layer loop count :data:`TOKEN_CLOSES`
+    tok_close: bool
 
 
 class Frontier(NamedTuple):
@@ -424,6 +437,7 @@ def tables_from_arrays(d: dict, device) -> SearchTables:
         inert=b("inert"),
         filter_succ=b("filter_succ"),
         can_close=can_close,
+        tok_close=bool(np.asarray(d["ac_tok"]).any()),
     )
 
 
@@ -598,16 +612,15 @@ def _advance_now(tables: SearchTables, counts, fr: Frontier, cbase=None):
     nxt, cand = _next_and_cands(tables, counts, cbase)
     ops = tables.ops
     tail, tok, h = fr.tail[:, None], fr.tok[:, None], fr.hash[:, None]
-    dead = (tables.ac_match[nxt] & (tail > ops.match_seq[nxt])) | (
-        tables.ac_tok[nxt] & (tok != ops.batch_token[nxt])
-    )
+    tok_dead = tables.ac_tok[nxt] & (tok != ops.batch_token[nxt])
+    dead = (tables.ac_match[nxt] & (tail > ops.match_seq[nxt])) | tok_dead
     fpass = (
         tables.filter_succ[nxt]
         & (tail == ops.out_tail[nxt])
         & (~ops.out_has_hash[nxt] | (h == ops.out_hash[nxt]))
     )
     eager = cand & (tables.inert[nxt] | fpass) & ~dead
-    return (cand & dead) | eager, eager
+    return (cand & dead) | eager, eager, tok_dead
 
 
 def _auto_close(tables: SearchTables, fr: Frontier, cbase=None):
@@ -617,23 +630,30 @@ def _auto_close(tables: SearchTables, fr: Frontier, cbase=None):
     Tails are monotone along every path, so a stale ``match_seq_num`` can
     never match again; a fencing token no remaining op sets can never come
     to match either.  A row keeps sweeping while it moves; the sweep
-    repeats while any row moved (one synchronisation per sweep).  Returns
-    ``(closed_counts, n_closed [F], n_eager [F])``; ``cbase`` as in
+    repeats while any row moved (one synchronisation per sweep, counted in
+    :data:`CLOSE_SWEEPS`).  Returns ``(closed_counts, n_closed [F],
+    n_eager [F], n_tok [F])``, ``n_tok`` counting the ops the token arm
+    passed, None unless ``tables.tok_close``; ``cbase`` as in
     :func:`_chains`.
     """
     counts = fr.counts
     zero = torch.zeros_like(fr.tail)
     if not tables.can_close:
-        return counts, zero, zero
+        return counts, zero, zero, None
     n_eager = zero
+    n_tok = zero if tables.tok_close else None
     while True:
-        adv, eager = _advance_now(tables, counts, fr, cbase)
+        adv, eager, tok = _advance_now(tables, counts, fr, cbase)
         active = fr.valid & adv.any(-1)
+        CLOSE_SWEEPS[0] += 1
         if not _fetch(active.any())[0]:
             break
         counts = counts + (adv & active[:, None]).long()
         n_eager = n_eager + (eager & active[:, None]).sum(-1)
-    return counts, (counts - fr.counts).sum(-1), n_eager
+        if n_tok is not None:
+            # A moved op is the token arm's where its token is dead.
+            n_tok = n_tok + (adv & tok & active[:, None]).sum(-1)
+    return counts, (counts - fr.counts).sum(-1), n_eager, n_tok
 
 
 def _accept_rows(tables: SearchTables, counts, valid, cbase=None) -> torch.Tensor:
@@ -1243,7 +1263,7 @@ def run_search(
         elif spec_layers > 0:
             spec_rollbacks = 1
     while stop == STOP_RUNNING and layers < max_layers:
-        closed_counts, ac_n, eager_n = _auto_close(tables, fr)
+        closed_counts, ac_n, eager_n, tok_n = _auto_close(tables, fr)
         closed = fr._replace(counts=closed_counts)
         # Tail-pin dead rows (checker/prune.py): a row whose tail has passed
         # the smallest statically-pinned tail among its remaining ops can
@@ -1260,6 +1280,8 @@ def run_search(
         op1 = nxt1[chain1]
         n_live = closed.valid.sum()
         fastable = (n_live == 1) & (cand1.sum() == 1) & ~tables.is_indef[op1]
+        # The token arm's count rides the head's fetch, where it is kept.
+        tok_sum = () if tok_n is None else (tok_n.sum(),)
         (
             accept_any,
             is_fast,
@@ -1271,6 +1293,7 @@ def run_search(
             pin_sum,
             base_ops,
             op1_h,
+            *tok_h,
         ) = _fetch(
             acc_row.any(),
             fastable,
@@ -1282,7 +1305,9 @@ def run_search(
             pin_dead.sum(),
             base_row.sum(),
             op1,
+            *tok_sum,
         )
+        TOKEN_CLOSES[0] += sum(tok_h)
         pruned = overflow = False
         deep_row = None
         children_are_diag = False
@@ -1433,8 +1458,9 @@ def _stack_lanes(tables: list[SearchTables], frontiers: list[Frontier]) -> tuple
     ops = DeviceOps(*(cat([getattr(t.ops, name) for t in tables], offset.get(name, 0))
                       for name in DeviceOps._fields))
     rest = {name: cat([getattr(t, name) for t in tables])
-            for name in SearchTables._fields if name not in ("ops", "can_close")}
-    stacked = SearchTables(ops=ops, can_close=any(t.can_close for t in tables), **rest)
+            for name in SearchTables._fields if name not in ("ops", "can_close", "tok_close")}
+    # The lane loop does not count TOKEN_CLOSES.
+    stacked = SearchTables(ops=ops, can_close=any(t.can_close for t in tables), tok_close=False, **rest)
     return stacked, Frontier(*(torch.cat(xs) for xs in zip(*frontiers)))
 
 
@@ -1489,7 +1515,7 @@ def run_search_lanes(tables: list[SearchTables], frontiers: list[Frontier], max_
     while run:
         LANE_ITERS[0] += 1
         tl = st._replace(can_close=any(tables[i].can_close for i in run))
-        closed_counts, ac_n, eager_n = _auto_close(tl, fr, cb)
+        closed_counts, ac_n, eager_n, _ = _auto_close(tl, fr, cb)
         closed = fr._replace(counts=closed_counts)
         pin_dead = closed.valid & (closed.tail > _row_tail_pin(tl, closed.counts, cb))
         closed = closed._replace(valid=closed.valid & ~pin_dead)
@@ -1602,8 +1628,9 @@ def _ints_on(vals, dev) -> torch.Tensor:
 
 
 def _tables_to(t: SearchTables, dev) -> SearchTables:
-    rest = {k: getattr(t, k).to(dev) for k in SearchTables._fields if k not in ("ops", "can_close")}
-    return SearchTables(ops=DeviceOps(*(x.to(dev) for x in t.ops)), can_close=t.can_close, **rest)
+    rest = {k: getattr(t, k).to(dev) for k in SearchTables._fields if k not in ("ops", "can_close", "tok_close")}
+    return SearchTables(ops=DeviceOps(*(x.to(dev) for x in t.ops)), can_close=t.can_close,
+                        tok_close=t.tok_close, **rest)
 
 
 def shard_tables(tables: SearchTables, mesh) -> tuple:
@@ -1665,16 +1692,17 @@ def _close_pin_shards(tables: tuple, blocks: list, dev0) -> list:
     """Auto-close and tail-pin a process's shards, as :func:`_auto_close`
     and the pin of :func:`run_search` do one frontier: each row sweeps to
     its own fixpoint, so shards sweep together while a row of any of them
-    moves, one fetch a sweep for all.  Returns per shard ``(closed,
-    n_closed, n_eager, pin_dead)``."""
+    moves, one fetch a sweep for all (counted in :data:`CLOSE_SWEEPS`).
+    Returns per shard ``(closed, n_closed, n_eager, pin_dead)``."""
     counts = [b.counts for b in blocks]
     n_eager = [torch.zeros_like(b.tail) for b in blocks]
     while tables[0].can_close:
         steps = [_advance_now(t, cn, b) for t, cn, b in zip(tables, counts, blocks)]
-        active = [b.valid & adv.any(-1) for b, (adv, _) in zip(blocks, steps)]
+        active = [b.valid & adv.any(-1) for b, (adv, _, _) in zip(blocks, steps)]
+        CLOSE_SWEEPS[0] += 1
         if not _fetch(torch.stack([a.any().to(dev0) for a in active]).any())[0]:
             break
-        for i, ((adv, eager), a) in enumerate(zip(steps, active)):
+        for i, ((adv, eager, _), a) in enumerate(zip(steps, active)):
             counts[i] = counts[i] + (adv & a[:, None]).long()
             n_eager[i] = n_eager[i] + (eager & a[:, None]).sum(-1)
     out = []
@@ -2680,7 +2708,9 @@ def check_device(
     ``collect_stats`` :data:`..obs.trace.SEARCH_TRACER`): the call is one
     ``check.beam`` or ``check.exhaustive`` span, holding ``check.encode``
     (encoding and tables), one ``check.segment`` per :func:`run_search`
-    call (with its syncs and their fetch time, :data:`FETCH_NS`),
+    call (with its syncs and their fetch time, :data:`FETCH_NS`, its
+    auto-close sweeps, :data:`CLOSE_SWEEPS`, and the ops the token arm
+    passed, :data:`TOKEN_CLOSES`),
     ``check.escalate`` per re-bucketing, ``check.spill``,
     ``check.witness`` (with the host folds it made natively,
     ``native_folds``), ``check.final_states`` and ``check.diagnose``.
@@ -2720,12 +2750,14 @@ def check_device(
         if collect_stats:
             res.stats = stats  # type: ignore[attr-defined]
         if sp is not None:
-            sp.add("check.encode", t_run0, ops=enc.num_ops, chains=enc.num_chains)
+            sp.add("check.encode", t_run0, ops=enc.num_ops, chains=enc.num_chains,
+                   tokens=len(enc.token_of_id) - 1)
             sp.add(phase, t_run0, outcome=res.outcome.value, layers=0, bucket=0)
         return res
     tables = build_tables(enc, dev, prune=prune)
     if sp is not None:
-        sp.add("check.encode", t_run0, ops=enc.num_ops, chains=enc.num_chains)
+        sp.add("check.encode", t_run0, ops=enc.num_ops, chains=enc.num_chains,
+               tokens=len(enc.token_of_id) - 1)
     run_tables = tables if mesh is None else shard_tables(tables, mesh)
     xp = can_exact_pack(enc) if exact_pack is None else bool(exact_pack)
     if sort_dedup and not xp:
@@ -2864,6 +2896,7 @@ def check_device(
             layers_budget = min(layers_budget, _BIG_TIER_CHUNK)
         chunk_rows = f_cap if big_cap > f_cap and f > f_cap else 0
         t_seg, syncs_seg, fetch_seg = time.monotonic(), SYNCS[0], FETCH_NS[0]
+        sweeps_seg, tok_seg = CLOSE_SWEEPS[0], TOKEN_CLOSES[0]
         out = run_search(
             run_tables,
             frontier,
@@ -2881,7 +2914,8 @@ def check_device(
             sp.add(
                 "check.segment", t_seg, stop=_STOP_NAMES[code], layers=out.layers, bucket=f,
                 chunked=chunk_rows > 0, syncs=SYNCS[0] - syncs_seg,
-                fetch_ms=(FETCH_NS[0] - fetch_seg) / 1e6,
+                fetch_ms=(FETCH_NS[0] - fetch_seg) / 1e6, sweeps=CLOSE_SWEEPS[0] - sweeps_seg,
+                token_closes=TOKEN_CLOSES[0] - tok_seg,
             )
         log.debug(
             "segment done: stop=%s layers=%d/%d live=%d expanded=%d",
