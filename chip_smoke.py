@@ -287,6 +287,7 @@ Without a CUDA device it exits 2 and prints no result.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import hashlib
 import io
 import json
@@ -3973,6 +3974,7 @@ def main() -> int:
         torch.cuda.reset_peak_memory_stats()
         fold_cuda.reset_launches()
         syncs0 = dev_mod.SYNCS[0]
+        graphs0 = dev_mod.GRAPH_CAPTURES[0], dev_mod.GRAPH_REPLAYS[0]
         t0 = time.monotonic()
         rc, captured, stats = run_cli(events, "headline-5x2000")
         torch.cuda.synchronize()
@@ -3980,6 +3982,7 @@ def main() -> int:
         collector_launches = dict(fold_cuda.LAUNCHES)
         syncs = dev_mod.SYNCS[0] - syncs0
         peak = torch.cuda.max_memory_allocated()
+        captures, replays = dev_mod.GRAPH_CAPTURES[0] - graphs0[0], dev_mod.GRAPH_REPLAYS[0] - graphs0[1]
     res, hist = captured.get("res"), captured.get("hist")
     if rc != 0 or res is None or res.outcome.value != "ok":
         fail(f"headline: exit {rc}, outcome {res and res.outcome}")
@@ -4011,11 +4014,42 @@ def main() -> int:
     print(f"cli stats: {json.dumps(stats)}", flush=True)
     headline_events, headline_walls = events, (first_wall, list(warm))
 
-    # Every fold call of the headline again: bit-exact against the plain
-    # fold (one plain fold per table over all its calls' lanes), then timed
-    # in groups small enough to queue behind one spin kernel.
+    # The small buckets' layers replay from CUDA graphs: the recorder takes
+    # each replayed fold's inputs after its replay, so the calls are every
+    # fold that ran, a graph's warm-up included.  The same search with no
+    # graph must give the same verdict, witness and statistics, and launch
+    # the same folds less the warm-ups (one fold a graph).
+    if not captures or not replays:
+        fail(f"headline: {captures} layer graphs captured, {replays} layers replayed")
     if len(calls) != collector_launches["fold_lanes"]:
         fail(f"recorded {len(calls)} headline fold calls, counted {collector_launches['fold_lanes']}")
+    eager_after = dev_mod._GRAPH_AFTER
+    dev_mod._GRAPH_AFTER = 1 << 62
+    try:
+        fold_cuda.reset_launches()
+        replays0 = dev_mod.GRAPH_REPLAYS[0]
+        res_e = dev_mod.check_device_auto(hist, collect_stats=True)
+        torch.cuda.synchronize()
+        eager_launches = fold_cuda.LAUNCHES["fold_lanes"]
+    finally:
+        dev_mod._GRAPH_AFTER = eager_after
+    if dev_mod.GRAPH_REPLAYS[0] != replays0:
+        fail(f"headline without graphs: {dev_mod.GRAPH_REPLAYS[0] - replays0} layers replayed")
+    if (res_e.outcome, res_e.linearization, dataclasses.asdict(res_e.stats)) != (
+            res.outcome, res.linearization, dataclasses.asdict(res.stats)):
+        fail("headline: the search with no graph differs from the replayed one in its verdict, witness "
+             "or statistics")
+    if eager_launches + captures != collector_launches["fold_lanes"]:
+        fail(f"headline: {eager_launches} fold launches with no graph, {collector_launches['fold_lanes']} "
+             f"with {captures} graphs")
+    print(f"headline with no graph: the same verdict, witness and statistics; {eager_launches} fold "
+          f"launches, the replayed run's {collector_launches['fold_lanes']} less its {captures} warm-ups "
+          f"({replays} layers replayed)", flush=True)
+
+    # Every fold call of the headline again, the replayed ones included:
+    # bit-exact against the plain fold (one plain fold per table over all
+    # its calls' lanes), then timed in groups small enough to queue behind
+    # one spin kernel.
     steps = recheck_calls(calls, "headline")
     largest = max(range(len(calls)), key=lambda j: (steps[j], -j))
     at_headline = measure(calls[largest], f"headline call {largest + 1}, the largest by steps", reps=20)
@@ -4112,13 +4146,9 @@ def main() -> int:
     # profiler longer to process than the search).
     box: dict = {}
     start = (PRUNED_HEADLINE_STATS["layers"] - 100) // 2
-    real_expand = dev_mod._expand_layer
-    dev_mod._expand_layer = breakdown.profiled_window(real_expand, start, 100, box)
-    try:
+    with breakdown.expanded_layers(breakdown.profiled_window(start, 100, box)):
         dev_mod.check_device_auto(hist, prune=True, speculate_depth=3)
         torch.cuda.synchronize()
-    finally:
-        dev_mod._expand_layer = real_expand
     if "wall" not in box:
         fail(f"pruned headline: the search expanded fewer than {start + 100} layers")
     window = breakdown.busy(box["prof"], box["wall"])

@@ -29,8 +29,8 @@ exhaustive search: above its ``--max-frontier`` bucket the frontier grows
 on the device, each layer expanded in bucket-sized chunks (the chunked
 layers are counted as ``chunked_layers``); e.g. ``--exhaustive
 --max-frontier 131072 --device-rows 1048576`` at k=10.  ``--prune`` and ``--speculate-depth
-K`` pass the same options to either entry (the dive's expansions count as
-layers of the window below).  A search that expands more
+K`` pass the same options to either entry (the dive's expansions do not
+count as layers of the window below).  A search that expands more
 than :data:`WHOLE_MAX_LAYERS` layers (a collected history's thousands)
 is profiled over only :data:`WINDOW_LAYERS` whole layers from its middle,
 the rest of the call unprofiled: the profiler's own processing of over a
@@ -48,6 +48,7 @@ import json
 import subprocess
 import sys
 import time
+from collections import Counter
 
 import torch
 
@@ -128,13 +129,39 @@ def _device_times(prof) -> tuple[dict[str, float], int]:
     return out, n
 
 
-def profiled_window(fn, start: int, n: int, box: dict):
-    """Wrap ``_expand_layer``: profile from its call ``start`` to its call
-    ``start + n``, i.e. ``n`` whole layers of the search loop, and keep the
-    profiler, the window's wall and its host syncs in ``box``."""
+@contextlib.contextmanager
+def expanded_layers(on_layer):
+    """Call ``on_layer(name)`` before each layer the search expands: eagerly
+    or replayed from its CUDA graph (``name`` is ``expand``, for
+    ``_LayerGraph.expand``), or in chunks (``_expand_layer_chunked``); a
+    forced step or a speculative dive's layer calls neither."""
+    owners = ((dev_mod._LayerGraph, "expand"), (dev_mod, "_expand_layer_chunked"))
+    real = [getattr(o, name) for o, name in owners]
+
+    def counted(fn, name):
+        def wrapper(*a, **kw):
+            on_layer(name)
+            return fn(*a, **kw)
+
+        return wrapper
+
+    for (o, name), fn in zip(owners, real):
+        setattr(o, name, counted(fn, name))
+    try:
+        yield
+    finally:
+        for (o, name), fn in zip(owners, real):
+            setattr(o, name, fn)
+
+
+def profiled_window(start: int, n: int, box: dict):
+    """An ``on_layer`` for :func:`expanded_layers`: profile from the
+    search's layer ``start`` to its layer ``start + n``, i.e. ``n`` whole
+    layers of the search loop, and keep the profiler, the window's wall
+    and its host syncs in ``box``."""
     calls = [0]
 
-    def wrapper(*a, **kw):
+    def on_layer(_name):
         i = calls[0]
         calls[0] += 1
         if i in (start, start + n):
@@ -148,9 +175,8 @@ def profiled_window(fn, start: int, n: int, box: dict):
                 box["t1_ns"] = time.time_ns()
                 box["syncs"] = dev_mod.SYNCS[0] - box["syncs0"]
                 box["prof"].__exit__(None, None, None)
-        return fn(*a, **kw)
 
-    return wrapper
+    return on_layer
 
 
 _ACTIVITIES = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -198,46 +224,28 @@ def run(
         return dev_mod.check_device_auto(hist, **opts)
 
     fold_cuda.build()
-    # warm-up (allocator, kernel load), counting the layers _expand_layer
-    # and _expand_layer_chunked run
-    layer_fns = {n: getattr(dev_mod, n) for n in ("_expand_layer", "_expand_layer_chunked")}
-    layer_calls = dict.fromkeys(layer_fns, 0)
-
-    def counted(name):
-        def wrapper(*a, **kw):
-            layer_calls[name] += 1
-            return layer_fns[name](*a, **kw)
-
-        return wrapper
-
-    for n in layer_fns:
-        setattr(dev_mod, n, counted(n))
-    try:
+    # warm-up (allocator, kernel load), counting the expanded layers and
+    # the chunked ones among them
+    layer_calls: Counter = Counter()
+    with expanded_layers(lambda name: layer_calls.update((name,))):
         decide()
-    finally:
-        for n, fn in layer_fns.items():
-            setattr(dev_mod, n, fn)
 
     box: dict = {}
-    real_expand = dev_mod._expand_layer
-    window = WINDOW_LAYERS if layer_calls["_expand_layer"] > WHOLE_MAX_LAYERS else None
+    n_layers = sum(layer_calls.values())
+    window = WINDOW_LAYERS if n_layers > WHOLE_MAX_LAYERS else None
     if window:
-        start = (layer_calls["_expand_layer"] - window) // 2
-        dev_mod._expand_layer = profiled_window(real_expand, start, window, box)
-    try:
+        start = (n_layers - window) // 2
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fold_cuda.reset_launches()
+    syncs0 = dev_mod.SYNCS[0]
+    with expanded_layers(profiled_window(start, window, box)) if window else torch.profiler.profile(
+        activities=_ACTIVITIES
+    ) as prof:
+        t0, t0_ns = time.perf_counter(), time.time_ns()
+        res = decide()
         torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        fold_cuda.reset_launches()
-        syncs0 = dev_mod.SYNCS[0]
-        with contextlib.nullcontext() if window else torch.profiler.profile(
-            activities=_ACTIVITIES
-        ) as prof:
-            t0, t0_ns = time.perf_counter(), time.time_ns()
-            res = decide()
-            torch.cuda.synchronize()
-            wall, t1_ns = time.perf_counter() - t0, time.time_ns()
-    finally:
-        dev_mod._expand_layer = real_expand
+        wall, t1_ns = time.perf_counter() - t0, time.time_ns()
     st = res.stats
     spans = search_spans(t0_ns, t1_ns)
     phases = {

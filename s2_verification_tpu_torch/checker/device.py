@@ -78,6 +78,7 @@ import dataclasses
 import json
 import logging
 import os
+import threading
 import time
 import zipfile
 from collections import deque
@@ -97,6 +98,7 @@ from ..models.encode import (
 from ..models.stream import StreamState, step_set
 from ..obs.introspect import get_job_context
 from ..obs.trace import SEARCH_TRACER
+from ..ops import fold_cuda
 from ..ops.fold_cuda import fold_lanes
 from ..ops.step_kernel import DeviceOps, DeviceState, join_u64, step_kernel
 from ..ops.xxh3 import shr
@@ -138,6 +140,8 @@ __all__ = [
     "FETCH_NS",
     "CLOSE_SWEEPS",
     "TOKEN_CLOSES",
+    "GRAPH_CAPTURES",
+    "GRAPH_REPLAYS",
 ]
 
 log = logging.getLogger("s2_verification_tpu_torch.device")
@@ -154,6 +158,18 @@ _OPENS_CAP = 256
 #: rows of the first frontier bucket; capacity stops escalate from here
 _START_FRONTIER = 16
 
+#: the widest bucket whose layer expansion :func:`run_search` replays from a
+#: CUDA graph (:class:`_LayerGraph`): up to it a layer is bound by the
+#: host's launches (about 1,100 PyTorch calls an expansion against well
+#: under a millisecond of device work), and a graph's private memory pool
+#: stays small
+_GRAPH_MAX_ROWS = 4096
+#: eager expansions of one key in one :func:`run_search` call before its
+#: graph is captured: more than the adversarial escalation ladder runs in
+#: any one bucket (at most 3), so that a graph is captured only where
+#: hundreds of replays follow
+_GRAPH_AFTER = 8
+
 #: host<->device synchronisations made by the search (see :func:`_fetch`)
 SYNCS = [0]
 #: host nanoseconds spent inside those synchronisations (each counted site
@@ -167,6 +183,10 @@ CLOSE_SWEEPS = [0]
 #: the layer's head; counted by :func:`run_search` on one frontier (not the
 #: lane or sharded loops), for tables with such an op (``tok_close``)
 TOKEN_CLOSES = [0]
+#: layer-expansion graphs captured, and layer expansions replayed from
+#: them (:class:`_LayerGraph`; host, process-wide)
+GRAPH_CAPTURES = [0]
+GRAPH_REPLAYS = [0]
 
 
 class SearchTables(NamedTuple):
@@ -663,13 +683,18 @@ def _accept_rows(tables: SearchTables, counts, valid, cbase=None) -> torch.Tenso
 def _fold_step(tables: SearchTables, op_idx, state: DeviceState, lens=None):
     """Chain-hash folds of ``state.hash`` over the record batches of ops
     ``op_idx`` (any broadcast shape), through the fold wrapper: ONE kernel
-    launch on the card.  ``lens`` overrides the per-lane fold lengths."""
+    launch on the card.  ``lens`` overrides the per-lane fold lengths.
+    Inside a layer graph's capture (:func:`_capture_graph`) it calls
+    :func:`..ops.fold_cuda.fold_lanes` itself, not this module's name for
+    it, which a caller may have wrapped with host work that a capture
+    cannot hold."""
     ops = tables.ops
     shape = torch.broadcast_shapes(op_idx.shape, state.hash.shape)
     seed = state.hash.expand(shape).reshape(-1)
     row = ops.rh_row[op_idx].expand(shape).reshape(-1)
     length = (ops.rh_len[op_idx] if lens is None else lens).expand(shape).reshape(-1)
-    return fold_lanes(seed, row, length, ops.rh).reshape(shape)
+    capturing = seed.is_cuda and torch.cuda.is_current_stream_capturing()
+    return (fold_cuda.fold_lanes if capturing else fold_lanes)(seed, row, length, ops.rh).reshape(shape)
 
 
 def _fast_multi(tables: SearchTables, fr: Frontier, rows: torch.Tensor, run: torch.Tensor, budget: list[int],
@@ -1182,6 +1207,122 @@ def _spec_dive(
     return _dive(tables, Frontier(*(x[order] for x in entry)), depth, exact_pack, sort_dedup)
 
 
+# ---------------------------------------------------------------------------
+# The layer expansion replayed from a CUDA graph
+# ---------------------------------------------------------------------------
+
+
+def _graph_engages(device: torch.device, rows: int, *, chunked: bool, eager: int) -> bool:
+    """Whether the expansion of a ``rows``-row frontier on ``device`` is
+    replayed from a CUDA graph, after ``eager`` eager expansions in this
+    :func:`run_search` call: on CUDA, for an unchunked frontier of at most
+    :data:`_GRAPH_MAX_ROWS` rows, once :data:`_GRAPH_AFTER` eager
+    expansions have run."""
+    return device.type == "cuda" and not chunked and rows <= _GRAPH_MAX_ROWS and eager >= _GRAPH_AFTER
+
+
+_CAPTURE_LOCK = threading.Lock()
+
+
+def _capture_graph(body, device: torch.device):
+    """Capture ``body()`` (fixed shapes, no synchronisation) on ``device``
+    into a CUDA graph.  Returns ``(outputs, replay)``: the tensors the
+    capture returned, which every replay writes anew, and a callable that
+    replays the graph on the current stream and then hands each fold the
+    graph holds to :func:`..ops.fold_cuda.replayed` (the captured calls
+    launched nothing; their arguments, kept with the graph, hold each
+    replay's inputs).
+
+    As PyTorch's recipe has it, ``body`` first runs once on the capture
+    stream.  That also makes the fold wrapper's scratch of the stream
+    (:mod:`..ops.fold_cuda`) outside the capture, which the graph then
+    keeps as its own, so that no later launch on the stream grows or
+    shares what a replay reads.  The capture itself calls
+    ``capture_begin``/``capture_end``, not ``torch.cuda.graph``, whose
+    entry synchronises the device and empties the allocator's cache.  One
+    capture at a time in the process; other threads' CUDA calls meanwhile
+    are theirs (``thread_local``)."""
+    with _CAPTURE_LOCK, torch.cuda.device(device):
+        stream = torch.cuda.Stream()
+        stream.wait_stream(torch.cuda.current_stream())
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.stream(stream):
+            body()
+            graph.capture_begin(capture_error_mode="thread_local")
+            try:
+                outputs = body()
+            finally:
+                graph.capture_end()
+                folds = fold_cuda.take_captured()
+        torch.cuda.current_stream().wait_stream(stream)
+        held = graph, fold_cuda.take_scratch(stream.cuda_stream)
+
+    def replay():
+        held[0].replay()
+        for args in folds:
+            fold_cuda.replayed(*args)
+
+    return outputs, replay
+
+
+class _LayerGraph:
+    """The layer expansions of one :func:`run_search` call: eager, or
+    replayed from a CUDA graph once :func:`_graph_engages` says so.  One
+    call keeps its bucket, chains and flags, so it needs one graph, which
+    is dropped with the call, before the tables it reads.
+
+    The graph reads the closed frontier from static input buffers, which
+    :meth:`expand` copies it into, and writes the children, the four
+    scalars of the layer's fetch and, with ``log``, the witness log into
+    output buffers that the next replay overwrites.  So the next layer's
+    frontier views those buffers, and a stop that keeps the pre-expansion
+    frontier keeps the static inputs, which a replay reads and never
+    writes."""
+
+    def __init__(self, tables: SearchTables, **flags):
+        self.tables = tables
+        self.flags = flags
+        self.eager_runs = 0
+        #: (static inputs, outputs, replay) once captured
+        self.graph = None
+
+    def _body(self, fr: Frontier) -> tuple:
+        children, pruned, n_unique, expanded, wlog = _expand_layer(self.tables, fr, **self.flags)
+        return (*children, pruned, n_unique, expanded, children.valid.sum(), *(wlog or ()))
+
+    @staticmethod
+    def _split(out: tuple):
+        """``(children, head, wlog)``: ``head`` the device scalars (pruned,
+        unique children, candidates expanded, live children)."""
+        return Frontier(*out[:5]), out[5:9], out[9:] or None
+
+    def ready(self, fr: Frontier, chunked: bool) -> bool:
+        """Whether :meth:`expand` replays ``fr``'s expansion, capturing the
+        graph when it comes due."""
+        if self.graph is None:
+            dev = fr.valid.device
+            if not _graph_engages(dev, fr.capacity, chunked=chunked, eager=self.eager_runs):
+                return False
+            static = Frontier(*(x.clone() for x in fr))
+            self.graph = (static, *_capture_graph(lambda: self._body(static), dev))
+            GRAPH_CAPTURES[0] += 1
+        return True
+
+    def expand(self, fr: Frontier):
+        """Expand ``fr`` one layer, by the graph once captured, else
+        eagerly: ``(kept, children, head, wlog)``, ``kept`` the frontier a
+        stop keeps (``fr``, or the static inputs holding it)."""
+        if self.graph is None:
+            self.eager_runs += 1
+            return (fr, *self._split(self._body(fr)))
+        static, outputs, replay = self.graph
+        for x, y in zip(static, fr):
+            x.copy_(y)
+        replay()
+        GRAPH_REPLAYS[0] += 1
+        return (static, *self._split(outputs))
+
+
 def run_search(
     tables: SearchTables,
     frontier: Frontier,
@@ -1238,6 +1379,7 @@ def run_search(
     #: per committed layer: a device pair (parents, opbrs) of its live
     #: prefix, or a host triple for a forced step or an empty layer
     wlog: list = []
+    graphs = _LayerGraph(tables, allow_prune=allow_prune, exact_pack=exact_pack, sort_dedup=sort_dedup, log=log)
     fr = frontier
     stop = STOP_RUNNING
     layers = accept_idx = auto_closed = expanded = eager_closed = pin_killed = want = 0
@@ -1332,19 +1474,20 @@ def run_search(
             else:
                 deep_row, row_ops = fast_row[0][0], ops_h[0]
         else:
-            if chunk_rows and chunk_rows < fr.capacity:
+            chunked = bool(chunk_rows) and chunk_rows < fr.capacity
+            if graphs.ready(closed, chunked):
+                # The replay overwrites the buffers that the head's row may
+                # view (the last replay's children).
+                base_row = base_row.clone()
+            if chunked:
                 children, overflow, n_unique_t, exp_t, layer_wlog = _expand_layer_chunked(
                     tables, closed, chunk_rows=chunk_rows
                 )
                 pruned_t = torch.zeros((), dtype=torch.bool, device=closed.valid.device)
+                head = (pruned_t, n_unique_t, exp_t, children.valid.sum())
             else:
-                children, pruned_t, n_unique_t, exp_t, layer_wlog = _expand_layer(
-                    tables, closed, allow_prune=allow_prune, exact_pack=exact_pack,
-                    sort_dedup=sort_dedup, log=log,
-                )
-            pruned, n_unique, exp_n, children_live = _fetch(
-                pruned_t, n_unique_t, exp_t, children.valid.sum()
-            )
+                closed, children, head, layer_wlog = graphs.expand(closed)
+            pruned, n_unique, exp_n, children_live = _fetch(*head)
             pruned = bool(pruned)
             n_steps = 1
             if log:
@@ -2709,8 +2852,10 @@ def check_device(
     ``check.beam`` or ``check.exhaustive`` span, holding ``check.encode``
     (encoding and tables), one ``check.segment`` per :func:`run_search`
     call (with its syncs and their fetch time, :data:`FETCH_NS`, its
-    auto-close sweeps, :data:`CLOSE_SWEEPS`, and the ops the token arm
-    passed, :data:`TOKEN_CLOSES`),
+    auto-close sweeps, :data:`CLOSE_SWEEPS`, the ops the token arm
+    passed, :data:`TOKEN_CLOSES`, and the layer-expansion graphs captured
+    and the layers replayed from them, :data:`GRAPH_CAPTURES` and
+    :data:`GRAPH_REPLAYS`, as ``captures`` and ``graph_layers``),
     ``check.escalate`` per re-bucketing, ``check.spill``,
     ``check.witness`` (with the host folds it made natively,
     ``native_folds``), ``check.final_states`` and ``check.diagnose``.
@@ -2897,6 +3042,7 @@ def check_device(
         chunk_rows = f_cap if big_cap > f_cap and f > f_cap else 0
         t_seg, syncs_seg, fetch_seg = time.monotonic(), SYNCS[0], FETCH_NS[0]
         sweeps_seg, tok_seg = CLOSE_SWEEPS[0], TOKEN_CLOSES[0]
+        captures_seg, replays_seg = GRAPH_CAPTURES[0], GRAPH_REPLAYS[0]
         out = run_search(
             run_tables,
             frontier,
@@ -2915,7 +3061,8 @@ def check_device(
                 "check.segment", t_seg, stop=_STOP_NAMES[code], layers=out.layers, bucket=f,
                 chunked=chunk_rows > 0, syncs=SYNCS[0] - syncs_seg,
                 fetch_ms=(FETCH_NS[0] - fetch_seg) / 1e6, sweeps=CLOSE_SWEEPS[0] - sweeps_seg,
-                token_closes=TOKEN_CLOSES[0] - tok_seg,
+                token_closes=TOKEN_CLOSES[0] - tok_seg, captures=GRAPH_CAPTURES[0] - captures_seg,
+                graph_layers=GRAPH_REPLAYS[0] - replays_seg,
             )
         log.debug(
             "segment done: stop=%s layers=%d/%d live=%d expanded=%d",

@@ -240,24 +240,33 @@ def times(fn, reps: int, sm_hz: float) -> tuple[float, float, float]:
 @contextlib.contextmanager
 def recording_folds(dev_mod):
     """Record a clone of the arguments of every ``fold_lanes`` call the
-    search makes through ``dev_mod`` (checker.device) while inside.  A
-    search's table is one tensor that no call changes, so the calls on one
-    table tensor share one clone of it."""
+    search makes through ``dev_mod`` (checker.device) while inside, and of
+    every fold a replay of one of its CUDA graphs launches
+    (:func:`.ops.fold_cuda.replayed`), in the order they run.  A search's
+    table is one tensor that no call changes, so the calls on one table
+    tensor share one clone of it."""
     calls: list[list[torch.Tensor]] = []
     last = [None, None]  # the last table seen, and its clone
-    real = dev_mod.fold_lanes
+    real, real_replayed = dev_mod.fold_lanes, fold_cuda.replayed
 
-    def recording(seed, row, length, rh):
+    def record(seed, row, length, rh):
         if last[0] is not rh:
             last[:] = rh, rh.clone()
         calls.append([t.clone() for t in (seed, row, length)] + [last[1]])
+
+    def recording(seed, row, length, rh):
+        record(seed, row, length, rh)
         return real(seed, row, length, rh)
 
-    dev_mod.fold_lanes = recording
+    def recording_replayed(seed, row, length, rh):
+        record(seed, row, length, rh)
+        real_replayed(seed, row, length, rh)
+
+    dev_mod.fold_lanes, fold_cuda.replayed = recording, recording_replayed
     try:
         yield calls
     finally:
-        dev_mod.fold_lanes = real
+        dev_mod.fold_lanes, fold_cuda.replayed = real, real_replayed
 
 
 def random_inputs(r: int, l: int, n: int, seed: int, device: str = "cuda") -> list[torch.Tensor]:

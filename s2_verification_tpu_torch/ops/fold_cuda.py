@@ -21,11 +21,15 @@ on an H100).  It passes the stream's scratch: the counters (``torch.zeros``
 once per device and stream; the fold kernel leaves them at zero) and the
 lane list (``torch.empty`` int32, kept and grown to the widest call so far;
 calls on one stream run in order, so they can share it).  A failed launch
-drops both.  A call of at most
+drops both, and a CUDA graph that captured launches on the stream takes
+them for its own (:func:`take_scratch`).  A call of at most
 1024 lanes (the one-lane calls of ``_fast_multi``) runs the fold kernel
 alone on one block, one thread per lane, and needs neither.
 :data:`LAUNCHES` counts one per call, whether it launched two kernels or
-one.
+one.  A call made while its stream captures a CUDA graph launches nothing
+and is not counted: its owner takes the captured calls' arguments
+(:func:`take_captured`) and hands each to :func:`replayed` at every replay,
+which counts the launch.
 
 Build: at first use, ``nvcc -gencode arch=compute_90a,code=sm_90a`` compiles
 the source into a shared library with a plain C interface under
@@ -67,7 +71,10 @@ __all__ = [
     "compile_library",
     "fold_lanes",
     "fold_lanes_cuda",
+    "replayed",
     "reset_launches",
+    "take_captured",
+    "take_scratch",
 ]
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -87,12 +94,40 @@ LAST_LAUNCH: dict = {}
 _libs: dict[bool, ctypes.CDLL] = {}
 _plans: dict[tuple, tuple[int, int, int, int]] = {}
 _scratch: dict[tuple, tuple[torch.Tensor, torch.Tensor]] = {}
+#: the arguments of the calls captured since the last take_captured()
+_captured: list[tuple] = []
 _lock = threading.Lock()
 
 
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def take_scratch(stream: int) -> list:
+    """Take the scratch of the raw CUDA stream ``stream`` out of the
+    wrapper's keeping and return it: a CUDA graph that captured launches on
+    the stream holds it as its own from then on, so that no later launch on
+    the stream grows or shares what a replay of the graph reads."""
+    with _lock:
+        return [_scratch.pop(k) for k in [k for k in _scratch if k[2] == stream]]
+
+
+def take_captured() -> list[tuple]:
+    """The arguments ``(seed, row, length, rh)`` of the calls captured into
+    CUDA graphs since the last call, taken out of the wrapper's keeping.
+    A graph that keeps them keeps the memory its replays write them in."""
+    with _lock:
+        got = _captured[:]
+        _captured.clear()
+    return got
+
+
+def replayed(seed: torch.Tensor, row: torch.Tensor, length: torch.Tensor, rh: torch.Tensor) -> None:
+    """Count the launch of a captured call at a replay of its graph; the
+    arguments (:func:`take_captured`) hold that replay's inputs.  A
+    recorder of the calls may wrap this as it wraps :func:`fold_lanes`."""
+    LAUNCHES["fold_lanes"] += 1
 
 
 def nvcc_path() -> str:
@@ -283,7 +318,11 @@ def fold_lanes_cuda(
     if rc != 0 and counters is not None:
         _scratch.pop(key, None)  # a launch that failed may leave the counters nonzero
     _check(lib, rc, "launch")
-    LAUNCHES["fold_lanes"] += 1
+    if torch.cuda.is_current_stream_capturing():
+        with _lock:
+            _captured.append((seed, row, length, rh))
+    else:
+        LAUNCHES["fold_lanes"] += 1
     LAST_LAUNCH.update(shared=shared, blocks=blocks, grid_cap=grid_cap, block_lanes=block_lanes)
     return out
 

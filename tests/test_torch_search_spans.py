@@ -99,6 +99,9 @@ def test_a_check_records_its_spans_inside_its_phases(ring, case, monkeypatch):
     assert sum(e["args"]["layers"] for e in last) == phases[-1]["args"]["layers"]
     assert all(e["args"]["fetch_ms"] >= 0 and e["args"]["syncs"] >= 1 for e in last)
     assert sum(e["args"]["syncs"] for e in last) <= on.stats.host_syncs
+    # the CPU replays no layer from a graph, and every segment says so
+    segments = [e["args"] for e in spans if e["name"] == "check.segment"]
+    assert all(s["captures"] == 0 and s["graph_layers"] == 0 for s in segments)
     if "check.witness" in want:
         (w,) = [e for e in spans if e["name"] == "check.witness"]
         assert sum(witness_folds) > 0
